@@ -9,16 +9,27 @@ Phases, each printing a line:
 
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``).
-2. main path: every kernel launch count is set to 0, then the public entry
-   points solve the README sample, the fixture deck, RMAT-13 (``auto``) and
-   RMAT-18 (``fused`` and ``stepped``, cold and warm). Every forest must equal
-   the SciPy rank oracle edge for edge; every fused solve of L levels must
-   launch K1 L times and K2 L - 1 times; every kernel must have launched.
-   The library loads, and the K4 self-check runs, at the first solve.
+2. main path, three paths, each with every kernel launch count set to 0 just
+   before it and read just after:
+   a. flat: the public entry points solve the README sample, the fixture
+      deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
+      and warm). Every fused solve of L levels must launch K1 L times and K2
+      L - 1 times. The library loads, and the K4 self-check runs, at the
+      first solve.
+   b. ELL: ``solve_graph(strategy="ell")`` on the fixture deck and on
+      RMAT-18, cold (which builds the ELL buckets on the host) and warm.
+      Every ELL solve of L levels over B buckets must launch K3 B x (L - 1)
+      times and K1 L times, and take as many levels as the fused solve.
+   c. gather: the gather microbenchmark (``gather_probe``) at 2^24 and 2^26
+      indices, K5 against ``torch.index_select``.
+   Every forest must equal the SciPy rank oracle edge for edge; every
+   kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
-   sizes; then kernel and plain version timed with CUDA events on RMAT-18's
-   level-1 inputs.
+   sizes; then kernel, plain version and (where one exists) the one PyTorch
+   call for the same function timed with CUDA events at the main path's
+   shapes: RMAT-18's level-1 inputs for K1, K2 and K3 (K3 as the 15
+   launches of one level together), 2^24 and 2^26 indices for K5.
 4. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero without the last line. The script
@@ -28,8 +39,6 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -97,23 +106,20 @@ def _hook_forest(rng, n: int, kind: str):
     return has, dst.astype(np.int32), fragment.astype(np.int32)
 
 
-def _time_ms(fn, reps: int = 5, iters: int = 10) -> float:
-    """Median over ``reps`` of the mean time of ``iters`` calls, by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+def _ell_bucket(rng, n: int, rows: int, width: int, *, fragments: int, sorted_rows: bool):
+    """A random ELL bucket ``(fragment, verts, dstb, rankb)``: about a tenth
+    of the slots pad (rank INT32_MAX), the last row is a pad row of vertex 0,
+    and the fragment labels take ``fragments`` values, so that few or many
+    slots stay inside their row's fragment."""
+    fragment = rng.integers(0, fragments, n).astype(np.int32)
+    verts = rng.integers(0, n, rows).astype(np.int32)
+    dstb = rng.integers(0, n, (rows, width)).astype(np.int32)
+    rankb = rng.integers(0, 2**31 - 1, (rows, width)).astype(np.int32)
+    rankb[rng.random((rows, width)) < 0.1] = 2**31 - 1
+    if sorted_rows:
+        rankb.sort(axis=1)
+    verts[-1], dstb[-1], rankb[-1] = 0, 0, 2**31 - 1
+    return fragment, verts, dstb, rankb
 
 
 def _max_abs_err(got, want) -> int:
@@ -137,9 +143,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from distributed_ghs_implementation_tpu_torch import (
+        gather_probe,
         minimum_spanning_forest,
         minimum_spanning_tree,
     )
+    from distributed_ghs_implementation_tpu_torch.device import card_description, cuda_time_ms
     from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
     from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
     from distributed_ghs_implementation_tpu_torch.models import boruvka
@@ -151,11 +159,7 @@ def main() -> int:
         verify_result,
     )
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
+    print(f"card: {card_description()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # -- 1. build -----------------------------------------------------------
@@ -179,8 +183,16 @@ def main() -> int:
           f"{rmat13.num_edges} edges; RMAT-18 {rmat18.num_nodes} vertices {rmat18.num_edges} edges")
 
     # -- 2. main path -------------------------------------------------------
-    for w in kernels.WRAPPERS:
-        w.launches = 0
+    def zero_counts():
+        for w in kernels.WRAPPERS:
+            w.launches = 0
+
+    def read_counts(path, want):
+        counts = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        idle = [name for name in want if counts[name] < 1]
+        if idle:
+            raise AssertionError(f"{path} path: {idle} never launched: {counts}")
+        return counts
 
     def check(name, edge_ids, weight):
         if not np.array_equal(edge_ids, oracle[name]):
@@ -203,6 +215,27 @@ def main() -> int:
         check(name, edge_ids, float(graphs[name].w[edge_ids].sum()))
         return wall, {"levels": levels, "hook_compress": d1, "gather_key": d2}
 
+    def counted_ell(name):
+        """Run an ELL solve; K1 must launch once per level, K3 once per
+        bucket on every level after level 0."""
+        g = graphs[name]
+        k1, k3 = kernels.hook_compress.launches, kernels.ell_row_min.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        edge_ids, _, levels = boruvka.solve_graph(g, strategy="ell")
+        wall = time.perf_counter() - t
+        d1 = kernels.hook_compress.launches - k1
+        d3 = kernels.ell_row_min.launches - k3
+        buckets = len(g.ell_buckets)
+        if (d1, d3) != (levels, buckets * (levels - 1)):
+            raise AssertionError(
+                f"{name}: {levels} levels over {buckets} buckets but K1 x{d1}, K3 x{d3}")
+        check(name, edge_ids, float(g.w[edge_ids].sum()))
+        return wall, {"levels": levels, "buckets": buckets, "hook_compress": d1,
+                      "ell_row_min": d3}
+
+    # 2a. flat path
+    zero_counts()
     t_main = time.perf_counter()
     r = minimum_spanning_tree(deck["readme"])
     if r.total_weight != 20 or not verify_result(r).ok:
@@ -237,13 +270,38 @@ def main() -> int:
         if stepped_levels != per_solve["levels"]:
             raise AssertionError(
                 f"stepped took {stepped_levels} levels, fused {per_solve['levels']}")
-    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    main["launches"] = launches
+    flat_counts = read_counts("flat", ("gather_key", "hook_compress", "probe"))
+    main["launches"] = flat_counts
     main["rmat18_fused_warm_edges_per_s"] = rmat18.num_edges / main["rmat18_fused_warm_s"]
-    print(f"main path: {time.perf_counter() - t_main:.2f} s, all forests equal the rank "
+    print(f"main path, flat: {time.perf_counter() - t_main:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps(main)}")
+
+    # 2b. ELL path
+    zero_counts()
+    t_ell = time.perf_counter()
+    ell = {}
+    for name in deck:
+        counted_ell(name)
+    for run in ("cold", "warm"):  # cold builds RMAT-18's ELL buckets on the host
+        ell[f"rmat18_ell_{run}_s"], ell_solve = counted_ell("rmat18")
+        ell["rmat18_ell_launches"] = ell_solve
+    if ell_solve["levels"] != per_solve["levels"]:
+        raise AssertionError(f"ELL took {ell_solve['levels']} levels, fused {per_solve['levels']}")
+    ell_counts = read_counts("ELL", ("ell_row_min", "hook_compress"))
+    ell["launches"] = ell_counts
+    ell["rmat18_ell_warm_edges_per_s"] = rmat18.num_edges / ell["rmat18_ell_warm_s"]
+    print(f"main path, ELL: {time.perf_counter() - t_ell:.2f} s, all forests equal the rank "
+          f"oracle; {json.dumps(ell)}")
+
+    # 2c. gather microbenchmark path
+    zero_counts()
+    t_probe = time.perf_counter()
+    probe_records = gather_probe.run()
+    probe_counts = read_counts("gather", ("gather",))
+    print(f"main path, gather probe: {time.perf_counter() - t_probe:.2f} s; "
+          f"{json.dumps({'records': probe_records, 'launches': probe_counts})}")
+    launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
+                for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -252,7 +310,7 @@ def main() -> int:
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    err = {"gather_key": 0, "hook_compress": 0, "probe": 0}
+    err = {w.__name__: 0 for w in kernels.WRAPPERS}
     n18 = rmat18.num_nodes
     for e in (1, 1000, (1 << 20) + 3, 1 << 23):
         frag = put(rng.integers(0, n18, n18).astype(np.int32))
@@ -273,12 +331,42 @@ def main() -> int:
                 put(rng.integers(0, 256, (2, 128)).astype(np.int32))):
         err["probe"] = max(err["probe"], _max_abs_err(
             (kernels.probe(table, idx),), (kernels.probe_torch(table, idx),)))
+
+    # K3 on RMAT-18's own buckets with its level-1 fragment ...
+    buckets, ra18, rb18, n_pad = boruvka.prepare_ell_arrays(rmat18)
+    frag1_ell, _, _ = boruvka._ell_level(
+        torch.arange(n_pad, dtype=torch.int32, device=dev),
+        torch.zeros(ra18.shape[0], dtype=torch.uint8, device=dev),
+        buckets, ra18, rb18, identity_fragment=True)
+    for b in buckets:
+        err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
+            (kernels.ell_row_min(frag1_ell, *b),), (kernels.ell_row_min_torch(frag1_ell, *b),)))
+    # ... and on random buckets of every width class, odd widths and 1-row buckets.
+    ell_cases = [(max(1, (1 << 20) // w), w) for w in (1 << k for k in range(16))]
+    ell_cases += [(1, 32768), (1, 1), (3, 7), (5, 33), (7, 600), (2, 5000)]
+    for i, (rows, width) in enumerate(ell_cases):
+        arrays = _ell_bucket(rng, n18, rows, width, fragments=3 if i % 2 else n18,
+                             sorted_rows=i % 3 == 0)
+        args = [put(a) for a in arrays]
+        err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
+            (kernels.ell_row_min(*args),), (kernels.ell_row_min_torch(*args),)))
+
+    # K5 at 1 to 2^26 indices, and once from an offset that is not 16-byte aligned.
+    gtable = put(rng.integers(0, 1 << 30, gather_probe.TABLE_SIZE).astype(np.int32))
+    for m in (1, 1000, (1 << 24) + 3, 1 << 26):
+        gidx = put(rng.integers(0, gather_probe.TABLE_SIZE, m).astype(np.int32))
+        err["gather"] = max(err["gather"], _max_abs_err(
+            (kernels.gather(gtable, gidx),), (kernels.gather_torch(gtable, gidx),)))
+    gidx = gidx[1:1002]
+    err["gather"] = max(err["gather"], _max_abs_err(
+        (kernels.gather(gtable, gidx),), (kernels.gather_torch(gtable, gidx),)))
     if any(err.values()):
         raise AssertionError(f"kernel and plain version disagree: {err}")
     print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 forests, "
-          f"2 K4 blocks")
+          f"2 K4 blocks, {len(buckets)} RMAT-18 + {len(ell_cases)} random K3 buckets, "
+          f"5 K5 index vectors")
 
-    # Timing on RMAT-18's level-1 inputs: the main path's shapes and data.
+    # Timing at the main path's shapes and data: RMAT-18's level-1 inputs.
     frag0, src, dst, rank, ra, rb = boruvka.prepare_device_arrays(rmat18)
     state = boruvka.BoruvkaState(
         frag0, torch.zeros(ra.shape[0], dtype=torch.uint8, device=dev), 0,
@@ -288,40 +376,70 @@ def main() -> int:
     n, e = frag1.numel(), src.numel()
     idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
     idx64 = idx.long()  # torch.take wants int64 indices
+    per_bucket = [
+        (tuple(b[1].shape), cuda_time_ms(lambda b=b: kernels.ell_row_min(frag1_ell, *b)))
+        for b in buckets]
+    print("time ell_row_min per RMAT-18 bucket (rows, W): " + ", ".join(
+        f"{shape} {ms:.4f} ms" for shape, ms in per_bucket))
+    ell_slots = sum(b[1].numel() for b in buckets)
+    ell_rows = sum(b[0].numel() for b in buckets)
+    g24 = put(rng.integers(0, gather_probe.TABLE_SIZE, 1 << 24).astype(np.int32))
+    g26 = put(rng.integers(0, gather_probe.TABLE_SIZE, 1 << 26).astype(np.int32))
     rows = [
-        ("gather_key", "pallas_kernels.py:492",
+        ("gather_key", f"{JAX_OPS}/pallas_kernels.py:492",
          lambda: kernels.gather_key(frag1, src, dst, rank),
          lambda: kernels.gather_key_torch(frag1, src, dst, rank),
          None, 4 * n + 20 * e, f"n={n} e={e}"),
-        ("hook_compress", "pallas_kernels.py:516",
+        ("hook_compress", f"{JAX_OPS}/pallas_kernels.py:516",
          lambda: kernels.hook_compress(has1, d1, frag1),
          lambda: kernels.hook_compress_torch(has1, d1, frag1),
          None, 17 * n, f"n={n} jumps={kernels.num_jumps(n)}"),
-        ("probe", "pallas_kernels.py:210",
+        ("probe", f"{JAX_OPS}/pallas_kernels.py:210",
          lambda: kernels.probe(table, idx),
          lambda: kernels.probe_torch(table, idx),
          lambda: torch.take(table, idx64), 3 * 1024, "table=256 idx=2x128"),
+        ("ell_row_min", f"{JAX_OPS}/pallas_kernels.py:465",
+         lambda: [kernels.ell_row_min(frag1_ell, *b) for b in buckets],
+         lambda: [kernels.ell_row_min_torch(frag1_ell, *b) for b in buckets],
+         None, 8 * ell_slots + 8 * ell_rows + 4 * n_pad,
+         f"one level: {len(buckets)} buckets, {ell_rows} rows, {ell_slots} slots, n={n_pad}"),
+        ("gather", "tools/test_pallas_gather.py:46",
+         lambda: kernels.gather(gtable, g24),
+         lambda: kernels.gather_torch(gtable, g24),
+         lambda: torch.index_select(gtable, 0, g24),
+         8 * g24.numel() + 4 * gtable.numel(), "table=2^20 idx=2^24"),
     ]
     out = []
     for name, replaces, kern, plain, library, nbytes, shape in rows:
-        kern_ms = _time_ms(kern)
-        plain_ms = _time_ms(plain)
+        kern_ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain)
         out.append({
             "name": name,
             "route": "cuda",
             "source": f"{PORT}/csrc/{name}.cu",
-            "replaces": f"{JAX_OPS}/{replaces}",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": err[name],
             "ms": kern_ms,
             "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": _time_ms(library) if library else None,
+            "library_ms": cuda_time_ms(library) if library else None,
             "shape": shape,
         })
         print(f"time {name} ({shape}): kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    at26 = {
+        "shape": "table=2^20 idx=2^26",
+        "ms": cuda_time_ms(lambda: kernels.gather(gtable, g26)),
+        "plain_ms": cuda_time_ms(lambda: kernels.gather_torch(gtable, g26)),
+        "library_ms": cuda_time_ms(lambda: torch.index_select(gtable, 0, g26)),
+        "bound_ms": (8 * g26.numel() + 4 * gtable.numel()) / HBM_BYTES_PER_S * 1e3,
+    }
+    out[-1]["at_2^26"] = at26
+    print(f"time gather ({at26['shape']}): kernel {at26['ms']:.4f} ms, plain "
+          f"{at26['plain_ms']:.4f} ms, index_select {at26['library_ms']:.4f} ms, "
+          f"bound {at26['bound_ms']:.4f} ms")
 
     # -- 4. result ----------------------------------------------------------
     print(json.dumps({"kernels": out}))

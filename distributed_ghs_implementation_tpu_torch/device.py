@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and what stands beside a
+measurement on the card (its name and power limit, CUDA-event timing).
 
 Every entry point takes ``device=None``, and ``None`` means ``"cuda"``. The
 port never runs on the CPU unless the caller asks for it: the CPU path runs
@@ -6,6 +7,9 @@ the plain PyTorch versions of the kernels and exists for tests.
 """
 
 from __future__ import annotations
+
+import statistics
+import subprocess
 
 import torch
 
@@ -21,3 +25,31 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def card_description() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``--query-gpu=name,power.limit``), to stand beside every number
+    measured on it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int = 5, iters: int = 10) -> float:
+    """Median over ``reps`` of the mean time of ``iters`` calls of ``fn``,
+    by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)

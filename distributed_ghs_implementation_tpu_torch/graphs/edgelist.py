@@ -165,6 +165,59 @@ class Graph:
         """Edge ids sorted by ``(weight, edge id)``: a stable sort by weight."""
         return np.argsort(self.w, kind="stable")
 
+    @functools.cached_property
+    def ell_buckets(self):
+        """Degree-bucketed ELL layout of the directed adjacency.
+
+        Vertices split by degree class ``(W/2, W]`` (``W`` a power of two)
+        into one bucket each: ``(verts[Vb], dst[Vb, W], rank[Vb, W])``, int32.
+        A row holds one vertex's slots in rank order (the identity level
+        reads the first entry as the row minimum); short rows pad with the
+        vertex itself as destination and rank INT32_MAX. ``Vb`` pads to a
+        power of two with rows of vertex 0, destination 0 and rank
+        INT32_MAX, inert under the scatter-min that collects per-vertex
+        minima.
+        """
+        n, m = self.num_nodes, self.num_edges
+        rank_of_edge = np.empty(m, dtype=np.int64)
+        rank_of_edge[self._rank_order] = np.arange(m)
+        ds = np.concatenate([self.u, self.v])
+        dd = np.concatenate([self.v, self.u])
+        dr = np.concatenate([rank_of_edge, rank_of_edge])
+        o2 = np.lexsort((dr, ds))
+        dd, dr, ds = dd[o2], dr[o2], ds[o2]
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.add.at(indptr, ds + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        deg = np.diff(indptr)
+
+        def pow2(x: int) -> int:
+            return 1 << max(0, int(x - 1).bit_length())
+
+        buckets = []
+        w = 1
+        max_deg = int(deg.max()) if n else 0
+        while w <= max(1, pow2(max_deg)):
+            lo = (w >> 1) + 1 if w > 1 else 1
+            sel = (deg >= lo) & (deg <= w)
+            if sel.any():
+                verts = np.nonzero(sel)[0].astype(np.int64)
+                vb = len(verts)
+                vb_pad = pow2(vb)
+                pos = indptr[verts][:, None] + np.arange(w)[None, :]
+                valid = np.arange(w)[None, :] < deg[verts][:, None]
+                pos = np.where(valid, pos, 0)
+                dstb = np.where(valid, dd[pos], verts[:, None]).astype(np.int32)
+                rankb = np.where(valid, dr[pos], INT32_MAX).astype(np.int32)
+                if vb_pad > vb:
+                    pad = vb_pad - vb
+                    verts = np.concatenate([verts, np.zeros(pad, dtype=np.int64)])
+                    dstb = np.vstack([dstb, np.zeros((pad, w), dtype=np.int32)])
+                    rankb = np.vstack([rankb, np.full((pad, w), INT32_MAX, dtype=np.int32)])
+                buckets.append((verts.astype(np.int32), dstb, rankb))
+            w <<= 1
+        return buckets
+
     def edge_id_of_rank(self, ranks: np.ndarray) -> np.ndarray:
         """Map ranks (as produced by :meth:`rank_arrays`) back to edge ids."""
         return self._rank_order[ranks]

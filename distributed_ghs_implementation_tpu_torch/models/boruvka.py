@@ -1,7 +1,7 @@
 """Batched Borůvka/GHS minimum-spanning-forest solver on PyTorch.
 
-Port of the flat and stepped paths of the JAX package's
-``models/boruvka.py``. One *level* is:
+Port of the flat, stepped and single-device ELL paths of the JAX package's
+``models/boruvka.py``. One *level* of the flat paths is:
 
   1. ``fragment_moe``: per-fragment minimum outgoing edge, one rank-keyed
      segment minimum (K2 ``gather_key`` on the card, past level 0),
@@ -29,7 +29,12 @@ import torch
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
-from distributed_ghs_implementation_tpu_torch.ops.segment_ops import INT32_MAX, fragment_moe
+from distributed_ghs_implementation_tpu_torch.ops import kernels
+from distributed_ghs_implementation_tpu_torch.ops.segment_ops import (
+    INT32_MAX,
+    fragment_moe,
+    segment_min,
+)
 from distributed_ghs_implementation_tpu_torch.ops.union_find import hook_and_compress
 
 
@@ -128,6 +133,89 @@ def _solve_from_iota(src, dst, rank, ra, rb, *, num_nodes: int):
     state = boruvka_level(state, src, dst, rank, ra, rb, identity_fragment=True)
     final = _run_levels(state, src, dst, rank, ra, rb)
     return final.mst_ranks, final.fragment, final.level
+
+
+# ---------------------------------------------------------------------------
+# ELL (degree-bucketed) variant.
+#
+# Graph.ell_buckets lays the directed adjacency out as 2-D blocks, one per
+# degree class, so the per-vertex MOE is a dense masked row minimum (K3
+# ``ell_row_min`` on the card, one launch per bucket) and the only scatters
+# left are n-sized: the row minima into per-vertex minima, then those into
+# per-fragment minima.
+# ---------------------------------------------------------------------------
+
+
+def _ell_level(fragment, mst_ranks, buckets, ra, rb, *, identity_fragment=False):
+    """One level over ELL buckets; returns ``(fragment2, mst_ranks, has_any)``
+    and updates ``mst_ranks`` in place.
+
+    ``identity_fragment`` marks level 0, where ``fragment == arange(n)``:
+    rows hold no self-edges, so every entry is outgoing, and rows are in
+    rank order, so the first entry is the row minimum.
+    """
+    n = fragment.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=fragment.device)
+    vmin = torch.full((n,), INT32_MAX, dtype=torch.int32, device=fragment.device)
+    for verts, dstb, rankb in buckets:
+        if identity_fragment:
+            row_min = rankb[:, 0]
+        else:
+            row_min = kernels.ell_row_min(fragment, verts, dstb, rankb)
+        # Pad rows alias vertex 0 with INT32_MAX: a min-scatter, not a store.
+        vmin.scatter_reduce_(0, verts.long(), row_min, "amin")
+    moe = vmin if identity_fragment else segment_min(vmin, fragment, n)
+    has = moe < INT32_MAX
+    safe = torch.where(has, moe, 0)
+    if identity_fragment:
+        fa, fb = ra[safe], rb[safe]
+    else:
+        fa, fb = fragment[ra[safe]], fragment[rb[safe]]
+    dst_frag = torch.where(has, torch.where(fa == ids, fb, fa), ids)
+    fragment2, _ = hook_and_compress(has, dst_frag, fragment)
+    return fragment2, _mark(mst_ranks, has, moe), has.any()
+
+
+def ell_solve_loop(buckets, ra, rb, *, num_nodes: int):
+    """Full ELL solve from the identity partition: the identity level, then
+    one level at a time while a fragment has an outgoing edge, capped at
+    ``_max_levels(num_nodes)``. Returns ``(mst_ranks, fragment, levels)``."""
+    fragment = torch.arange(num_nodes, dtype=torch.int32, device=ra.device)
+    mst_ranks = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
+    fragment, mst_ranks, has = _ell_level(
+        fragment, mst_ranks, buckets, ra, rb, identity_fragment=True,
+    )
+    levels, max_levels = 1, _max_levels(num_nodes)
+    while levels < max_levels and bool(has):
+        fragment, mst_ranks, has = _ell_level(fragment, mst_ranks, buckets, ra, rb)
+        levels += 1
+    return mst_ranks, fragment, levels
+
+
+def host_ell_arrays(graph: Graph):
+    """The ELL staging's host half: ``(buckets, ra, rb, n_pad)`` as NumPy
+    arrays, with ``ra``/``rb`` padded to ``next_pow2(m)`` ranks."""
+    ra, rb = graph.rank_endpoints(pad_to=_next_pow2(graph.num_edges))
+    return graph.ell_buckets, ra, rb, _next_pow2(graph.num_nodes)
+
+
+def ell_arrays_from_numpy(buckets, ra, rb, *, device):
+    """``(buckets, ra, rb)`` as int32 tensors on ``device``, from NumPy
+    arrays such as the JAX package's ``prepare_ell_arrays`` gives."""
+    device = resolve_device(device)
+    return (
+        tuple(tuple(_to_device(a, torch.int32, device) for a in b) for b in buckets),
+        _to_device(ra, torch.int32, device),
+        _to_device(rb, torch.int32, device),
+    )
+
+
+def prepare_ell_arrays(graph: Graph, *, device=None):
+    """Host->device staging for the ELL solve: ``(buckets, ra, rb, n_pad)``
+    on ``device`` (``None`` = CUDA)."""
+    device = resolve_device(device)
+    buckets, ra, rb, n_pad = host_ell_arrays(graph)
+    return (*ell_arrays_from_numpy(buckets, ra, rb, device=device), n_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -334,10 +422,11 @@ def solve_graph(
 
     ``strategy``: ``"fused"`` = the flat level loop from the identity
     partition; ``"stepped"`` = host-stepped levels with edge compaction;
-    ``"auto"`` = ``fused`` below ``ELL_AUTO_EDGE_THRESHOLD`` edges. The rank
-    solver (``"rank"``, and ``"auto"`` at or above the threshold) and the
-    ELL layout (``"ell"``) are not ported yet and raise. A kernel that fails
-    raises; nothing re-runs on another path.
+    ``"ell"`` = the degree-bucketed level loop (``bucket_shapes`` does not
+    apply: its arrays always pad to powers of two); ``"auto"`` = ``fused``
+    below ``ELL_AUTO_EDGE_THRESHOLD`` edges. The rank solver (``"rank"``,
+    and ``"auto"`` at or above the threshold) is not ported yet and raises.
+    A kernel that fails raises; nothing re-runs on another path.
     """
     device = resolve_device(device)
     n = graph.num_nodes
@@ -351,18 +440,22 @@ def solve_graph(
                 "queue 1 item 5); pass strategy='fused' or 'stepped'"
             )
         strategy = "fused"
-    if strategy in ("rank", "ell"):
-        item = "queue 1 item 5" if strategy == "rank" else "queue 2 K3"
+    if strategy == "rank":
         raise NotImplementedError(
-            f"strategy={strategy!r} is not ported yet (ROADMAP {item})"
+            "strategy='rank' is not ported yet (ROADMAP queue 1 item 5)"
         )
-    if strategy not in ("fused", "stepped"):
+    if strategy not in ("fused", "stepped", "ell"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    args = prepare_device_arrays(graph, bucket_shapes=bucket_shapes, device=device)
-    if strategy == "stepped":
-        mst_ranks, fragment, levels = solve_arrays_stepped(*args)
+    if strategy == "ell":
+        buckets, ra, rb, n_pad = prepare_ell_arrays(graph, device=device)
+        mst_ranks, fragment, levels = ell_solve_loop(buckets, ra, rb, num_nodes=n_pad)
     else:
-        mst_ranks, fragment, levels = _solve_from_iota(*args[1:], num_nodes=args[0].shape[0])
+        args = prepare_device_arrays(graph, bucket_shapes=bucket_shapes, device=device)
+        if strategy == "stepped":
+            mst_ranks, fragment, levels = solve_arrays_stepped(*args)
+        else:
+            mst_ranks, fragment, levels = _solve_from_iota(
+                *args[1:], num_nodes=args[0].shape[0])
     ranks = torch.nonzero(mst_ranks).flatten().cpu().numpy()
     edge_ids = np.sort(graph.edge_id_of_rank(ranks))
     return edge_ids, fragment.cpu().numpy()[:n], int(levels)

@@ -36,6 +36,10 @@ _SIGNATURES = {
         ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
     ),
     "ghs_probe": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
+    "ghs_ell_row_min": (
+        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
+    ),
+    "ghs_gather": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
 }
 
 

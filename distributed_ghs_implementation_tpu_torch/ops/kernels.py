@@ -199,5 +199,80 @@ def probe(table, idx):
 
 probe.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K3 ell_row_min (csrc/ell_row_min.cu)
+# ---------------------------------------------------------------------------
+def ell_row_min_torch(fragment, verts, dstb, rankb):
+    """Per ELL row, the least rank among the row's slots that leave the
+    row vertex's fragment; INT32_MAX where none does."""
+    fv = fragment[verts]
+    fd = fragment[dstb]
+    return torch.where(fd != fv[:, None], rankb, INT32_MAX).amin(1)
+
+
+def ell_row_min(fragment, verts, dstb, rankb):
+    """K3: one ELL bucket's masked row minimum. Replaces
+    ``fused_ell_row_min`` (JAX package ``ops/pallas_kernels.py:465``)."""
+    if fragment.device.type == "cpu":
+        return ell_row_min_torch(fragment, verts, dstb, rankb)
+    device = _validate("ell_row_min", {
+        "fragment": fragment, "verts": verts, "dstb": dstb, "rankb": rankb,
+    })
+    if (fragment.dim() != 1 or verts.dim() != 1 or dstb.dim() != 2 or dstb.shape[1] < 1
+            or dstb.shape != rankb.shape or dstb.shape[0] != verts.shape[0]):
+        raise ValueError(
+            f"ell_row_min: want fragment[n], verts[rows] and dstb/rankb[rows, W >= 1], got "
+            f"{tuple(fragment.shape)}, {tuple(verts.shape)}, {tuple(dstb.shape)}, "
+            f"{tuple(rankb.shape)}"
+        )
+    rows, width = dstb.shape
+    out = torch.empty_like(verts)
+    if rows:
+        lib = _lib()
+        _check("ell_row_min", lib, lib.ghs_ell_row_min(
+            device.index, fragment.data_ptr(), verts.data_ptr(), dstb.data_ptr(),
+            rankb.data_ptr(), out.data_ptr(), rows, width, _stream(device),
+        ))
+        ell_row_min.launches += 1
+    return out
+
+
+ell_row_min.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 gather (csrc/gather.cu)
+# ---------------------------------------------------------------------------
+def gather_torch(table, idx):
+    """``table[idx]``."""
+    return table[idx.long()]
+
+
+def gather(table, idx):
+    """K5: the random gather ``out[i] = table[idx[i]]`` of the gather
+    microbenchmark (``gather_probe``). Replaces ``pallas_gather`` (JAX
+    package tool ``tools/test_pallas_gather.py:46``). Indices must lie in
+    ``[0, len(table))``; the kernel does not check them."""
+    if table.device.type == "cpu":
+        return gather_torch(table, idx)
+    device = _validate("gather", {"table": table, "idx": idx})
+    if table.dim() != 1 or idx.dim() != 1:
+        raise ValueError(
+            f"gather: want table[n] and idx[m], got {tuple(table.shape)}, {tuple(idx.shape)}"
+        )
+    out = torch.empty_like(idx)
+    if idx.numel():
+        lib = _lib()
+        _check("gather", lib, lib.ghs_gather(
+            device.index, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            idx.numel(), _stream(device),
+        ))
+        gather.launches += 1
+    return out
+
+
+gather.launches = 0
+
 #: Every kernel wrapper, for code that reads or resets the launch counts.
-WRAPPERS = (gather_key, hook_compress, probe)
+WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather)

@@ -1,28 +1,28 @@
 """Where one solve's time goes on the card.
 
-    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve [--strategy fused]
+    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve [--strategy fused|stepped|ell]
 
 Solves RMAT-18 (edge factor 16, seed 1: the largest graph ``chip_smoke.py``
-drives) once to warm up, then once more split into its phases
-(host rank arrays, host-to-device copy, level loop, harvest of the edge
-ids), timed on the host clock around ``torch.cuda.synchronize()``, then once
-more under ``torch.profiler``: the device's busy time is the union of its
-kernel and copy intervals, its idle share is the rest of the solve's wall
-time. Prints one JSON line, with the card's name and power limit.
+drives) once to warm up, then once more split into its phases (the host
+arrays: ``rank_arrays`` for the flat strategies, ``ell_buckets`` for
+``ell``; host-to-device copy; level loop; harvest of the edge ids), timed
+on the host clock around ``torch.cuda.synchronize()``, then once more under
+``torch.profiler``: the device's busy time is the union of its kernel and
+copy intervals, its idle share is the rest of the solve's wall time. Prints
+one JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
 
-from distributed_ghs_implementation_tpu_torch.device import resolve_device
+from distributed_ghs_implementation_tpu_torch.device import card_description, resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph
 from distributed_ghs_implementation_tpu_torch.models import boruvka
 
@@ -30,15 +30,34 @@ from distributed_ghs_implementation_tpu_torch.models import boruvka
 SCALE, EDGE_FACTOR, SEED = 18, 16, 1
 
 
+def _drop_cached_buckets(graph) -> None:
+    """Forget ``graph.ell_buckets`` (a cached property), so that the next
+    ELL solve builds them as a solve of a new graph would; the rank order
+    stays cached, as it does for the flat strategies."""
+    graph.__dict__.pop("ell_buckets", None)
+
+
 def _phases(graph, strategy: str, device) -> dict:
-    sync = torch.cuda.synchronize
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    _drop_cached_buckets(graph)
     t0 = time.perf_counter()
-    host = boruvka.host_arrays(graph)
+    if strategy == "ell":
+        host = boruvka.host_ell_arrays(graph)
+    else:
+        host = boruvka.host_arrays(graph)
     t1 = time.perf_counter()
-    args = boruvka.arrays_from_numpy(*host, device=device)
+    if strategy == "ell":
+        buckets, ra, rb = boruvka.ell_arrays_from_numpy(*host[:3], device=device)
+    else:
+        args = boruvka.arrays_from_numpy(*host, device=device)
     sync()
     t2 = time.perf_counter()
-    if strategy == "stepped":
+    if strategy == "ell":
+        mst, _, levels = boruvka.ell_solve_loop(buckets, ra, rb, num_nodes=host[3])
+    elif strategy == "stepped":
         mst, _, levels = boruvka.solve_arrays_stepped(*args)
     else:
         mst, _, levels = boruvka._solve_from_iota(*args[1:], num_nodes=args[0].shape[0])
@@ -47,7 +66,8 @@ def _phases(graph, strategy: str, device) -> dict:
     ranks = torch.nonzero(mst).flatten().cpu().numpy()
     np.sort(graph.edge_id_of_rank(ranks))
     t4 = time.perf_counter()
-    return {"levels": levels, "host_rank_arrays_s": t1 - t0, "h2d_s": t2 - t1,
+    host_key = "host_ell_buckets_s" if strategy == "ell" else "host_rank_arrays_s"
+    return {"levels": levels, host_key: t1 - t0, "h2d_s": t2 - t1,
             "level_loop_s": t3 - t2, "harvest_s": t4 - t3, "total_s": t4 - t0}
 
 
@@ -74,17 +94,15 @@ def _device_busy(prof) -> tuple[float, dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--strategy", choices=("fused", "stepped"), default="fused")
+    ap.add_argument("--strategy", choices=("fused", "stepped", "ell"), default="fused")
     args = ap.parse_args(argv)
     device = resolve_device(None)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_description()
     graph = rmat_graph(SCALE, EDGE_FACTOR, seed=SEED)
     boruvka.solve_graph(graph, strategy=args.strategy, device=device)  # warm-up
     phases = _phases(graph, args.strategy, device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _drop_cached_buckets(graph)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         boruvka.solve_graph(graph, strategy=args.strategy, device=device)

@@ -21,46 +21,14 @@ from distributed_ghs_implementation_tpu_torch.graphs import edgelist as tedge
 from distributed_ghs_implementation_tpu_torch.graphs import generators as tgen
 from distributed_ghs_implementation_tpu_torch.models import boruvka as tb
 from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+from torch_inputs import DECK, build_deck
 
 CPU = "cpu"
 
 
-def _forest(Graph, gen, **native):
-    """Three RMAT-7 blocks made connected by spanning paths, plus 20
-    isolated vertices: 23 components (``__graft_entry__.py:121-145``)."""
-    rng = np.random.default_rng(11)
-    parts, base = [], 0
-    for nn in (70, 50, 40):
-        comp = gen.rmat_graph(7, 4, seed=nn, **native)
-        keep = (comp.u < nn) & (comp.v < nn)
-        parts.append(np.stack([comp.u[keep] + base, comp.v[keep] + base, comp.w[keep]], 1))
-        ids = np.arange(nn - 1)
-        parts.append(np.stack([ids + base, ids + 1 + base, rng.integers(1, 255, nn - 1)], 1))
-        base += nn
-    edges = np.concatenate(parts)
-    return Graph.from_arrays(base + 20, edges[:, 0], edges[:, 1], edges[:, 2])
-
-
-DECK = {
-    "er48": lambda g, **k: g.erdos_renyi_graph(48, 0.2, seed=11),
-    "rmat12": lambda g, **k: g.rmat_graph(12, 8, seed=11, **k),
-    "road40": lambda g, **k: g.random_road_network(40, 40, seed=11),
-    "forest23": None,
-    "readme": lambda g, **k: g.readme_sample_graph(),
-}
-
-
 @pytest.fixture(scope="module")
 def deck():
-    out = {}
-    for name, make in DECK.items():
-        if make is None:
-            out[name] = (_forest(jedge.Graph, jgen, use_native=False),
-                         _forest(tedge.Graph, tgen))
-        else:
-            kw = {"use_native": False} if name.startswith("rmat") else {}
-            out[name] = (make(jgen, **kw), make(tgen))
-    return out
+    return build_deck(jedge, jgen, tedge, tgen)
 
 
 def _assert_same_result(got, want):
@@ -246,9 +214,8 @@ def test_boruvka_solve_from_a_premerged_partition(deck):
 
 def test_strategies_not_ported_raise():
     g = tgen.readme_sample_graph()
-    for strategy, item in (("rank", "queue 1 item 5"), ("ell", "K3")):
-        with pytest.raises(NotImplementedError, match=item):
-            tb.solve_graph(g, strategy=strategy, device=CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tb.solve_graph(g, strategy="rank", device=CPU)
     with pytest.raises(ValueError, match="unknown strategy"):
         tb.solve_graph(g, strategy="bogus", device=CPU)
     m = tb.ELL_AUTO_EDGE_THRESHOLD

@@ -15,7 +15,12 @@ from distributed_ghs_implementation_tpu_torch.ops import kernels
 from distributed_ghs_implementation_tpu_torch.models import boruvka
 from distributed_ghs_implementation_tpu_torch.graphs import generators
 from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
-from torch_inputs import FLAT_SHAPES, hook_forest, moe_inputs
+
+#: (rows, W) of RMAT-18's (edge factor 16, seed 1) fifteen ELL buckets.
+RMAT18_BUCKETS = [(65536, 1), (32768, 2), (32768, 4), (32768, 8), (16384, 16), (32768, 32),
+                  (16384, 64), (8192, 128), (16384, 256), (64, 512), (4096, 1024),
+                  (1024, 2048), (256, 8192), (32, 16384), (1, 32768)]
+from torch_inputs import FLAT_SHAPES, ell_inputs, hook_forest, moe_inputs
 
 
 def _t(a):
@@ -60,6 +65,29 @@ def test_probe_kernel_reads_three_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,width", RMAT18_BUCKETS + [(3, 7), (5, 600), (1, 1)])
+@pytest.mark.parametrize("fragments", [3, 1 << 18])
+def test_ell_row_min_kernel_matches_plain_on_card(cuda, rows, width, fragments):
+    args = [_t(a).to(cuda) for a in ell_inputs(rows + width, 1 << 18, rows, width,
+                                               fragments=fragments)]
+    launches = kernels.ell_row_min.launches
+    got = kernels.ell_row_min(*args)
+    torch.cuda.synchronize()
+    assert kernels.ell_row_min.launches == launches + 1
+    assert torch.equal(got, kernels.ell_row_min_torch(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 1000, (1 << 24) + 3])
+def test_gather_kernel_matches_plain_on_card(cuda, m):
+    rng = np.random.default_rng(m)
+    table = _t(rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32)).to(cuda)
+    idx = _t(rng.integers(0, 1 << 20, m + 1, dtype=np.int32)).to(cuda)
+    for view in (idx[:m], idx[1:]):  # 16-byte aligned, and not
+        assert torch.equal(kernels.gather(table, view), kernels.gather_torch(table, view))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
     wide = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError, match="int32"):
@@ -70,7 +98,7 @@ def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("strategy", ["fused", "stepped"])
+@pytest.mark.parametrize("strategy", ["fused", "stepped", "ell"])
 def test_solve_on_card_equals_cpu_and_oracle(cuda, strategy):
     for g in (
         generators.readme_sample_graph(),
@@ -83,3 +111,14 @@ def test_solve_on_card_equals_cpu_and_oracle(cuda, strategy):
         np.testing.assert_array_equal(got[1], want[1])
         assert got[2] == want[2]
         np.testing.assert_array_equal(got[0], rank_oracle_edge_ids(g))
+
+
+@pytest.mark.gpu
+def test_ell_solve_launches_k3_per_bucket_and_level_on_card(cuda):
+    g = generators.rmat_graph(12, 8, seed=11)
+    k1, k3 = kernels.hook_compress.launches, kernels.ell_row_min.launches
+    ids, _, levels = boruvka.solve_graph(g, strategy="ell", device=cuda)
+    assert kernels.hook_compress.launches - k1 == levels
+    assert kernels.ell_row_min.launches - k3 == len(g.ell_buckets) * (levels - 1)
+    assert levels == boruvka.solve_graph(g, strategy="fused", device=cuda)[2]
+    np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))

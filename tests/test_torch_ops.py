@@ -182,6 +182,7 @@ def test_build_without_nvcc_says_so(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = {p.name for p in _build.SOURCES}
-    assert names == {"gather_key.cu", "hook_compress.cu", "probe.cu"}
+    assert names == {"ell_row_min.cu", "gather.cu", "gather_key.cu", "hook_compress.cu",
+                     "probe.cu"}
     assert _build.library_path().parent.name == _build.cache_key()
     assert _build.library_path().is_relative_to(_build.BUILD_ROOT)
