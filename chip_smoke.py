@@ -26,10 +26,14 @@ Phases, each printing a line:
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
-   sizes; then kernel, plain version and (where one exists) the one PyTorch
-   call for the same function timed with CUDA events at the main path's
-   shapes: RMAT-18's level-1 inputs for K1, K2 and K3 (K3 as the 15
-   launches of one level together), 2^24 and 2^26 indices for K5.
+   sizes; then the K4 wrapper's host time over 10^4 calls, split into the
+   steps of the launch path, beside ``torch.take``'s; then kernel, plain
+   version and (where one exists) the one PyTorch call for the same function
+   timed with CUDA events at the main path's shapes: RMAT-18's level-1
+   inputs for K1, K2 and K3 (K3 as the 15 launches of one level together),
+   2^24 and 2^26 indices for K5. A kernel and its library call (K4 and
+   ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
+   K5's rate of L2 sectors (m x 32 B over its time) is printed beside it.
 4. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero without the last line. The script
@@ -47,6 +51,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+L2_SECTOR_BYTES = 32  # what one random 4 B read costs the L2
+HOST_CALLS = 10_000
 JAX_OPS = "distributed_ghs_implementation_tpu/ops"
 PORT = "distributed_ghs_implementation_tpu_torch"
 
@@ -135,6 +141,63 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
+def _in_turns(timer, kern, library, iters: int = 10) -> dict:
+    """Kernel and library call timed in turns: medians and spreads."""
+    t = timer(kern, library, iters=iters)
+    return {"ms": t["a_ms"], "ms_spread": t["a_spread_ms"],
+            "library_ms": t["b_ms"], "library_ms_spread": t["b_spread_ms"]}
+
+
+def _host_us(torch, fn) -> float:
+    """Host microseconds a call of ``fn`` over ``HOST_CALLS`` calls, from a
+    synchronised card to a synchronised card."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(HOST_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t) / HOST_CALLS / 1e3
+
+
+def _probe_host_split(torch, kernels, build, table, idx, idx64) -> dict:
+    """Host us a call of the K4 wrapper and of each step of its launch path
+    (``rest`` is the wrapper less the steps: the Python between them and the
+    ``data_ptr`` reads), with ``torch.take`` beside it. Then what the launch
+    path no longer pays, on this host: the same launcher called through
+    ``ctypes`` instead of the extension module, a ``torch.cuda.Stream``
+    object, and a set of ``torch.device``s."""
+    import ctypes
+
+    lib = kernels._lib()
+    device = idx.get_device()
+    stream = kernels._current_stream(device)
+    out = torch.empty_like(idx)
+    args = (device, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), stream)
+    via_ctypes = ctypes.CDLL(str(build.library_path())).ghs_probe
+    via_ctypes.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                                     ctypes.c_void_p]
+    via_ctypes.restype = ctypes.c_int
+    if lib.probe(*args) or via_ctypes(*args):
+        raise AssertionError("probe launcher failed")
+    split = {
+        "wrapper": _host_us(torch, lambda: kernels.probe(table, idx)),
+        "validate": _host_us(
+            torch, lambda: kernels._validate("probe", {"table": table, "idx": idx})),
+        "allocate": _host_us(torch, lambda: torch.empty_like(idx)),
+        "stream": _host_us(torch, lambda: kernels._current_stream(device)),
+        "binding_and_launch": _host_us(torch, lambda: lib.probe(*args)),
+    }
+    split["rest"] = split["wrapper"] - sum(v for k, v in split.items() if k != "wrapper")
+    split["torch_take"] = _host_us(torch, lambda: torch.take(table, idx64))
+    split["old_ctypes_and_launch"] = _host_us(torch, lambda: via_ctypes(*args))
+    split["old_stream_object"] = _host_us(
+        torch, lambda: torch.cuda.current_stream(idx.device).cuda_stream)
+    split["old_device_set"] = _host_us(torch, lambda: {t.device for t in (table, idx)})
+    split["wrapper_again"] = _host_us(torch, lambda: kernels.probe(table, idx))
+    return split
+
+
 def main() -> int:
     import torch
 
@@ -147,7 +210,11 @@ def main() -> int:
         minimum_spanning_forest,
         minimum_spanning_tree,
     )
-    from distributed_ghs_implementation_tpu_torch.device import card_description, cuda_time_ms
+    from distributed_ghs_implementation_tpu_torch.device import (
+        card_description,
+        cuda_time_in_turns_ms,
+        cuda_time_ms,
+    )
     from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
     from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
     from distributed_ghs_implementation_tpu_torch.models import boruvka
@@ -351,20 +418,29 @@ def main() -> int:
         err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
             (kernels.ell_row_min(*args),), (kernels.ell_row_min_torch(*args),)))
 
-    # K5 at 1 to 2^26 indices, and once from an offset that is not 16-byte aligned.
+    # K5 at 1 to 2^26 indices, around every tail length of its vector body,
+    # and from offsets 1, 2 and 3, where idx and out are not 16-byte aligned.
     gtable = put(rng.integers(0, 1 << 30, gather_probe.TABLE_SIZE).astype(np.int32))
-    for m in (1, 1000, (1 << 24) + 3, 1 << 26):
+    k5_sizes = (1, 5, 7, 8, 9, 15, 17, 1000, (1 << 24) + 3, 1 << 26)
+    for m in k5_sizes:
         gidx = put(rng.integers(0, gather_probe.TABLE_SIZE, m).astype(np.int32))
         err["gather"] = max(err["gather"], _max_abs_err(
             (kernels.gather(gtable, gidx),), (kernels.gather_torch(gtable, gidx),)))
-    gidx = gidx[1:1002]
-    err["gather"] = max(err["gather"], _max_abs_err(
-        (kernels.gather(gtable, gidx),), (kernels.gather_torch(gtable, gidx),)))
+    for offset in (1, 2, 3):
+        view = gidx[offset:offset + 1001]
+        err["gather"] = max(err["gather"], _max_abs_err(
+            (kernels.gather(gtable, view),), (kernels.gather_torch(gtable, view),)))
     if any(err.values()):
         raise AssertionError(f"kernel and plain version disagree: {err}")
     print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 forests, "
           f"2 K4 blocks, {len(buckets)} RMAT-18 + {len(ell_cases)} random K3 buckets, "
-          f"5 K5 index vectors")
+          f"{len(k5_sizes)} K5 sizes and 3 K5 views at offsets 1-3")
+
+    # The K4 wrapper's host time, split into the steps of the launch path.
+    idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
+    idx64 = idx.long()  # torch.take wants int64 indices
+    split = _probe_host_split(torch, kernels, _build, table, idx, idx64)
+    print("host us a call of K4 probe over 10^4 calls: " + json.dumps(split))
 
     # Timing at the main path's shapes and data: RMAT-18's level-1 inputs.
     frag0, src, dst, rank, ra, rb = boruvka.prepare_device_arrays(rmat18)
@@ -374,8 +450,6 @@ def main() -> int:
     frag1 = boruvka.boruvka_level(state, src, dst, rank, ra, rb, identity_fragment=True).fragment
     has1, _, d1 = fragment_moe(frag1, src, dst, rank, ra, rb)
     n, e = frag1.numel(), src.numel()
-    idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
-    idx64 = idx.long()  # torch.take wants int64 indices
     per_bucket = [
         (tuple(b[1].shape), cuda_time_ms(lambda b=b: kernels.ell_row_min(frag1_ell, *b)))
         for b in buckets]
@@ -385,6 +459,11 @@ def main() -> int:
     ell_rows = sum(b[0].numel() for b in buckets)
     g24 = put(rng.integers(0, gather_probe.TABLE_SIZE, 1 << 24).astype(np.int32))
     g26 = put(rng.integers(0, gather_probe.TABLE_SIZE, 1 << 26).astype(np.int32))
+    # (name, replaces, kernel, plain, library call, bytes, shape); a kernel
+    # with a library call is timed in turns with it. A turn lasts at least
+    # about a millisecond, so that the host's wake-up after each synchronise
+    # does not weigh on a call that takes ten microseconds: 100 calls a
+    # turn for K4, 10 for K5.
     rows = [
         ("gather_key", f"{JAX_OPS}/pallas_kernels.py:492",
          lambda: kernels.gather_key(frag1, src, dst, rank),
@@ -411,35 +490,44 @@ def main() -> int:
     ]
     out = []
     for name, replaces, kern, plain, library, nbytes, shape in rows:
-        kern_ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
-        out.append({
+        rec = {
             "name": name,
             "route": "cuda",
             "source": f"{PORT}/csrc/{name}.cu",
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": err[name],
-            "ms": kern_ms,
-            "plain_ms": plain_ms,
+            "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": cuda_time_ms(library) if library else None,
             "shape": shape,
-        })
-        print(f"time {name} ({shape}): kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        }
+        if library:
+            iters = 100 if name == "probe" else 10
+            rec.update(_in_turns(cuda_time_in_turns_ms, kern, library, iters), turn_calls=iters)
+        else:
+            rec.update(ms=cuda_time_ms(kern), library_ms=None)
+        out.append(rec)
+        print(f"time {name} ({shape}): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms")
+    k3 = out[3]
+    print(f"time K3 one RMAT-18 level ({len(buckets)} launches) by CUDA events: "
+          f"{k3['ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms")
     at26 = {
         "shape": "table=2^20 idx=2^26",
-        "ms": cuda_time_ms(lambda: kernels.gather(gtable, g26)),
         "plain_ms": cuda_time_ms(lambda: kernels.gather_torch(gtable, g26)),
-        "library_ms": cuda_time_ms(lambda: torch.index_select(gtable, 0, g26)),
         "bound_ms": (8 * g26.numel() + 4 * gtable.numel()) / HBM_BYTES_PER_S * 1e3,
+        **_in_turns(cuda_time_in_turns_ms, lambda: kernels.gather(gtable, g26),
+                    lambda: torch.index_select(gtable, 0, g26)),
     }
-    out[-1]["at_2^26"] = at26
-    print(f"time gather ({at26['shape']}): kernel {at26['ms']:.4f} ms, plain "
-          f"{at26['plain_ms']:.4f} ms, index_select {at26['library_ms']:.4f} ms, "
-          f"bound {at26['bound_ms']:.4f} ms")
+    k5 = out[4]
+    for rec, m in ((k5, g24.numel()), (at26, g26.numel())):
+        rec["l2_sector_tb_per_s"] = m * L2_SECTOR_BYTES / rec["ms"] / 1e9
+        print(f"time gather ({rec['shape']}) in turns: kernel {rec['ms']:.4f} ms "
+              f"(spread {rec['ms_spread']:.4f}), index_select {rec['library_ms']:.4f} ms "
+              f"(spread {rec['library_ms_spread']:.4f}), bound {rec['bound_ms']:.4f} ms, "
+              f"L2 sectors {rec['l2_sector_tb_per_s']:.3f} TB/s")
+    k5["at_2^26"] = at26
 
     # -- 4. result ----------------------------------------------------------
     print(json.dumps({"kernels": out}))

@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -118,8 +120,8 @@ __global__ void ell_row_min_block_kernel(const int32_t* __restrict__ fragment,
 extern "C" int ghs_ell_row_min(int device, const void* fragment, const void* verts,
                                const void* dstb, const void* rankb, void* out,
                                long long rows, long long width, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (rows <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* f = (const int32_t*)fragment;

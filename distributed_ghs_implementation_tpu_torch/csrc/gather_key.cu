@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -45,8 +47,8 @@ __global__ void gather_key_kernel(const int32_t* __restrict__ fragment,
 extern "C" int ghs_gather_key(int device, const void* fragment, const void* src,
                               const void* dst, const void* rank, void* fsrc, void* key,
                               long long e, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const long long blocks = (e + kThreads - 1) / kThreads;
   const unsigned grid = (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
   gather_key_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(

@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -66,8 +68,9 @@ __global__ void relabel_kernel(const int32_t* __restrict__ parent,
 extern "C" int ghs_hook_compress(int device, const void* has, const void* dst_frag,
                                  const void* fragment, void* new_fragment, void* parent,
                                  void* scratch, long long n, int num_jumps, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  cudaError_t err;
   cudaStream_t s = (cudaStream_t)stream;
   const long long blocks = (n + kThreads - 1) / kThreads;
   const unsigned grid = (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);

@@ -5,12 +5,20 @@
 // int32[2,128] filled with 3, expects 3 everywhere. In the port it is a
 // self-check of the freshly loaded library, never a selector.
 //
-// Bound on the H100: one launch; its 3 KB move in well under a microsecond,
-// so launch latency is all there is. Nothing in the design needs to fight it.
+// Bound on the H100: its 3 KB move in well under a microsecond, so the time
+// of a call is the time of the launch path from Python to the card, which
+// every wrapper shares: the checks, the output's allocation, the stream
+// handle, the call into the extension module (bindings.cpp) and the launch
+// itself. That path is what the design trims (ops/kernels.py): attribute
+// checks, the raw stream handle, a METH_FASTCALL binding instead of ctypes,
+// and a device guard that sets the device only where it differs
+// (launch.cuh).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -27,8 +35,8 @@ __global__ void probe_kernel(const int32_t* __restrict__ table,
 
 extern "C" int ghs_probe(int device, const void* table, const void* idx, void* out,
                          long long count, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const long long blocks = (count + 255) / 256;
   const unsigned grid = (unsigned)(blocks < 1024 ? blocks : 1024);
   probe_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(

@@ -53,3 +53,34 @@ def cuda_time_ms(fn, reps: int = 5, iters: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def cuda_time_in_turns_ms(fn_a, fn_b, reps: int = 10, iters: int = 10) -> dict:
+    """Time two callables in turns, A B B A A B ..., each turn the mean time
+    of ``iters`` calls by CUDA events, after one warm-up call of each.
+
+    A gap of a few percent between two versions is smaller than the drift of
+    one card's clock over a run, so the two share every stretch of it.
+    Returns the median over ``reps`` turns of each (``a_ms``, ``b_ms``) and
+    the spread of each, max minus min (``a_spread_ms``, ``b_spread_ms``).
+    """
+    fns = (fn_a, fn_b)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for r in range(reps):
+        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fns[which]()
+            end.record()
+            torch.cuda.synchronize()
+            times[which].append(start.elapsed_time(end) / iters)
+    out = {}
+    for key, ts in zip("ab", times):
+        out[f"{key}_ms"] = statistics.median(ts)
+        out[f"{key}_spread_ms"] = max(ts) - min(ts)
+    return out

@@ -7,9 +7,15 @@ kept for re-validating gather throughput on a new card. A table of int32[2^20]
 and index vectors of int32[2^24] and int32[2^26] come from a seeded NumPy
 generator. For each index size it prints one line: the K5 kernel's time, the
 time of ``torch.index_select(table, 0, idx)`` (one PyTorch call for the same
-function, the yardstick) and whether the two agree, after a line with the
-card's name and power limit. Times are by CUDA events: the median over 5
-runs of the mean of 10 calls, after one warm-up call.
+function, the yardstick), both with their spreads, the kernel's rate of L2
+sectors and whether the two agree, after a line with the card's name and
+power limit. The two are timed in turns by CUDA events
+(``device.cuda_time_in_turns_ms``): the median over 10 turns each of the mean
+of 10 calls, after one warm-up call of each.
+
+The rate of L2 sectors is m x 32 B over the kernel's time: each random 4 B
+read from the table costs one 32 B sector of the L2, which the 4 MB table
+stays in, and that rate, not device memory, sets the pace.
 
 Unlike the JAX tool, a mismatch or a launch failure raises: nothing carries on.
 """
@@ -21,7 +27,7 @@ import torch
 
 from distributed_ghs_implementation_tpu_torch.device import (
     card_description,
-    cuda_time_ms,
+    cuda_time_in_turns_ms,
     resolve_device,
 )
 from distributed_ghs_implementation_tpu_torch.ops import kernels
@@ -29,14 +35,15 @@ from distributed_ghs_implementation_tpu_torch.ops import kernels
 TABLE_SIZE = 1 << 20
 LOG_SIZES = (24, 26)
 SEED = 0
+L2_SECTOR_BYTES = 32
 
 
 def run(*, table_size: int = TABLE_SIZE, log_sizes=LOG_SIZES, device=None) -> list[dict]:
     """Check, then time, K5 against ``index_select`` for each ``2^e`` indices.
 
     Returns one record per size. On the CPU (``device="cpu"``) the wrapper
-    takes the plain version and nothing is timed: ``kernel_ms`` and
-    ``library_ms`` are None.
+    takes the plain version and nothing is timed: the times, their spreads
+    and the sector rate are None.
     """
     device = resolve_device(device)
     rng = np.random.default_rng(SEED)
@@ -52,12 +59,16 @@ def run(*, table_size: int = TABLE_SIZE, log_sizes=LOG_SIZES, device=None) -> li
                 f"gather at m=2^{e}: index {bad} reads {int(got[bad])}, "
                 f"index_select reads {int(want[bad])}"
             )
-        kernel_ms = library_ms = None
+        rec = {"m": 1 << e, "log2_m": e, "kernel_ms": None, "kernel_spread_ms": None,
+               "library_ms": None, "library_spread_ms": None, "l2_sector_tb_per_s": None,
+               "match": True}
         if device.type == "cuda":
-            kernel_ms = cuda_time_ms(lambda: kernels.gather(table, idx))
-            library_ms = cuda_time_ms(lambda: torch.index_select(table, 0, idx))
-        records.append({"m": 1 << e, "log2_m": e, "kernel_ms": kernel_ms,
-                        "library_ms": library_ms, "match": True})
+            t = cuda_time_in_turns_ms(lambda: kernels.gather(table, idx),
+                                      lambda: torch.index_select(table, 0, idx))
+            rec.update(kernel_ms=t["a_ms"], kernel_spread_ms=t["a_spread_ms"],
+                       library_ms=t["b_ms"], library_spread_ms=t["b_spread_ms"],
+                       l2_sector_tb_per_s=(1 << e) * L2_SECTOR_BYTES / t["a_ms"] / 1e9)
+        records.append(rec)
     return records
 
 
@@ -65,8 +76,10 @@ def main() -> int:
     resolve_device(None)
     print(f"card: {card_description()}")
     for rec in run():
-        print(f"m=2^{rec['log2_m']}: gather kernel {rec['kernel_ms']:8.4f} ms   "
-              f"index_select {rec['library_ms']:8.4f} ms   match={rec['match']}")
+        print(f"m=2^{rec['log2_m']}: gather kernel {rec['kernel_ms']:8.4f} ms "
+              f"(spread {rec['kernel_spread_ms']:.4f})   index_select "
+              f"{rec['library_ms']:8.4f} ms (spread {rec['library_spread_ms']:.4f})   "
+              f"L2 sectors {rec['l2_sector_tb_per_s']:.2f} TB/s   match={rec['match']}")
     return 0
 
 

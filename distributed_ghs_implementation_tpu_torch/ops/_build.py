@@ -1,46 +1,41 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. Each source
-compiles in its own ``nvcc`` process, all started together, and one more
-``nvcc`` links the objects. The library is cached under ``build/kernels/<key>/``
-at the repository root, keyed by a hash of the sources and the flags, so a
-change to any source rebuilds it and an unchanged tree loads it as it is.
-Nothing here runs when the module is imported.
+CPython extension module, ``_ghs_kernels``: the ``.cu`` files hold the
+kernels and their ``ghs_*`` launchers with a plain C interface, and
+``bindings.cpp`` gives each launcher a Python entry point, built against
+``Python.h`` alone (no PyTorch header, so the build takes seconds). Each
+source compiles in its own ``nvcc`` process, all started together, and one
+more ``nvcc`` links the objects. The module is cached under
+``build/kernels/<key>/`` at the repository root, keyed by a hash of the
+sources, the headers they share, the flags and the interpreter's extension
+suffix, so a change to any of them rebuilds it and an unchanged tree loads
+it as it is. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PACKAGE / "csrc").glob("*.cuh")))
+BINDING = _PACKAGE / "csrc" / "bindings.cpp"
 BUILD_ROOT = _PACKAGE.parent / "build" / "kernels"
-LIB_NAME = "libghs_kernels.so"
+MODULE_NAME = "_ghs_kernels"
+LIB_NAME = MODULE_NAME + importlib.machinery.EXTENSION_SUFFIXES[0]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-_P = ctypes.c_void_p
-_SIGNATURES = {
-    # name: argtypes (restype is a cudaError_t as int for every launcher)
-    "ghs_gather_key": (ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P),
-    "ghs_hook_compress": (
-        ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
-    ),
-    "ghs_probe": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
-    "ghs_ell_row_min": (
-        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
-    ),
-    "ghs_gather": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
-}
 
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -59,9 +54,19 @@ def _nvcc() -> str:
     )
 
 
+def _python_include() -> str:
+    include = sysconfig.get_paths()["include"]
+    if not (Path(include) / "Python.h").is_file():
+        raise RuntimeError(
+            f"Python.h not found in {include}: the kernels' Python binding "
+            "(csrc/bindings.cpp) builds against this interpreter's headers"
+        )
+    return include
+
+
 def cache_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + (LIB_NAME,)).encode())
+    for src in SOURCES + HEADERS + (BINDING,):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -79,18 +84,20 @@ def build_library() -> Path:
     if out.is_file():
         return out
     nvcc = _nvcc()
+    include = _python_include()
+    sources = SOURCES + (BINDING,)
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objs = [Path(tmp) / (src.stem + ".o") for src in SOURCES]
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, f"-I{include}", "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for src, obj in zip(SOURCES, objs)
+            for src, obj in zip(sources, objs)
         ]
         logs = [p.communicate()[0] for p in procs]
-        failed = [(src.name, log) for src, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        failed = [(src.name, log) for src, p, log in zip(sources, procs, logs) if p.returncode]
         if failed:
             raise RuntimeError(
                 "nvcc failed:\n" + "\n".join(f"--- {name}\n{log}" for name, log in failed)
@@ -107,13 +114,11 @@ def build_library() -> Path:
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry's signature."""
-    lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.ghs_error_string.argtypes = [ctypes.c_int]
-    lib.ghs_error_string.restype = ctypes.c_char_p
-    return lib
+def load_library():
+    """Build if needed and import the extension module: one function per
+    launcher (``probe``, ``gather``, ...) taking Python ints and returning
+    the launch's CUDA error code, and ``error_string(code)``."""
+    spec = importlib.util.spec_from_file_location(MODULE_NAME, build_library())
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

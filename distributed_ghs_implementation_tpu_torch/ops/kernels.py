@@ -14,6 +14,14 @@ has three parts here:
 
 The library builds at first use (``ops/_build.py``). Right after it loads,
 the K4 probe runs once as a self-check and the load fails unless it reads 3.
+
+A launch costs the host a few microseconds, and K3 alone makes 15 a level,
+so the launch path does no more than it must: ``_validate`` reads tensor
+attributes and builds no ``torch.device``; the stream is the raw handle of
+the device's current stream, read with ``_current_stream`` and never built
+into a ``torch.cuda.Stream``; one call into the extension module launches
+(``csrc/bindings.cpp``, cheaper than ``ctypes``), and the C launcher sets
+the device only where it is not already current.
 """
 
 from __future__ import annotations
@@ -27,49 +35,61 @@ from distributed_ghs_implementation_tpu_torch.ops import _build
 INT32_MAX = 2**31 - 1
 
 _LIB = None
+#: ``torch._C._cuda_getCurrentRawStream``: the raw handle of a device's
+#: current stream, read without building a ``torch.cuda.Stream`` object.
+#: Bound by ``_lib()``; CPU builds of torch do not have it.
+_current_stream = None
 
 
 def _lib():
     """The loaded kernel library; the first call builds, loads and runs the
     probe self-check."""
-    global _LIB
+    global _LIB, _current_stream
     if _LIB is None:
+        raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        if raw_stream is None:
+            raise RuntimeError(
+                "this build of torch has no torch._C._cuda_getCurrentRawStream; "
+                "the kernels need a CUDA build of torch"
+            )
+        _current_stream = raw_stream
         lib = _build.load_library()
         table = torch.arange(256, dtype=torch.int32, device="cuda")
         idx = torch.full((2, 128), 3, dtype=torch.int32, device="cuda")
-        out = _launch_probe(table, idx, lambda: lib)
+        out = torch.empty_like(idx)
+        _launch_probe(lib, table.get_device(), table, idx, out, idx.numel())
         if not bool((out == 3).all()):
             raise RuntimeError(f"kernel self-check read {out.unique().tolist()}, not [3]")
         _LIB = lib
     return _LIB
 
 
-def _check(name: str, lib, code: int) -> None:
-    if code != 0:
-        msg = lib.ghs_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+def _fail(name: str, lib, code: int):
+    msg = lib.error_string(code)
+    raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
 
 
-def _validate(name: str, tensors: dict, dtypes: dict | None = None) -> torch.device:
+def _validate(name: str, tensors: dict, dtypes: dict | None = None) -> int:
     """All CUDA, one device, contiguous, int32 unless ``dtypes`` names another
-    type; return the device."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
-    (device,) = devices
-    if device.type != "cuda":
-        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {device}")
+    type; return the device's index. Reads tensor attributes only: it runs on
+    every launch."""
+    index = None
     for key, t in tensors.items():
-        dtype = (dtypes or {}).get(key, torch.int32)
-        if t.dtype != dtype:
+        if not t.is_cuda:
+            raise ValueError(
+                f"{name}: {key} is on {t.device}; expected CUDA or CPU tensors, all on one device"
+            )
+        device = t.get_device()
+        if index is None:
+            index = device
+        elif device != index:
+            raise ValueError(f"{name}: tensors on several devices (cuda:{index}, cuda:{device})")
+        dtype = torch.int32 if dtypes is None else dtypes.get(key, torch.int32)
+        if t.dtype is not dtype:
             raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    return device
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    return index
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +106,7 @@ def gather_key_torch(fragment, src, dst, rank):
 def gather_key(fragment, src, dst, rank):
     """K2: the non-identity ``fragment_moe`` front half. Replaces
     ``fused_gather_key`` (JAX package ``ops/pallas_kernels.py:492``)."""
-    if fragment.device.type == "cpu":
+    if fragment.is_cpu:
         return gather_key_torch(fragment, src, dst, rank)
     device = _validate("gather_key", {
         "fragment": fragment, "src": src, "dst": dst, "rank": rank,
@@ -102,10 +122,12 @@ def gather_key(fragment, src, dst, rank):
     e = src.numel()
     if e:
         lib = _lib()
-        _check("gather_key", lib, lib.ghs_gather_key(
-            device.index, fragment.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            rank.data_ptr(), fsrc.data_ptr(), key.data_ptr(), e, _stream(device),
-        ))
+        code = lib.gather_key(
+            device, fragment.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            rank.data_ptr(), fsrc.data_ptr(), key.data_ptr(), e, _current_stream(device),
+        )
+        if code:
+            _fail("gather_key", lib, code)
         gather_key.launches += 1
     return fsrc, key
 
@@ -138,7 +160,7 @@ def hook_compress(has_moe, moe_dst_frag, fragment):
     """K1: one merge round, the contract of ``union_find.hook_and_compress``.
     Replaces ``fused_hook_compress`` (JAX package
     ``ops/pallas_kernels.py:516``)."""
-    if fragment.device.type == "cpu":
+    if fragment.is_cpu:
         return hook_compress_torch(has_moe, moe_dst_frag, fragment)
     device = _validate(
         "hook_compress",
@@ -156,11 +178,13 @@ def hook_compress(has_moe, moe_dst_frag, fragment):
     if n:
         scratch = torch.empty_like(fragment)
         lib = _lib()
-        _check("hook_compress", lib, lib.ghs_hook_compress(
-            device.index, has_moe.data_ptr(), moe_dst_frag.data_ptr(), fragment.data_ptr(),
+        code = lib.hook_compress(
+            device, has_moe.data_ptr(), moe_dst_frag.data_ptr(), fragment.data_ptr(),
             new_fragment.data_ptr(), parent.data_ptr(), scratch.data_ptr(), n,
-            num_jumps(n), _stream(device),
-        ))
+            num_jumps(n), _current_stream(device),
+        )
+        if code:
+            _fail("hook_compress", lib, code)
         hook_compress.launches += 1
     return new_fragment, parent
 
@@ -176,25 +200,28 @@ def probe_torch(table, idx):
     return table[idx]
 
 
-def _launch_probe(table, idx, get_lib):
-    device = _validate("probe", {"table": table, "idx": idx})
-    out = torch.empty_like(idx)
-    if idx.numel():
-        lib = get_lib()
-        _check("probe", lib, lib.ghs_probe(
-            device.index, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.numel(), _stream(device),
-        ))
-        probe.launches += 1
-    return out
+def _launch_probe(lib, device: int, table, idx, out, count: int) -> None:
+    code = lib.probe(
+        device, table.data_ptr(), idx.data_ptr(), out.data_ptr(), count,
+        _current_stream(device),
+    )
+    if code:
+        _fail("probe", lib, code)
+    probe.launches += 1
 
 
 def probe(table, idx):
     """K4: the gather ``table[idx]`` the load-time self-check runs. Replaces
-    the capability probe ``_probe`` (JAX package ``ops/pallas_kernels.py:210``)."""
-    if table.device.type == "cpu":
+    the capability probe ``_probe`` (JAX package ``ops/pallas_kernels.py:210``).
+    It is the cheapest launch there is, so its time is the launch path's."""
+    if table.is_cpu:
         return probe_torch(table, idx)
-    return _launch_probe(table, idx, _lib)
+    device = _validate("probe", {"table": table, "idx": idx})
+    out = torch.empty_like(idx)
+    count = idx.numel()
+    if count:
+        _launch_probe(_lib(), device, table, idx, out, count)
+    return out
 
 
 probe.launches = 0
@@ -214,7 +241,7 @@ def ell_row_min_torch(fragment, verts, dstb, rankb):
 def ell_row_min(fragment, verts, dstb, rankb):
     """K3: one ELL bucket's masked row minimum. Replaces
     ``fused_ell_row_min`` (JAX package ``ops/pallas_kernels.py:465``)."""
-    if fragment.device.type == "cpu":
+    if fragment.is_cpu:
         return ell_row_min_torch(fragment, verts, dstb, rankb)
     device = _validate("ell_row_min", {
         "fragment": fragment, "verts": verts, "dstb": dstb, "rankb": rankb,
@@ -230,10 +257,12 @@ def ell_row_min(fragment, verts, dstb, rankb):
     out = torch.empty_like(verts)
     if rows:
         lib = _lib()
-        _check("ell_row_min", lib, lib.ghs_ell_row_min(
-            device.index, fragment.data_ptr(), verts.data_ptr(), dstb.data_ptr(),
-            rankb.data_ptr(), out.data_ptr(), rows, width, _stream(device),
-        ))
+        code = lib.ell_row_min(
+            device, fragment.data_ptr(), verts.data_ptr(), dstb.data_ptr(),
+            rankb.data_ptr(), out.data_ptr(), rows, width, _current_stream(device),
+        )
+        if code:
+            _fail("ell_row_min", lib, code)
         ell_row_min.launches += 1
     return out
 
@@ -254,7 +283,7 @@ def gather(table, idx):
     microbenchmark (``gather_probe``). Replaces ``pallas_gather`` (JAX
     package tool ``tools/test_pallas_gather.py:46``). Indices must lie in
     ``[0, len(table))``; the kernel does not check them."""
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return gather_torch(table, idx)
     device = _validate("gather", {"table": table, "idx": idx})
     if table.dim() != 1 or idx.dim() != 1:
@@ -262,12 +291,15 @@ def gather(table, idx):
             f"gather: want table[n] and idx[m], got {tuple(table.shape)}, {tuple(idx.shape)}"
         )
     out = torch.empty_like(idx)
-    if idx.numel():
+    count = idx.numel()
+    if count:
         lib = _lib()
-        _check("gather", lib, lib.ghs_gather(
-            device.index, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.numel(), _stream(device),
-        ))
+        code = lib.gather(
+            device, table.data_ptr(), idx.data_ptr(), out.data_ptr(), count,
+            _current_stream(device),
+        )
+        if code:
+            _fail("gather", lib, code)
         gather.launches += 1
     return out
 

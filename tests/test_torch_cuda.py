@@ -88,7 +88,87 @@ def test_gather_kernel_matches_plain_on_card(cuda, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [5, 7, 8, 9, 15, 17, 1 << 26])
+def test_gather_kernel_tails_match_plain_on_card(cuda, m):
+    """Sizes around every tail length of the vector body, and the largest
+    size, where a 32-bit index would overflow in a persistent grid."""
+    rng = np.random.default_rng(m)
+    table = _t(rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32)).to(cuda)
+    idx = _t(rng.integers(0, 1 << 20, m, dtype=np.int32)).to(cuda)
+    assert torch.equal(kernels.gather(table, idx), kernels.gather_torch(table, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("m", [1, 9, 1000, (1 << 20) + 5])
+def test_gather_kernel_on_unaligned_views_on_card(cuda, offset, m):
+    rng = np.random.default_rng(offset * m)
+    table = _t(rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32)).to(cuda)
+    view = _t(rng.integers(0, 1 << 20, m + offset, dtype=np.int32)).to(cuda)[offset:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(kernels.gather(table, view), kernels.gather_torch(table, view))
+
+
+def _wrapper_inputs(name, device):
+    """Small valid inputs for each kernel wrapper."""
+    if name == "gather_key":
+        arrays = moe_inputs(3, 1000, 4096)[:4]
+    elif name == "hook_compress":
+        arrays = hook_forest(3, 5000, "random")
+    elif name == "probe":
+        arrays = (np.arange(256, dtype=np.int32), np.full((2, 128), 3, dtype=np.int32))
+    elif name == "ell_row_min":
+        arrays = ell_inputs(3, 1 << 12, 300, 40)
+    else:
+        rng = np.random.default_rng(3)
+        arrays = (rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32),
+                  rng.integers(0, 1 << 20, 1 << 20, dtype=np.int32))
+    return [_t(a).to(device) for a in arrays]
+
+
+def _plain(name):
+    return getattr(kernels, f"{name}_torch")
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [w.__name__ for w in kernels.WRAPPERS])
+def test_wrappers_launch_on_the_current_stream_on_card(cuda, name):
+    """Under ``torch.cuda.stream(side)`` the kernel runs on ``side``: with
+    the default stream held busy, synchronising ``side`` alone is enough to
+    read the result."""
+    kernels._lib()  # binds kernels._current_stream
+    args = _wrapper_inputs(name, cuda)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    torch.cuda._sleep(200_000_000)  # keeps the default stream busy for ~0.1 s
+    with torch.cuda.stream(side):
+        assert kernels._current_stream(args[0].get_device()) == side.cuda_stream
+        got = [g.to("cpu", non_blocking=True) for g in _as_tuple(getattr(kernels, name)(*args))]
+    side.synchronize()
+    want = _as_tuple(_plain(name)(*args))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.cpu())
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
+    """Every wrapper refuses a wrong dtype and a non-contiguous input with a
+    CUDA tensor, where the plain version would have taken them."""
+    for w in kernels.WRAPPERS:
+        args = _wrapper_inputs(w.__name__, cuda)
+        last = args[-1]
+        wide = args[:-1] + [last.to(torch.int64)]
+        with pytest.raises(TypeError, match="int32"):
+            w(*wide)
+        strided = torch.empty(last.shape[:-1] + (2 * last.shape[-1],), dtype=last.dtype,
+                              device=cuda)[..., ::2]
+        strided.copy_(last)
+        with pytest.raises(ValueError, match="contiguous"):
+            w(*args[:-1], strided)
     wide = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError, match="int32"):
         kernels.gather_key(wide, wide, wide, wide)

@@ -8,6 +8,11 @@ kernels in interpret mode, called directly on shapes that pass their guards.
 versions on a card.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +26,7 @@ from distributed_ghs_implementation_tpu.models.boruvka import (
 from distributed_ghs_implementation_tpu.ops import pallas_kernels as pk
 from distributed_ghs_implementation_tpu.ops import segment_ops as jseg
 from distributed_ghs_implementation_tpu.ops import union_find as juf
+from distributed_ghs_implementation_tpu_torch import device as tdevice
 from distributed_ghs_implementation_tpu_torch.ops import _build, kernels
 from distributed_ghs_implementation_tpu_torch.ops import segment_ops as tseg
 from distributed_ghs_implementation_tpu_torch.ops import union_find as tuf
@@ -169,6 +175,235 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         kernels.hook_compress(torch.empty(8, dtype=torch.bool, device="meta"), meta, meta)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.probe(meta, meta)
+
+
+def _meta_args(name):
+    meta = torch.empty(8, dtype=torch.int32, device="meta")
+    return {
+        "gather_key": (meta, meta, meta, meta),
+        "hook_compress": (torch.empty(8, dtype=torch.bool, device="meta"), meta, meta),
+        "probe": (meta, meta),
+        "ell_row_min": (meta, meta, meta.view(2, 4), meta.view(2, 4)),
+        "gather": (meta, meta),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [w.__name__ for w in kernels.WRAPPERS])
+def test_every_wrapper_refuses_meta_tensors(name):
+    before = [w.launches for w in kernels.WRAPPERS]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        getattr(kernels, name)(*_meta_args(name))
+    assert [w.launches for w in kernels.WRAPPERS] == before
+
+
+def _fake_cuda(dtype=torch.int32, device=0, contiguous=True):
+    """What ``_validate`` reads of a CUDA tensor, without a card."""
+    return SimpleNamespace(is_cuda=True, dtype=dtype, get_device=lambda: device,
+                           is_contiguous=lambda: contiguous, device=f"cuda:{device}")
+
+
+@pytest.mark.parametrize("tensors,dtypes,error,match", [
+    ({"a": _fake_cuda(), "b": _fake_cuda(torch.int64)}, None, TypeError, "b must be torch.int32"),
+    ({"a": _fake_cuda(), "b": _fake_cuda(contiguous=False)}, None, ValueError, "contiguous"),
+    ({"a": _fake_cuda(), "b": _fake_cuda(device=1)}, None, ValueError, "several devices"),
+    ({"a": _fake_cuda(), "b": torch.zeros(2, dtype=torch.int32)}, None, ValueError,
+     "CUDA or CPU"),
+    ({"a": _fake_cuda(torch.int32)}, {"a": torch.bool}, TypeError, "a must be torch.bool"),
+])
+def test_validate_refuses_each_fault(tensors, dtypes, error, match):
+    with pytest.raises(error, match=match):
+        kernels._validate("k", tensors, dtypes)
+
+
+def test_validate_returns_the_device_index():
+    tensors = {"has": _fake_cuda(torch.bool, device=2), "f": _fake_cuda(device=2)}
+    assert kernels._validate("k", tensors, {"has": torch.bool}) == 2
+
+
+def test_lib_needs_the_raw_stream_getter_before_it_builds(monkeypatch):
+    """A CPU build of torch has no ``torch._C._cuda_getCurrentRawStream``:
+    loading the kernels says so, and builds nothing."""
+    monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream", raising=False)
+    monkeypatch.setattr(_build, "load_library", lambda: pytest.fail("built without a stream"))
+    monkeypatch.setattr(kernels, "_LIB", None)
+    with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
+        kernels._lib()
+    assert kernels._LIB is None
+
+
+def test_importing_kernels_touches_no_cuda_only_binding():
+    """Importing the kernel module, with JAX blocked, reads no ``_cuda*``
+    attribute of ``torch._C`` and leaves CUDA uninitialised."""
+    code = (
+        "import sys, types\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "seen = []\n"
+        "class Spy(types.ModuleType):\n"
+        "    def __getattribute__(self, name):\n"
+        "        if name.startswith('_cuda'):\n"
+        "            seen.append(name)\n"
+        "        return getattr(real, name)\n"
+        "real = torch._C\n"
+        "torch._C = Spy('torch._C')\n"
+        "from distributed_ghs_implementation_tpu_torch.ops import kernels\n"
+        "torch._C = real\n"
+        "assert not seen, seen\n"
+        "assert kernels._LIB is None and kernels._current_stream is None\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n"
+    )
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=repo)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+class _FakeEvent:
+    """A CUDA event whose times come from a script: the n-th timed window
+    lasts ``durations[n]`` ms in all."""
+
+    log: list = []
+    durations: list = []
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, end):
+        return _FakeEvent.durations[(len(_FakeEvent.log) - 2) // 10 - 1]
+
+
+def test_cuda_time_in_turns_alternates_abba_and_reports_medians(monkeypatch):
+    _FakeEvent.log = []
+    # Four rounds give the windows a, b, b, a, a, b, b, a: a takes 10 ms a
+    # window of 10 calls except one of 30, b 20 ms except one of 40.
+    _FakeEvent.durations = [10, 20, 20, 10, 30, 40, 20, 10]
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    got = tdevice.cuda_time_in_turns_ms(lambda: _FakeEvent.log.append("a"),
+                                        lambda: _FakeEvent.log.append("b"), reps=4, iters=10)
+    calls = "".join(_FakeEvent.log)
+    assert calls[:2] == "ab"  # one warm-up call of each
+    assert calls[2:] == "".join(c * 10 for c in "abbaabba")
+    assert got["a_ms"] == 1.0 and got["b_ms"] == 2.0
+    assert got["a_spread_ms"] == pytest.approx(2.0) and got["b_spread_ms"] == pytest.approx(2.0)
+
+
+@pytest.mark.parametrize("part", ["HEADERS", "BINDING"])
+def test_build_cache_key_covers_the_header_and_the_binding(monkeypatch, part):
+    assert {p.name for p in _build.HEADERS} == {"launch.cuh"}
+    assert _build.BINDING.is_file() and _build.BINDING not in _build.SOURCES
+    key = _build.cache_key()
+    monkeypatch.setattr(_build, part, () if part == "HEADERS" else _build.SOURCES[0])
+    assert _build.cache_key() != key
+
+
+def test_build_without_python_headers_says_so(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.sysconfig, "get_paths", lambda: {"include": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="Python.h not found"):
+        _build._python_include()
+
+
+#: C launchers that stand in for the CUDA ones: each returns a hash of its
+#: arguments, so the test can see that the binding passed them unchanged.
+_STUB_LAUNCHERS = r"""
+#include <stdint.h>
+#include <stdio.h>
+#define H(x) ((uint64_t)(uintptr_t)(x))
+static int mix(uint64_t h) { return (int)((h ^ (h >> 31)) & 0x7fffffff); }
+int ghs_gather_key(int d, const void* a, const void* b, const void* c, const void* e,
+                   void* f, void* g, long long n, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) + 19 * H(g) +
+             23 * (uint64_t)n + 29 * H(s));
+}
+int ghs_hook_compress(int d, const void* a, const void* b, const void* c, void* e, void* f,
+                      void* g, long long n, int j, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) + 19 * H(g) +
+             23 * (uint64_t)n + 31 * (uint64_t)j + 29 * H(s));
+}
+int ghs_probe(int d, const void* a, const void* b, void* c, long long n, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)n + 29 * H(s));
+}
+int ghs_ell_row_min(int d, const void* a, const void* b, const void* c, const void* e, void* f,
+                    long long r, long long w, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) +
+             23 * (uint64_t)r + 31 * (uint64_t)w + 29 * H(s));
+}
+int ghs_gather(int d, const void* a, const void* b, void* c, long long n, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)n + 29 * H(s));
+}
+static char message[64];
+const char* ghs_error_string(int code) {
+  snprintf(message, sizeof message, "stub error %d", code);
+  return message;
+}
+"""
+
+
+def _mix(*terms):
+    h = sum(terms) % (1 << 64)
+    return (h ^ (h >> 31)) & 0x7FFFFFFF
+
+
+@pytest.fixture(scope="module")
+def stub_binding(tmp_path_factory):
+    """The real ``bindings.cpp`` built with the host compiler against the
+    stub launchers, as ``_build`` names the module."""
+    import shutil
+    import sysconfig
+
+    include = sysconfig.get_paths()["include"]
+    cxx = shutil.which("g++")
+    if cxx is None or not (Path(include) / "Python.h").is_file():
+        pytest.skip("needs g++ and Python.h to build the binding on the host")
+    tmp = tmp_path_factory.mktemp("binding")
+    stub = tmp / "stubs.c"
+    stub.write_text(_STUB_LAUNCHERS)
+    subprocess.run(["gcc", "-O1", "-fPIC", "-c", str(stub), "-o", str(tmp / "stubs.o")],
+                   check=True, capture_output=True)
+    so = tmp / _build.LIB_NAME
+    subprocess.run([cxx, "-O1", "-std=c++17", "-fPIC", "-shared", f"-I{include}",
+                    str(_build.BINDING), str(tmp / "stubs.o"), "-o", str(so)],
+                   check=True, capture_output=True)
+    return so
+
+
+def test_binding_passes_each_launcher_its_arguments(monkeypatch, stub_binding):
+    monkeypatch.setattr(_build, "build_library", lambda: stub_binding)
+    mod = _build.load_library()
+    ptr = [(1 << 47) - 4096 * k for k in range(1, 8)]  # user-space pointers, as data_ptr() gives
+    stream, big = (1 << 46) + 8, (1 << 33) + 5
+    h = lambda *ps: [c * p for c, p in zip((3, 5, 7, 13, 17, 19), ps)]  # noqa: E731
+    assert mod.gather_key(1, *ptr[:6], big, stream) == _mix(11, *h(*ptr[:6]), 23 * big,
+                                                           29 * stream)
+    assert mod.hook_compress(0, *ptr[:6], 1 << 18, 18, stream) == _mix(
+        *h(*ptr[:6]), 23 << 18, 31 * 18, 29 * stream)
+    for fn in (mod.probe, mod.gather):
+        assert fn(2, *ptr[:3], big, 0) == _mix(22, *h(*ptr[:3]), 23 * big)
+    assert mod.ell_row_min(0, *ptr[:5], 259425, 32768, stream) == _mix(
+        *h(*ptr[:5]), 23 * 259425, 31 * 32768, 29 * stream)
+    assert mod.error_string(700) == "stub error 700"
+    with pytest.raises(RuntimeError, match=r"launch failed: CUDA error 9 \(stub error 9\)"):
+        kernels._fail("probe", mod, 9)
+    with pytest.raises(TypeError, match="probe takes 6 arguments, got 2"):
+        mod.probe(0, 1)
+    with pytest.raises(TypeError):
+        mod.gather(0, 1, 2, 3, "4", 5)
+
+
+@pytest.mark.parametrize("source", [p.name for p in _build.SOURCES])
+def test_every_launcher_sets_the_device_through_the_guard(source):
+    """No launcher calls ``cudaSetDevice`` itself (the guard sets it only
+    where it differs and puts it back); none sets device-wide cache state."""
+    text = (Path(_build.SOURCES[0]).parent / source).read_text()
+    assert text.count('extern "C" int ghs_') == text.count("ghs::DeviceGuard guard(device)")
+    assert "cudaSetDevice" not in text
+    assert "cudaLimitPersistingL2CacheSize" not in text and "accessPolicyWindow" not in text
 
 
 def test_build_without_nvcc_says_so(monkeypatch, tmp_path):
