@@ -18,20 +18,30 @@ Phases, each printing a line:
       first solve.
    b. ELL: ``solve_graph(strategy="ell")`` on the fixture deck and on
       RMAT-18, cold (which builds the ELL buckets on the host) and warm.
-      Every ELL solve of L levels over B buckets must launch K3 B x (L - 1)
-      times and K1 L times, and take as many levels as the fused solve.
+      Every ELL solve of L levels must launch K3 L - 1 times (one launch a
+      level past the identity level, whatever the bucket count) and K1 L
+      times, and take as many levels as the fused solve.
    c. gather: the gather microbenchmark (``gather_probe``) at 2^24 and 2^26
       indices, K5 against ``torch.index_select``.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
-   sizes; then the K4 wrapper's host time over 10^4 calls, split into the
-   steps of the launch path, beside ``torch.take``'s; then kernel, plain
-   version and (where one exists) the one PyTorch call for the same function
-   timed with CUDA events at the main path's shapes: RMAT-18's level-1
-   inputs for K1, K2 and K3 (K3 as the 15 launches of one level together),
-   2^24 and 2^26 indices for K5. A kernel and its library call (K4 and
+   sizes: K1 in the form ``auto`` picks and in both forced forms, around
+   the block form's threshold, on chains (every jump needed), on nothing
+   hooked (the first jump ends the round) and on cyclic garbage (no jump
+   does); K3 per bucket and as one level over RMAT-18's own buckets and
+   random bucket sets. Then the profiler shows one device kernel for one K1
+   call and one for one K3 level. Then the K4 wrapper's host time over 10^4
+   calls, split into the steps of the launch path, beside ``torch.take``'s;
+   then the two choices this run measures for K1 and K3 (block form
+   against grid form by n, in turns; K3's tile size); then kernel, plain
+   version and (where one exists) the one PyTorch call for the same
+   function timed with CUDA events at the main path's shapes: RMAT-18's
+   level-1 inputs for K1, K2 and K3 (K3 as its one launch a level; K1 also
+   at RMAT-13's level-1 inputs, with the form run and the jumps taken at
+   every RMAT-18 level), 2^24 and 2^26 indices for K5, and K1 and K3 by the
+   profiler's device time too. A kernel and its library call (K4 and
    ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
    K5's rate of L2 sectors (m x 32 B over its time) is printed beside it.
 4. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
@@ -43,6 +53,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -106,7 +117,10 @@ def _hook_forest(rng, n: int, kind: str):
     elif kind == "chain":
         has[1:] = True
         dst[1:] = ids[:-1]
-    else:
+    elif kind == "cycle":  # garbage no round gives: one n-cycle, never a fixpoint
+        has[:] = True
+        dst = (ids + 1) % max(n, 1)
+    elif kind != "none":  # "none" hooks nothing: the first jump changes nothing
         raise ValueError(kind)
     fragment = rng.integers(0, max(n, 1), size=n)
     return has, dst.astype(np.int32), fragment.astype(np.int32)
@@ -146,6 +160,19 @@ def _in_turns(timer, kern, library, iters: int = 10) -> dict:
     t = timer(kern, library, iters=iters)
     return {"ms": t["a_ms"], "ms_spread": t["a_spread_ms"],
             "library_ms": t["b_ms"], "library_ms_spread": t["b_spread_ms"]}
+
+
+def _device_kernels(torch, fn, calls: int) -> list:
+    """``(name, us)`` of every device kernel that ``calls`` calls of ``fn``
+    ran, by the profiler."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(evt.name, evt.time_range.end - evt.time_range.start) for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _host_us(torch, fn) -> float:
@@ -283,8 +310,8 @@ def main() -> int:
         return wall, {"levels": levels, "hook_compress": d1, "gather_key": d2}
 
     def counted_ell(name):
-        """Run an ELL solve; K1 must launch once per level, K3 once per
-        bucket on every level after level 0."""
+        """Run an ELL solve; K1 must launch once per level, K3 once on every
+        level after level 0."""
         g = graphs[name]
         k1, k3 = kernels.hook_compress.launches, kernels.ell_row_min.launches
         torch.cuda.synchronize()
@@ -294,7 +321,7 @@ def main() -> int:
         d1 = kernels.hook_compress.launches - k1
         d3 = kernels.ell_row_min.launches - k3
         buckets = len(g.ell_buckets)
-        if (d1, d3) != (levels, buckets * (levels - 1)):
+        if (d1, d3) != (levels, levels - 1):
             raise AssertionError(
                 f"{name}: {levels} levels over {buckets} buckets but K1 x{d1}, K3 x{d3}")
         check(name, edge_ids, float(g.w[edge_ids].sum()))
@@ -386,37 +413,71 @@ def main() -> int:
         err["gather_key"] = max(err["gather_key"], _max_abs_err(
             kernels.gather_key(frag, src, dst, rank),
             kernels.gather_key_torch(frag, src, dst, rank)))
-    cases = [(n, kind) for n in (1, 2, 127, 128, 129, 5000, n18, 1 << 20)
-             for kind in ("random", "star")] + [(1 << 20, "chain"), (4096, "chain")]
-    for n, kind in cases:
+    # K1 in the form auto picks, around the block form's threshold and up to
+    # 2^20; then both forms forced on the same inputs, on garbage too.
+    cut = kernels.HOOK_BLOCK_FORM_THRESHOLD
+    cases = [(n, kind, "auto")
+             for n in (1, 2, 127, 128, 129, 5000, cut - 1, cut, cut + 1, n18, 1 << 20)
+             for kind in ("random", "star")]
+    cases += [(n, "chain", "auto") for n in (4096, cut - 1, cut, cut + 1, 1 << 20)]
+    cases += [(n, kind, form) for n in (3, 8192, kernels.HOOK_BLOCK_MAX_NODES)
+              for kind in ("random", "chain", "none", "cycle") for form in ("block", "grid")]
+    cases += [(n, kind, "grid") for n in (n18, 1 << 20) for kind in ("none", "cycle")]
+    for n, kind, form in cases:
         has, d, frag = (put(a) for a in _hook_forest(rng, n, kind))
-        got = kernels.hook_compress(has, d, frag)
+        got = kernels.hook_compress(has, d, frag, form=form)
         want = kernels.hook_compress_torch(has, d, frag)
         err["hook_compress"] = max(err["hook_compress"], _max_abs_err(got, want))
+        jumps, ran = kernels.hook_compress_readout()
+        if form == "auto":
+            form = "block" if n <= cut else "grid"
+        if ran != form or not 1 <= jumps <= kernels.num_jumps(n):
+            raise AssertionError(f"K1 {kind} n={n}: ran {ran} (want {form}), {jumps} jumps")
+        if kind == "none" and jumps != 1 or kind == "cycle" and n > 2 and jumps != kernels.num_jumps(n):
+            raise AssertionError(f"K1 {kind} n={n}: {jumps} jumps")
     table = torch.arange(256, dtype=torch.int32, device=dev)
     for idx in (torch.full((2, 128), 3, dtype=torch.int32, device=dev),
                 put(rng.integers(0, 256, (2, 128)).astype(np.int32))):
         err["probe"] = max(err["probe"], _max_abs_err(
             (kernels.probe(table, idx),), (kernels.probe_torch(table, idx),)))
 
-    # K3 on RMAT-18's own buckets with its level-1 fragment ...
+    # K3 on RMAT-18's own buckets with its level-1 fragment, per bucket and
+    # as one level ...
     buckets, ra18, rb18, n_pad = boruvka.prepare_ell_arrays(rmat18)
+    plan18 = kernels.ell_plan(buckets)
     frag1_ell, _, _ = boruvka._ell_level(
         torch.arange(n_pad, dtype=torch.int32, device=dev),
         torch.zeros(ra18.shape[0], dtype=torch.uint8, device=dev),
-        buckets, ra18, rb18, identity_fragment=True)
+        plan18, ra18, rb18, identity_fragment=True)
     for b in buckets:
         err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
             (kernels.ell_row_min(frag1_ell, *b),), (kernels.ell_row_min_torch(frag1_ell, *b),)))
-    # ... and on random buckets of every width class, odd widths and 1-row buckets.
+
+    def level_err(fragment, plan):
+        fresh = lambda: torch.full_like(fragment, kernels.INT32_MAX)  # noqa: E731
+        return _max_abs_err((kernels.ell_level_min(fragment, plan, fresh()),),
+                            (kernels.ell_level_min_torch(fragment, plan, fresh()),))
+
+    for tile_slots in (kernels.ELL_TILE_SLOTS, 1000):
+        err["ell_row_min"] = max(err["ell_row_min"], level_err(
+            frag1_ell, kernels.ell_plan(buckets, tile_slots=tile_slots)))
+    # ... and on random buckets of every width class, odd widths and 1-row
+    # buckets, one by one and together as one level.
     ell_cases = [(max(1, (1 << 20) // w), w) for w in (1 << k for k in range(16))]
     ell_cases += [(1, 32768), (1, 1), (3, 7), (5, 33), (7, 600), (2, 5000)]
-    for i, (rows, width) in enumerate(ell_cases):
-        arrays = _ell_bucket(rng, n18, rows, width, fragments=3 if i % 2 else n18,
-                             sorted_rows=i % 3 == 0)
-        args = [put(a) for a in arrays]
-        err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
-            (kernels.ell_row_min(*args),), (kernels.ell_row_min_torch(*args),)))
+    for fragments in (3, n18):
+        level = []
+        for i, (rows, width) in enumerate(ell_cases):
+            arrays = _ell_bucket(rng, n18, rows, width, fragments=fragments,
+                                 sorted_rows=i % 3 == 0)
+            args = [put(a) for a in arrays]
+            err["ell_row_min"] = max(err["ell_row_min"], _max_abs_err(
+                (kernels.ell_row_min(*args),), (kernels.ell_row_min_torch(*args),)))
+            level.append(args[1:])
+        fragment = args[0]  # one table for the whole level
+        for tile_slots in (kernels.ELL_TILE_SLOTS, 777):
+            err["ell_row_min"] = max(err["ell_row_min"], level_err(
+                fragment, kernels.ell_plan(level, tile_slots=tile_slots)))
 
     # K5 at 1 to 2^26 indices, around every tail length of its vector body,
     # and from offsets 1, 2 and 3, where idx and out are not 16-byte aligned.
@@ -432,9 +493,10 @@ def main() -> int:
             (kernels.gather(gtable, view),), (kernels.gather_torch(gtable, view),)))
     if any(err.values()):
         raise AssertionError(f"kernel and plain version disagree: {err}")
-    print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 forests, "
-          f"2 K4 blocks, {len(buckets)} RMAT-18 + {len(ell_cases)} random K3 buckets, "
-          f"{len(k5_sizes)} K5 sizes and 3 K5 views at offsets 1-3")
+    print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 rounds "
+          f"(forms, jumps and early exits as expected), 2 K4 blocks, {len(buckets)} RMAT-18 + "
+          f"{2 * len(ell_cases)} random K3 buckets and 6 K3 levels, {len(k5_sizes)} K5 sizes "
+          f"and 3 K5 views at offsets 1-3")
 
     # The K4 wrapper's host time, split into the steps of the launch path.
     idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
@@ -442,18 +504,76 @@ def main() -> int:
     split = _probe_host_split(torch, kernels, _build, table, idx, idx64)
     print("host us a call of K4 probe over 10^4 calls: " + json.dumps(split))
 
-    # Timing at the main path's shapes and data: RMAT-18's level-1 inputs.
-    frag0, src, dst, rank, ra, rb = boruvka.prepare_device_arrays(rmat18)
-    state = boruvka.BoruvkaState(
-        frag0, torch.zeros(ra.shape[0], dtype=torch.uint8, device=dev), 0,
-        torch.ones((), dtype=torch.bool, device=dev))
-    frag1 = boruvka.boruvka_level(state, src, dst, rank, ra, rb, identity_fragment=True).fragment
-    has1, _, d1 = fragment_moe(frag1, src, dst, rank, ra, rb)
+    # Inputs at the main path's shapes and data: RMAT-18's and RMAT-13's
+    # level-1 inputs; the form K1 runs and the jumps it takes at every level
+    # of the fused RMAT-18 solve.
+    def level1(graph):
+        f0, s0, d0, r0, a0, b0 = boruvka.prepare_device_arrays(graph)
+        st = boruvka.BoruvkaState(
+            f0, torch.zeros(a0.shape[0], dtype=torch.uint8, device=dev), 0,
+            torch.ones((), dtype=torch.bool, device=dev))
+        st = boruvka.boruvka_level(st, s0, d0, r0, a0, b0, identity_fragment=True)
+        ran = [kernels.hook_compress_readout()]
+        f1 = st.fragment
+        h, _, d = fragment_moe(f1, s0, d0, r0, a0, b0)
+        return st, (s0, d0, r0, a0, b0), (h, d, f1), ran
+
+    state, arrays18, (has1, d1, frag1), k1_levels = level1(rmat18)
+    src, dst, rank, ra, rb = arrays18
+    while state.level < boruvka._max_levels(frag1.numel()) and bool(state.progress):
+        state = boruvka.boruvka_level(state, *arrays18)
+        k1_levels.append(kernels.hook_compress_readout())
+    _, _, hook13, _ = level1(rmat13)
+    print("K1 on the fused RMAT-18 solve, (form, jumps taken of num_jumps) a level: " + ", ".join(
+        f"{form} {jumps}/{kernels.num_jumps(frag1.numel())}" for jumps, form in k1_levels))
     n, e = frag1.numel(), src.numel()
+    vmin_k, vmin_p = (torch.full((n_pad,), kernels.INT32_MAX, dtype=torch.int32, device=dev)
+                      for _ in range(2))
+
+    # One device kernel for one K1 call and for one K3 level, by the
+    # profiler, and their device time (median of 20 calls).
+    device_ms = {}
+    for key, fn, want in (
+        ("hook_compress n=2^18", lambda: kernels.hook_compress(has1, d1, frag1), "hook_compress"),
+        ("hook_compress n=8192", lambda: kernels.hook_compress(*hook13), "hook_compress"),
+        ("ell_row_min one level", lambda: kernels.ell_level_min(frag1_ell, plan18, vmin_k),
+         "ell_level"),
+    ):
+        fn()
+        kerns = _device_kernels(torch, fn, 20)
+        if len(kerns) != 20 or any(want not in name for name, _ in kerns):
+            raise AssertionError(f"{key}: 20 calls ran {[name for name, _ in kerns]}")
+        device_ms[key] = statistics.median(us for _, us in kerns) / 1e3
+    print("profiler: one device kernel a call; device ms (median of 20): "
+          + json.dumps(device_ms))
+
+    # The two choices this run measures: K1's form by n (block against grid,
+    # in turns; RMAT-13's level-1 inputs at n = 8192), K3's tile size (one
+    # RMAT-18 level, CUDA events).
+    forms = {}
+    for m in (1024, 4096, 8192, 16384, 20480, 24576, kernels.HOOK_BLOCK_MAX_NODES):
+        hook = hook13 if m == 8192 else [put(a) for a in _hook_forest(rng, m, "random")]
+        block = lambda: kernels.hook_compress(*hook, form="block")  # noqa: E731
+        grid = lambda: kernels.hook_compress(*hook, form="grid")  # noqa: E731
+        t = cuda_time_in_turns_ms(block, grid)
+        forms[m] = (t["a_ms"], t["b_ms"], *(
+            statistics.median(us for _, us in _device_kernels(torch, fn, 10)) / 1e3
+            for fn in (block, grid)))
+    print("K1 forms by n, ms in turns by CUDA events (block, grid) and device ms by the "
+          "profiler (block, grid): " + ", ".join(
+              f"{m} ({b:.4f}, {g:.4f}; {db:.4f}, {dg:.4f})" for m, (b, g, db, dg) in forms.items())
+          + f"; auto takes the block form up to n = {kernels.HOOK_BLOCK_FORM_THRESHOLD}")
+    tiles = {t: cuda_time_ms(lambda p=kernels.ell_plan(buckets, tile_slots=t):
+                             kernels.ell_level_min(frag1_ell, p, vmin_k))
+             for t in (1024, 2048, 4096, 8192, 16384)}
+    print("K3 tiles, one RMAT-18 level ms by tile slots: " + ", ".join(
+        f"{t} {ms:.4f}" for t, ms in tiles.items())
+        + f"; the plan takes {kernels.ELL_TILE_SLOTS}")
+
     per_bucket = [
         (tuple(b[1].shape), cuda_time_ms(lambda b=b: kernels.ell_row_min(frag1_ell, *b)))
         for b in buckets]
-    print("time ell_row_min per RMAT-18 bucket (rows, W): " + ", ".join(
+    print("time ell_row_min per RMAT-18 bucket (rows, W), one launch each: " + ", ".join(
         f"{shape} {ms:.4f} ms" for shape, ms in per_bucket))
     ell_slots = sum(b[1].numel() for b in buckets)
     ell_rows = sum(b[0].numel() for b in buckets)
@@ -463,7 +583,8 @@ def main() -> int:
     # with a library call is timed in turns with it. A turn lasts at least
     # about a millisecond, so that the host's wake-up after each synchronise
     # does not weigh on a call that takes ten microseconds: 100 calls a
-    # turn for K4, 10 for K5.
+    # turn for K4, 10 for K5. K3's bytes: the slots, verts, the fragment
+    # table, and the per-vertex minima read and written.
     rows = [
         ("gather_key", f"{JAX_OPS}/pallas_kernels.py:492",
          lambda: kernels.gather_key(frag1, src, dst, rank),
@@ -472,16 +593,17 @@ def main() -> int:
         ("hook_compress", f"{JAX_OPS}/pallas_kernels.py:516",
          lambda: kernels.hook_compress(has1, d1, frag1),
          lambda: kernels.hook_compress_torch(has1, d1, frag1),
-         None, 17 * n, f"n={n} jumps={kernels.num_jumps(n)}"),
+         None, 17 * n, f"n={n}, RMAT-18 level-1 inputs"),
         ("probe", f"{JAX_OPS}/pallas_kernels.py:210",
          lambda: kernels.probe(table, idx),
          lambda: kernels.probe_torch(table, idx),
          lambda: torch.take(table, idx64), 3 * 1024, "table=256 idx=2x128"),
         ("ell_row_min", f"{JAX_OPS}/pallas_kernels.py:465",
-         lambda: [kernels.ell_row_min(frag1_ell, *b) for b in buckets],
-         lambda: [kernels.ell_row_min_torch(frag1_ell, *b) for b in buckets],
-         None, 8 * ell_slots + 8 * ell_rows + 4 * n_pad,
-         f"one level: {len(buckets)} buckets, {ell_rows} rows, {ell_slots} slots, n={n_pad}"),
+         lambda: kernels.ell_level_min(frag1_ell, plan18, vmin_k),
+         lambda: kernels.ell_level_min_torch(frag1_ell, plan18, vmin_p),
+         None, 8 * ell_slots + 4 * ell_rows + 12 * n_pad,
+         f"one level in one launch: {len(buckets)} buckets, {ell_rows} rows, {ell_slots} slots, "
+         f"{plan18.tiles} tiles, n={n_pad}"),
         ("gather", "tools/test_pallas_gather.py:46",
          lambda: kernels.gather(gtable, g24),
          lambda: kernels.gather_torch(gtable, g24),
@@ -510,9 +632,27 @@ def main() -> int:
         out.append(rec)
         print(f"time {name} ({shape}): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms")
-    k3 = out[3]
-    print(f"time K3 one RMAT-18 level ({len(buckets)} launches) by CUDA events: "
-          f"{k3['ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms")
+    k1, k3 = out[1], out[3]
+    k1.update(device_ms=device_ms["hook_compress n=2^18"], levels_rmat18=[
+        {"form": form, "jumps": jumps} for jumps, form in k1_levels])
+    kernels.hook_compress(has1, d1, frag1)
+    k1["jumps"], k1["form"] = kernels.hook_compress_readout()
+    kernels.hook_compress(*hook13)
+    k1["at_n8192"] = {
+        "shape": "n=8192, RMAT-13 level-1 inputs",
+        "ms": cuda_time_ms(lambda: kernels.hook_compress(*hook13)),
+        "plain_ms": cuda_time_ms(lambda: kernels.hook_compress_torch(*hook13)),
+        "bound_ms": 17 * 8192 / HBM_BYTES_PER_S * 1e3,
+        "device_ms": device_ms["hook_compress n=8192"],
+    }
+    k1["at_n8192"]["jumps"], k1["at_n8192"]["form"] = kernels.hook_compress_readout()
+    print(f"time hook_compress (n=8192, RMAT-13 level-1 inputs): kernel "
+          f"{k1['at_n8192']['ms']:.4f} ms, plain {k1['at_n8192']['plain_ms']:.4f} ms, "
+          f"bound {k1['at_n8192']['bound_ms']:.6f} ms; {k1['at_n8192']['form']} form, "
+          f"{k1['at_n8192']['jumps']} jumps; at n=2^18 {k1['form']} form, {k1['jumps']} jumps")
+    k3.update(device_ms=device_ms["ell_row_min one level"], tiles=plan18.tiles)
+    print(f"time K3 one RMAT-18 level (one launch) by CUDA events: {k3['ms']:.4f} ms, by the "
+          f"profiler {k3['device_ms']:.4f} ms of device time, bound {k3['bound_ms']:.4f} ms")
     at26 = {
         "shape": "table=2^20 idx=2^26",
         "plain_ms": cuda_time_ms(lambda: kernels.gather_torch(gtable, g26)),

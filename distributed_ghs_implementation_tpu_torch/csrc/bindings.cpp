@@ -18,11 +18,11 @@ int ghs_gather_key(int device, const void* fragment, const void* src, const void
                    const void* rank, void* fsrc, void* key, long long e, void* stream);
 int ghs_hook_compress(int device, const void* has, const void* dst_frag, const void* fragment,
                       void* new_fragment, void* parent, void* scratch, long long n,
-                      int num_jumps, void* stream);
+                      int num_jumps, int form, void* stream);
 int ghs_probe(int device, const void* table, const void* idx, void* out, long long count,
               void* stream);
-int ghs_ell_row_min(int device, const void* fragment, const void* verts, const void* dstb,
-                    const void* rankb, void* out, long long rows, long long width, void* stream);
+int ghs_ell_level(int device, const void* fragment, void* out, const void* desc, long long count,
+                  long long tiles, int row_indexed, void* stream);
 int ghs_gather(int device, const void* table, const void* idx, void* out, long long count,
                void* stream);
 const char* ghs_error_string(int code);
@@ -61,10 +61,10 @@ PyObject* gather_key(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 }
 
 PyObject* hook_compress(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  Arg a[10];
-  if (!parse("hook_compress", "ippppppiip", args, nargs, a)) return nullptr;
+  Arg a[11];
+  if (!parse("hook_compress", "ippppppiiip", args, nargs, a)) return nullptr;
   return PyLong_FromLong(ghs_hook_compress((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].p, a[5].p,
-                                           a[6].p, a[7].i, (int)a[8].i, a[9].p));
+                                           a[6].p, a[7].i, (int)a[8].i, (int)a[9].i, a[10].p));
 }
 
 PyObject* probe(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
@@ -73,11 +73,13 @@ PyObject* probe(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   return PyLong_FromLong(ghs_probe((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].i, a[5].p));
 }
 
-PyObject* ell_row_min(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  Arg a[9];
-  if (!parse("ell_row_min", "ipppppiip", args, nargs, a)) return nullptr;
-  return PyLong_FromLong(ghs_ell_row_min((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].p, a[5].p,
-                                         a[6].i, a[7].i, a[8].p));
+// desc points at the plan's bucket descriptors in host memory; the
+// launcher copies them into the kernel's parameters.
+PyObject* ell_level(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  Arg a[8];
+  if (!parse("ell_level", "ipppiiip", args, nargs, a)) return nullptr;
+  return PyLong_FromLong(ghs_ell_level((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].i, a[5].i,
+                                       (int)a[6].i, a[7].p));
 }
 
 PyObject* gather(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
@@ -96,7 +98,7 @@ PyObject* error_string(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 
 PyMethodDef kMethods[] = {
     GHS_METHOD(gather_key), GHS_METHOD(hook_compress), GHS_METHOD(probe),
-    GHS_METHOD(ell_row_min), GHS_METHOD(gather), GHS_METHOD(error_string),
+    GHS_METHOD(ell_level), GHS_METHOD(gather), GHS_METHOD(error_string),
     {nullptr, nullptr, 0, nullptr},
 };
 

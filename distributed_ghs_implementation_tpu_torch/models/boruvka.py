@@ -139,16 +139,18 @@ def _solve_from_iota(src, dst, rank, ra, rb, *, num_nodes: int):
 # ELL (degree-bucketed) variant.
 #
 # Graph.ell_buckets lays the directed adjacency out as 2-D blocks, one per
-# degree class, so the per-vertex MOE is a dense masked row minimum (K3
-# ``ell_row_min`` on the card, one launch per bucket) and the only scatters
-# left are n-sized: the row minima into per-vertex minima, then those into
-# per-fragment minima.
+# degree class, so the per-vertex MOE is a dense masked row minimum. On the
+# card a level's row minima over all buckets, folded into the per-vertex
+# minima, are one K3 launch (``kernels.ell_level_min``, over the plan that
+# ``kernels.ell_plan`` builds once per solve); the only scatter left is
+# n-sized: the per-vertex minima into per-fragment minima.
 # ---------------------------------------------------------------------------
 
 
-def _ell_level(fragment, mst_ranks, buckets, ra, rb, *, identity_fragment=False):
-    """One level over ELL buckets; returns ``(fragment2, mst_ranks, has_any)``
-    and updates ``mst_ranks`` in place.
+def _ell_level(fragment, mst_ranks, plan, ra, rb, *, identity_fragment=False):
+    """One level over the ELL buckets of ``plan`` (``kernels.ell_plan``);
+    returns ``(fragment2, mst_ranks, has_any)`` and updates ``mst_ranks`` in
+    place.
 
     ``identity_fragment`` marks level 0, where ``fragment == arange(n)``:
     rows hold no self-edges, so every entry is outgoing, and rows are in
@@ -157,14 +159,13 @@ def _ell_level(fragment, mst_ranks, buckets, ra, rb, *, identity_fragment=False)
     n = fragment.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=fragment.device)
     vmin = torch.full((n,), INT32_MAX, dtype=torch.int32, device=fragment.device)
-    for verts, dstb, rankb in buckets:
-        if identity_fragment:
-            row_min = rankb[:, 0]
-        else:
-            row_min = kernels.ell_row_min(fragment, verts, dstb, rankb)
-        # Pad rows alias vertex 0 with INT32_MAX: a min-scatter, not a store.
-        vmin.scatter_reduce_(0, verts.long(), row_min, "amin")
-    moe = vmin if identity_fragment else segment_min(vmin, fragment, n)
+    if identity_fragment:
+        for verts, _, rankb in plan.buckets:
+            # Pad rows alias vertex 0 with INT32_MAX: a min-scatter, not a store.
+            vmin.scatter_reduce_(0, verts.long(), rankb[:, 0], "amin")
+        moe = vmin
+    else:
+        moe = segment_min(kernels.ell_level_min(fragment, plan, vmin), fragment, n)
     has = moe < INT32_MAX
     safe = torch.where(has, moe, 0)
     if identity_fragment:
@@ -180,14 +181,15 @@ def ell_solve_loop(buckets, ra, rb, *, num_nodes: int):
     """Full ELL solve from the identity partition: the identity level, then
     one level at a time while a fragment has an outgoing edge, capped at
     ``_max_levels(num_nodes)``. Returns ``(mst_ranks, fragment, levels)``."""
+    plan = kernels.ell_plan(buckets)
     fragment = torch.arange(num_nodes, dtype=torch.int32, device=ra.device)
     mst_ranks = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
     fragment, mst_ranks, has = _ell_level(
-        fragment, mst_ranks, buckets, ra, rb, identity_fragment=True,
+        fragment, mst_ranks, plan, ra, rb, identity_fragment=True,
     )
     levels, max_levels = 1, _max_levels(num_nodes)
     while levels < max_levels and bool(has):
-        fragment, mst_ranks, has = _ell_level(fragment, mst_ranks, buckets, ra, rb)
+        fragment, mst_ranks, has = _ell_level(fragment, mst_ranks, plan, ra, rb)
         levels += 1
     return mst_ranks, fragment, levels
 

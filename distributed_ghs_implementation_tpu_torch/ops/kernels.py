@@ -11,15 +11,17 @@ has three parts here:
   back.
 * ``<name>.launches``: a plain int that the wrapper raises by one each time
   it launches the kernel, so a run can show that it went through the kernel.
+  K3 has two wrappers, one bucket (``ell_row_min``) and a whole level
+  (``ell_level_min``), over one kernel; both count on ``ell_row_min``.
 
 The library builds at first use (``ops/_build.py``). Right after it loads,
 the K4 probe runs once as a self-check and the load fails unless it reads 3.
 
-A launch costs the host a few microseconds, and K3 alone makes 15 a level,
-so the launch path does no more than it must: ``_validate`` reads tensor
-attributes and builds no ``torch.device``; the stream is the raw handle of
-the device's current stream, read with ``_current_stream`` and never built
-into a ``torch.cuda.Stream``; one call into the extension module launches
+A launch costs the host a few microseconds, so the launch path does no more
+than it must: ``_validate`` reads tensor attributes and builds no
+``torch.device``; the stream is the raw handle of the device's current
+stream, read with ``_current_stream`` and never built into a
+``torch.cuda.Stream``; one call into the extension module launches
 (``csrc/bindings.cpp``, cheaper than ``ctypes``), and the C launcher sets
 the device only where it is not already current.
 """
@@ -27,6 +29,7 @@ the device only where it is not already current.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -156,10 +159,26 @@ def hook_compress_torch(has_moe, moe_dst_frag, fragment):
     return p[fragment], p
 
 
-def hook_compress(has_moe, moe_dst_frag, fragment):
-    """K1: one merge round, the contract of ``union_find.hook_and_compress``.
-    Replaces ``fused_hook_compress`` (JAX package
-    ``ops/pallas_kernels.py:516``)."""
+#: The block form's limits, as ``csrc/hook_compress.cu`` sets them
+#: (``kBlockMaxNodes``, ``kBlockFormThreshold``): the most nodes its shared
+#: memory holds, and the most for which ``form="auto"`` picks it.
+HOOK_BLOCK_MAX_NODES = 29056
+HOOK_BLOCK_FORM_THRESHOLD = 8192
+
+#: ``form`` of :func:`hook_compress` and the launcher's code for it:
+#: ``"auto"`` picks by n (the block form up to the threshold in
+#: ``csrc/hook_compress.cu``, the grid form above); the others force one.
+HOOK_FORMS = {"auto": 0, "block": 1, "grid": 2}
+
+
+def hook_compress(has_moe, moe_dst_frag, fragment, *, form: str = "auto"):
+    """K1: one merge round, the contract of ``union_find.hook_and_compress``,
+    in one launch. Replaces ``fused_hook_compress`` (JAX package
+    ``ops/pallas_kernels.py:516``). The kernel stops jumping at the first
+    jump that changes nothing, which gives what all ``num_jumps(n)`` jumps
+    give; :func:`hook_compress_readout` says how many it ran."""
+    if form not in HOOK_FORMS:
+        raise ValueError(f"hook_compress: form must be one of {sorted(HOOK_FORMS)}, got {form!r}")
     if fragment.is_cpu:
         return hook_compress_torch(has_moe, moe_dst_frag, fragment)
     device = _validate(
@@ -176,20 +195,33 @@ def hook_compress(has_moe, moe_dst_frag, fragment):
     new_fragment = torch.empty_like(fragment)
     parent = torch.empty_like(fragment)
     if n:
-        scratch = torch.empty_like(fragment)
+        jumps = num_jumps(n)
+        # One allocation: the grid form's ping-pong buffer [n], one early-exit
+        # flag a jump, then the read-out (jumps taken, form run).
+        scratch = fragment.new_empty(n + jumps + 2)
         lib = _lib()
         code = lib.hook_compress(
             device, has_moe.data_ptr(), moe_dst_frag.data_ptr(), fragment.data_ptr(),
-            new_fragment.data_ptr(), parent.data_ptr(), scratch.data_ptr(), n,
-            num_jumps(n), _current_stream(device),
+            new_fragment.data_ptr(), parent.data_ptr(), scratch.data_ptr(), n, jumps,
+            HOOK_FORMS[form], _current_stream(device),
         )
         if code:
             _fail("hook_compress", lib, code)
         hook_compress.launches += 1
+        hook_compress.readout = (scratch, n + jumps)
     return new_fragment, parent
 
 
+def hook_compress_readout() -> tuple[int, str]:
+    """``(jumps taken, "block" or "grid")`` of the last K1 launch. Reads the
+    card, so it waits for the launch."""
+    scratch, at = hook_compress.readout
+    jumps, form = scratch[at:at + 2].tolist()
+    return jumps, {1: "block", 2: "grid"}[form]
+
+
 hook_compress.launches = 0
+hook_compress.readout = None
 
 
 # ---------------------------------------------------------------------------
@@ -238,33 +270,149 @@ def ell_row_min_torch(fragment, verts, dstb, rankb):
     return torch.where(fd != fv[:, None], rankb, INT32_MAX).amin(1)
 
 
+def ell_level_min_torch(fragment, plan, vmin):
+    """For every row of every bucket of ``plan``, ``vmin[verts[r]] =
+    min(vmin[verts[r]], row minimum of r)``, in place; returns ``vmin``."""
+    for verts, dstb, rankb in plan.buckets:
+        # Pad rows alias vertex 0 with INT32_MAX: a min-scatter, not a store.
+        vmin.scatter_reduce_(0, verts.long(), ell_row_min_torch(fragment, verts, dstb, rankb),
+                             "amin")
+    return vmin
+
+
+#: Slots of one K3 tile: a block's share of a level. chip_smoke.py's "K3
+#: tiles" line times one RMAT-18 level at 1,024-16,384: on an H100 8,192 was
+#: the fastest, by about 1% over 4,096, and 1,024 the slowest, by 24%.
+ELL_TILE_SLOTS = 8192
+#: Buckets one K3 launch takes: their descriptors travel as kernel
+#: parameters, which are limited to 4 KB.
+ELL_MAX_BUCKETS = 32
+#: The fields of one bucket's descriptor, as ``EllBucket`` in
+#: ``csrc/ell_row_min.cu`` lays them out (all 64-bit).
+ELL_FIELDS = ("verts", "dstb", "rankb", "rows", "width", "first_tile", "rows_per_tile", "seg",
+              "chunks")
+
+
+class EllPlan(NamedTuple):
+    """A level's buckets laid out as K3 tiles; built once per solve."""
+
+    buckets: tuple  # ((verts, dstb, rankb), ...): kept alive for the descriptors
+    desc: torch.Tensor  # int64 [buckets, len(ELL_FIELDS)] on the host
+    tiles: int
+    device: int | None  # the buckets' CUDA device; None on the CPU
+
+
+def ell_tiling(shapes, tile_slots: int = ELL_TILE_SLOTS):
+    """Cut buckets of ``(rows, W)`` into tiles of at most ``tile_slots``
+    slots: ``[(first_tile, rows_per_tile, seg, chunks)]`` per bucket and the
+    tile count. A bucket with W <= ``tile_slots`` takes ``tile_slots // W``
+    whole rows a tile; a wider row splits into ``ceil(W / tile_slots)``
+    chunks of ``tile_slots`` slots (the last one shorter), each a tile."""
+    if tile_slots < 1:
+        raise ValueError(f"tile_slots must be >= 1, got {tile_slots}")
+    out, first = [], 0
+    for rows, width in shapes:
+        if width <= tile_slots:
+            per_tile, seg, chunks = tile_slots // width, width, 1
+            tiles = -(-rows // per_tile)
+        else:
+            per_tile, seg, chunks = 1, tile_slots, -(-width // tile_slots)
+            tiles = rows * chunks
+        out.append((first, per_tile, seg, chunks))
+        first += tiles
+    return out, first
+
+
+def _check_bucket(name: str, verts, dstb, rankb) -> None:
+    if (verts.dim() != 1 or dstb.dim() != 2 or dstb.shape[1] < 1
+            or dstb.shape != rankb.shape or dstb.shape[0] != verts.shape[0]):
+        raise ValueError(
+            f"{name}: want verts[rows] and dstb/rankb[rows, W >= 1], got "
+            f"{tuple(verts.shape)}, {tuple(dstb.shape)}, {tuple(rankb.shape)}"
+        )
+
+
+def _plan(buckets, tile_slots: int, device) -> EllPlan:
+    tiling, tiles = ell_tiling([tuple(b[1].shape) for b in buckets], tile_slots)
+    desc = torch.tensor(
+        [[v.data_ptr(), d.data_ptr(), r.data_ptr(), *d.shape, *t]
+         for (v, d, r), t in zip(buckets, tiling)],
+        dtype=torch.int64,
+    ).reshape(-1, len(ELL_FIELDS))
+    return EllPlan(buckets, desc, tiles, device)
+
+
+def ell_plan(buckets, *, tile_slots: int = ELL_TILE_SLOTS) -> EllPlan:
+    """The plan of K3's one launch a level over ``buckets`` (``(verts, dstb,
+    rankb)`` each, as ``Graph.ell_buckets`` stages them): at most
+    ``ELL_MAX_BUCKETS`` buckets, all on one device."""
+    buckets = tuple(tuple(b) for b in buckets)
+    if len(buckets) > ELL_MAX_BUCKETS:
+        raise ValueError(
+            f"ell_plan: {len(buckets)} buckets; one K3 launch takes at most {ELL_MAX_BUCKETS}"
+        )
+    for i, (verts, dstb, rankb) in enumerate(buckets):
+        _check_bucket(f"ell_plan bucket {i}", verts, dstb, rankb)
+    device = None
+    if buckets and not buckets[0][0].is_cpu:
+        device = _validate("ell_plan", {
+            f"{key}{i}": t for i, b in enumerate(buckets) for key, t in zip(ELL_FIELDS, b)
+        })
+    return _plan(buckets, tile_slots, device)
+
+
+def _launch_ell_level(device: int, fragment, out, plan: EllPlan, row_indexed: int) -> None:
+    lib = _lib()
+    code = lib.ell_level(
+        device, fragment.data_ptr(), out.data_ptr(), plan.desc.data_ptr(), len(plan.buckets),
+        plan.tiles, row_indexed, _current_stream(device),
+    )
+    if code:
+        _fail("ell_row_min", lib, code)
+    ell_row_min.launches += 1
+
+
 def ell_row_min(fragment, verts, dstb, rankb):
-    """K3: one ELL bucket's masked row minimum. Replaces
-    ``fused_ell_row_min`` (JAX package ``ops/pallas_kernels.py:465``)."""
+    """K3 on one ELL bucket: its masked row minimum. Replaces
+    ``fused_ell_row_min`` (JAX package ``ops/pallas_kernels.py:465``). The
+    one-bucket call of the level kernel, into a row-indexed output preset to
+    INT32_MAX."""
     if fragment.is_cpu:
         return ell_row_min_torch(fragment, verts, dstb, rankb)
     device = _validate("ell_row_min", {
         "fragment": fragment, "verts": verts, "dstb": dstb, "rankb": rankb,
     })
-    if (fragment.dim() != 1 or verts.dim() != 1 or dstb.dim() != 2 or dstb.shape[1] < 1
-            or dstb.shape != rankb.shape or dstb.shape[0] != verts.shape[0]):
-        raise ValueError(
-            f"ell_row_min: want fragment[n], verts[rows] and dstb/rankb[rows, W >= 1], got "
-            f"{tuple(fragment.shape)}, {tuple(verts.shape)}, {tuple(dstb.shape)}, "
-            f"{tuple(rankb.shape)}"
-        )
-    rows, width = dstb.shape
-    out = torch.empty_like(verts)
-    if rows:
-        lib = _lib()
-        code = lib.ell_row_min(
-            device, fragment.data_ptr(), verts.data_ptr(), dstb.data_ptr(),
-            rankb.data_ptr(), out.data_ptr(), rows, width, _current_stream(device),
-        )
-        if code:
-            _fail("ell_row_min", lib, code)
-        ell_row_min.launches += 1
+    if fragment.dim() != 1:
+        raise ValueError(f"ell_row_min: want fragment[n], got {tuple(fragment.shape)}")
+    _check_bucket("ell_row_min", verts, dstb, rankb)
+    out = torch.full_like(verts, INT32_MAX)
+    plan = _plan(((verts, dstb, rankb),), ELL_TILE_SLOTS, device)
+    if plan.tiles:
+        _launch_ell_level(device, fragment, out, plan, 1)
     return out
+
+
+def ell_level_min(fragment, plan: EllPlan, vmin):
+    """K3 over a whole ELL level in one launch: ``ell_level_min_torch``'s
+    function, the per-vertex minima folded in with atomics. ``vmin`` is
+    updated in place (the caller presets it to INT32_MAX) and returned."""
+    if fragment.is_cpu:
+        return ell_level_min_torch(fragment, plan, vmin)
+    device = _validate("ell_level_min", {"fragment": fragment, "vmin": vmin})
+    if fragment.dim() != 1 or vmin.shape != fragment.shape:
+        raise ValueError(
+            f"ell_level_min: want fragment[n] and vmin[n], got {tuple(fragment.shape)}, "
+            f"{tuple(vmin.shape)}"
+        )
+    if plan.device != device:
+        raise ValueError(
+            f"ell_level_min: the plan's buckets are on "
+            f"{'the CPU' if plan.device is None else f'cuda:{plan.device}'}, fragment on "
+            f"cuda:{device}"
+        )
+    if plan.tiles:
+        _launch_ell_level(device, fragment, vmin, plan, 0)
+    return vmin
 
 
 ell_row_min.launches = 0
@@ -306,5 +454,6 @@ def gather(table, idx):
 
 gather.launches = 0
 
-#: Every kernel wrapper, for code that reads or resets the launch counts.
+#: The wrapper that counts each kernel's launches, for code that reads or
+#: resets the counts.
 WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather)

@@ -8,8 +8,9 @@ arrays: ``rank_arrays`` for the flat strategies, ``ell_buckets`` for
 ``ell``; host-to-device copy; level loop; harvest of the edge ids), timed
 on the host clock around ``torch.cuda.synchronize()``, then once more under
 ``torch.profiler``: the device's busy time is the union of its kernel and
-copy intervals, its idle share is the rest of the solve's wall time. Prints
-one JSON line, with the card's name and power limit.
+copy intervals, its idle share is the rest of the solve's wall time, and
+each kernel name's device time and launch count are listed. Prints one
+JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -72,13 +73,16 @@ def _phases(graph, strategy: str, device) -> dict:
 
 
 def _device_busy(prof) -> tuple[float, dict]:
-    """Union of the device intervals (s) and the time per kernel name (s)."""
-    spans, by_name = [], defaultdict(float)
+    """Union of the device intervals (s), and the time (s) and launches of
+    each kernel name."""
+    spans, by_name = [], defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             start, end = evt.time_range.start, evt.time_range.end
             spans.append((start, end))
-            by_name[evt.name[:80]] += (end - start) * 1e-6
+            name = by_name[evt.name[:80]]
+            name[0] += (end - start) * 1e-6
+            name[1] += 1
     busy, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -89,7 +93,8 @@ def _device_busy(prof) -> tuple[float, dict]:
             cur_end = max(cur_end, end)
     if cur_end is not None:
         busy += cur_end - cur_start
-    return busy * 1e-6, dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return busy * 1e-6, {name: {"s": t, "launches": c} for name, (t, c) in ranked}
 
 
 def main(argv=None) -> int:
@@ -116,7 +121,7 @@ def main(argv=None) -> int:
         "profiled_wall_s": wall,
         "device_busy_s": busy if top else None,
         "device_idle_share": 1.0 - busy / wall if top else None,
-        "device_time_by_name_s": top,
+        "device_time_by_name": top,
     }))
     return 0
 

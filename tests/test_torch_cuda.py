@@ -15,12 +15,14 @@ from distributed_ghs_implementation_tpu_torch.ops import kernels
 from distributed_ghs_implementation_tpu_torch.models import boruvka
 from distributed_ghs_implementation_tpu_torch.graphs import generators
 from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
-
-#: (rows, W) of RMAT-18's (edge factor 16, seed 1) fifteen ELL buckets.
-RMAT18_BUCKETS = [(65536, 1), (32768, 2), (32768, 4), (32768, 8), (16384, 16), (32768, 32),
-                  (16384, 64), (8192, 128), (16384, 256), (64, 512), (4096, 1024),
-                  (1024, 2048), (256, 8192), (32, 16384), (1, 32768)]
-from torch_inputs import FLAT_SHAPES, ell_inputs, hook_forest, moe_inputs
+from torch_inputs import (
+    FLAT_SHAPES,
+    RMAT18_BUCKETS,
+    ell_bucket_set,
+    ell_inputs,
+    hook_forest,
+    moe_inputs,
+)
 
 
 def _t(a):
@@ -46,15 +48,86 @@ def test_gather_key_kernel_matches_plain_on_card(cuda, n, e):
         assert torch.equal(g, w)
 
 
+_THRESHOLD = kernels.HOOK_BLOCK_FORM_THRESHOLD
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 2, 127, 129, 5000, 1 << 18])
+@pytest.mark.parametrize("n", [1, 2, 127, 129, 5000, _THRESHOLD - 1, _THRESHOLD,
+                               _THRESHOLD + 1, 1 << 18, 1 << 20])
 @pytest.mark.parametrize("kind", ["random", "star", "chain"])
 def test_hook_compress_kernel_matches_plain_on_card(cuda, n, kind):
+    """One launch a round, in the form ``auto`` picks for n; the chain needs
+    every jump, so a premature exit shows."""
     args = [_t(a).to(cuda) for a in hook_forest(n, n, kind)]
+    launches = kernels.hook_compress.launches
     got = kernels.hook_compress(*args)
     torch.cuda.synchronize()
+    assert kernels.hook_compress.launches == launches + 1
     for g, w in zip(got, kernels.hook_compress_torch(*args)):
         assert torch.equal(g, w)
+    jumps, form = kernels.hook_compress_readout()
+    assert form == ("block" if n <= _THRESHOLD else "grid")
+    assert 1 <= jumps <= kernels.num_jumps(n)
+    if kind == "chain" and n > 2:
+        assert jumps == kernels.num_jumps(n) or 2 ** (jumps - 1) >= n - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["block", "grid"])
+@pytest.mark.parametrize("n", [1, 3, 1000, kernels.HOOK_BLOCK_MAX_NODES])
+@pytest.mark.parametrize("kind", ["random", "chain", "none", "cycle"])
+def test_hook_compress_both_forms_match_plain_on_card(cuda, form, n, kind):
+    """Either form on the same inputs; with nothing hooked the first jump
+    changes nothing and the round stops there; on cyclic garbage no jump
+    reaches a fixpoint, so all num_jumps(n) run, as in the plain version."""
+    args = [_t(a).to(cuda) for a in hook_forest(n + 1, n, kind)]
+    got = kernels.hook_compress(*args, form=form)
+    for g, w in zip(got, kernels.hook_compress_torch(*args)):
+        assert torch.equal(g, w)
+    jumps, ran = kernels.hook_compress_readout()
+    assert ran == form
+    if kind == "none":
+        assert jumps == 1
+    if kind == "cycle" and n > 2:
+        assert jumps == kernels.num_jumps(n)
+
+
+@pytest.mark.gpu
+def test_hook_compress_refused_launches_raise_on_card(cuda):
+    """A block form too large for shared memory is refused by the launcher,
+    and the wrapper raises; nothing runs in another form."""
+    n = kernels.HOOK_BLOCK_MAX_NODES + 1
+    args = [_t(a).to(cuda) for a in hook_forest(1, n, "random")]
+    launches = kernels.hook_compress.launches
+    with pytest.raises(RuntimeError, match="hook_compress kernel launch failed"):
+        kernels.hook_compress(*args, form="block")
+    assert kernels.hook_compress.launches == launches
+    with pytest.raises(ValueError, match="form"):
+        kernels.hook_compress(*args, form="warp")
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` runs, by the profiler."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+def test_k1_and_k3_level_are_one_device_kernel_each_on_card(cuda):
+    for n in (5000, 1 << 18):
+        args = [_t(a).to(cuda) for a in hook_forest(n, n, "random")]
+        names = _device_kernels(lambda: kernels.hook_compress(*args))
+        assert len(names) == 1 and "hook_compress" in names[0], names
+    fragment, buckets = ell_bucket_set(2, 1 << 12, [(64, 1), (16, 64), (1, 9000)])
+    plan = kernels.ell_plan([tuple(_t(a).to(cuda) for a in b) for b in buckets])
+    vmin = torch.full((1 << 12,), kernels.INT32_MAX, dtype=torch.int32, device=cuda)
+    frag = _t(fragment).to(cuda)
+    names = _device_kernels(lambda: kernels.ell_level_min(frag, plan, vmin))
+    assert len(names) == 1 and "ell_level" in names[0], names
 
 
 @pytest.mark.gpu
@@ -75,6 +148,39 @@ def test_ell_row_min_kernel_matches_plain_on_card(cuda, rows, width, fragments):
     torch.cuda.synchronize()
     assert kernels.ell_row_min.launches == launches + 1
     assert torch.equal(got, kernels.ell_row_min_torch(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,tile_slots", [
+    (RMAT18_BUCKETS, kernels.ELL_TILE_SLOTS),
+    (RMAT18_BUCKETS, 1000),
+    ([(1, 32768), (3, 5000), (2, 4097)], kernels.ELL_TILE_SLOTS),
+    ([(7, 600), (65536, 1), (5, 33), (1, 1), (0, 4)], 64),
+])
+@pytest.mark.parametrize("fragments", [3, 1 << 18])
+def test_ell_level_kernel_matches_plain_on_card(cuda, shapes, tile_slots, fragments):
+    """One launch for every bucket of a level, the per-vertex minima folded
+    in, against the per-bucket loop and scatter: RMAT-18's shapes, the hub
+    row (1, 32,768) and rows wider than the tile."""
+    fragment, buckets = ell_bucket_set(len(shapes), 1 << 18, shapes, fragments=fragments)
+    plan = kernels.ell_plan([tuple(_t(a).to(cuda) for a in b) for b in buckets],
+                            tile_slots=tile_slots)
+    frag = _t(fragment).to(cuda)
+    launches = kernels.ell_row_min.launches
+    got = kernels.ell_level_min(frag, plan, torch.full_like(frag, kernels.INT32_MAX))
+    torch.cuda.synchronize()
+    assert kernels.ell_row_min.launches == launches + 1
+    want = kernels.ell_level_min_torch(frag, plan, torch.full_like(frag, kernels.INT32_MAX))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_ell_level_refuses_a_plan_on_another_device_on_card(cuda):
+    fragment, buckets = ell_bucket_set(4, 64, [(4, 2)])
+    plan = kernels.ell_plan([tuple(_t(a) for a in b) for b in buckets])
+    frag = _t(fragment).to(cuda)
+    with pytest.raises(ValueError, match="the CPU"):
+        kernels.ell_level_min(frag, plan, torch.full_like(frag, kernels.INT32_MAX))
 
 
 @pytest.mark.gpu
@@ -119,6 +225,11 @@ def _wrapper_inputs(name, device):
         arrays = (np.arange(256, dtype=np.int32), np.full((2, 128), 3, dtype=np.int32))
     elif name == "ell_row_min":
         arrays = ell_inputs(3, 1 << 12, 300, 40)
+    elif name == "ell_level_min":
+        fragment, buckets = ell_bucket_set(3, 1 << 12, [(300, 40), (2, 5000)])
+        plan = kernels.ell_plan([tuple(_t(a).to(device) for a in b) for b in buckets])
+        frag = _t(fragment).to(device)
+        return [frag, plan, torch.full_like(frag, kernels.INT32_MAX)]
     else:
         rng = np.random.default_rng(3)
         arrays = (rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32),
@@ -127,7 +238,10 @@ def _wrapper_inputs(name, device):
 
 
 def _plain(name):
-    return getattr(kernels, f"{name}_torch")
+    plain = getattr(kernels, f"{name}_torch")
+    if name == "ell_level_min":  # it updates vmin in place: give it a fresh one
+        return lambda f, plan, vmin: plain(f, plan, torch.full_like(vmin, kernels.INT32_MAX))
+    return plain
 
 
 def _as_tuple(out):
@@ -135,7 +249,7 @@ def _as_tuple(out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", [w.__name__ for w in kernels.WRAPPERS])
+@pytest.mark.parametrize("name", [w.__name__ for w in kernels.WRAPPERS] + ["ell_level_min"])
 def test_wrappers_launch_on_the_current_stream_on_card(cuda, name):
     """Under ``torch.cuda.stream(side)`` the kernel runs on ``side``: with
     the default stream held busy, synchronising ``side`` alone is enough to
@@ -175,6 +289,13 @@ def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
     narrow = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.hook_compress(torch.zeros(16, dtype=torch.bool, device=cuda)[::2], narrow, narrow)
+    frag, plan, vmin = _wrapper_inputs("ell_level_min", cuda)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.ell_level_min(frag, plan, vmin.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.ell_level_min(frag, plan, torch.stack((vmin, vmin), 1)[:, 0])
+    with pytest.raises(ValueError, match="vmin"):
+        kernels.ell_level_min(frag, plan, vmin[:-1])
 
 
 @pytest.mark.gpu
@@ -195,10 +316,13 @@ def test_solve_on_card_equals_cpu_and_oracle(cuda, strategy):
 
 @pytest.mark.gpu
 def test_ell_solve_launches_k3_per_bucket_and_level_on_card(cuda):
+    """One K3 launch a level past the identity level, whatever the bucket
+    count, and one K1 launch a level."""
     g = generators.rmat_graph(12, 8, seed=11)
     k1, k3 = kernels.hook_compress.launches, kernels.ell_row_min.launches
     ids, _, levels = boruvka.solve_graph(g, strategy="ell", device=cuda)
+    assert len(g.ell_buckets) > 1
     assert kernels.hook_compress.launches - k1 == levels
-    assert kernels.ell_row_min.launches - k3 == len(g.ell_buckets) * (levels - 1)
+    assert kernels.ell_row_min.launches - k3 == levels - 1
     assert levels == boruvka.solve_graph(g, strategy="fused", device=cuda)[2]
     np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))

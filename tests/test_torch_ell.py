@@ -1,6 +1,6 @@
-"""The PyTorch port's ELL solve and its two kernels (K3 ``ell_row_min``, K5
-``gather``) against the JAX package, element-exact (all state is integer:
-tolerance 0).
+"""The PyTorch port's ELL solve and its two kernels (K3 ``ell_row_min``, per
+bucket and per level, and K5 ``gather``) against the JAX package,
+element-exact (all state is integer: tolerance 0).
 
 The port runs with ``device="cpu"``, so its wrappers take their plain
 versions. The JAX side runs on the CPU, its Pallas kernels in interpret
@@ -31,7 +31,7 @@ from distributed_ghs_implementation_tpu_torch.graphs import generators as tgen
 from distributed_ghs_implementation_tpu_torch.models import boruvka as tb
 from distributed_ghs_implementation_tpu_torch.ops import kernels
 from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
-from torch_inputs import DECK, build_deck, ell_inputs
+from torch_inputs import DECK, RMAT18_BUCKETS, build_deck, ell_bucket_set, ell_inputs
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import test_pallas_gather as gather_tool  # noqa: E402  (the JAX package's gather tool)
@@ -104,6 +104,153 @@ def test_ell_row_min_pad_rows_read_int32_max():
 def test_ell_row_min_one_row_bucket():
     fragment, verts, dstb, rankb = ell_inputs(5, 300, 2, 512)
     _check_ell_row_min(fragment, verts[:1], dstb[:1], rankb[:1])
+
+
+# ---------------------------------------------------------------------------
+# K3 over a whole level: the plan's tiles and ell_level_min
+# ---------------------------------------------------------------------------
+def _tile_spans(shapes, tile_slots):
+    """Each tile as the level kernel decodes it (``csrc/ell_row_min.cu``:
+    the bucket by a scan of first tiles, then rows and columns):
+    ``(bucket, r0, r1, c0, c1)``."""
+    tiling, tiles = kernels.ell_tiling(shapes, tile_slots)
+    for tile in range(tiles):
+        k = 0
+        while k + 1 < len(shapes) and tile >= tiling[k + 1][0]:
+            k += 1
+        first, per_tile, seg, chunks = tiling[k]
+        rows, width = shapes[k]
+        local = tile - first
+        r0, c0 = local // chunks * per_tile, local % chunks * seg
+        yield k, r0, min(rows, r0 + per_tile), c0, min(width, c0 + seg)
+
+
+ODD_SHAPES = [(3, 7), (0, 5), (5, 33), (1, 1), (7, 600), (2, 5000), (9, 4097), (4, 1)]
+
+
+@pytest.mark.parametrize("shapes,tile_slots", [
+    (RMAT18_BUCKETS, kernels.ELL_TILE_SLOTS), (RMAT18_BUCKETS, 1000), (ODD_SHAPES, 64),
+    (ODD_SHAPES, kernels.ELL_TILE_SLOTS), (ODD_SHAPES, 1),
+])
+def test_ell_plan_tiles_cover_every_slot_once(shapes, tile_slots):
+    """Every slot of every bucket in exactly one tile, no tile across two
+    buckets or above ``tile_slots`` slots, and a row wider than a tile in
+    ceil(W / tile_slots) chunks."""
+    cover = [np.zeros((rows, width), np.uint8) for rows, width in shapes]
+    chunks_of_row = [np.zeros(rows, np.int64) for rows, _ in shapes]
+    for k, r0, r1, c0, c1 in _tile_spans(shapes, tile_slots):
+        assert 0 <= r0 < r1 <= shapes[k][0] and 0 <= c0 < c1 <= shapes[k][1]
+        assert (r1 - r0) * (c1 - c0) <= tile_slots
+        cover[k][r0:r1, c0:c1] += 1
+        chunks_of_row[k][r0:r1] += 1
+    for (rows, width), c, per_row in zip(shapes, cover, chunks_of_row):
+        assert (c == 1).all()
+        want = 1 if width <= tile_slots else -(-width // tile_slots)
+        assert (per_row == want).all()
+    tiling, tiles = kernels.ell_tiling(shapes, tile_slots)
+    assert tiles == sum(1 for _ in _tile_spans(shapes, tile_slots))
+    assert [t[0] for t in tiling] == sorted(t[0] for t in tiling)
+
+
+def test_ell_plan_tiles_rmat18_evenly():
+    """RMAT-18's level at the default tile: every tile but a bucket's last
+    holds exactly ``ELL_TILE_SLOTS`` slots."""
+    tiling, tiles = kernels.ell_tiling(RMAT18_BUCKETS)
+    sizes = [(r1 - r0) * (c1 - c0) for _, r0, r1, c0, c1 in
+             _tile_spans(RMAT18_BUCKETS, kernels.ELL_TILE_SLOTS)]
+    slots = sum(r * w for r, w in RMAT18_BUCKETS)
+    assert sum(sizes) == slots == 17_104_896
+    assert tiles == len(sizes) and sizes.count(kernels.ELL_TILE_SLOTS) >= len(sizes) - 15
+    assert tiling[-1][3] == 32768 // kernels.ELL_TILE_SLOTS  # the hub row's chunks
+
+
+def test_ell_plan_keeps_the_buckets_and_lays_out_the_descriptors():
+    fragment, buckets = ell_bucket_set(1, 300, [(4, 2), (2, 100)])
+    tensors = [tuple(_t(a) for a in b) for b in buckets]
+    plan = kernels.ell_plan(tensors, tile_slots=64)
+    assert plan.device is None and plan.tiles == 1 + 2 * 2
+    assert plan.desc.dtype == torch.int64
+    assert plan.desc.shape == (2, len(kernels.ELL_FIELDS)) == (2, 9)
+    first = dict(zip(kernels.ELL_FIELDS, plan.desc[1].tolist()))
+    assert first["verts"] == tensors[1][0].data_ptr() and first["rankb"] == tensors[1][2].data_ptr()
+    assert (first["rows"], first["width"], first["first_tile"]) == (2, 100, 1)
+    assert (first["rows_per_tile"], first["seg"], first["chunks"]) == (1, 64, 2)
+    assert all(a is b for pb, b in zip(plan.buckets, tensors) for a, b in zip(pb, b))
+
+
+def test_ell_plan_refuses_what_one_launch_cannot_take():
+    one = tuple(_t(a) for a in ell_inputs(0, 10, 2, 2)[1:])
+    with pytest.raises(ValueError, match="at most 32"):
+        kernels.ell_plan([one] * 33)
+    with pytest.raises(ValueError, match="dstb/rankb"):
+        kernels.ell_plan([(one[0], one[1], one[2][:, :1])])
+    with pytest.raises(ValueError, match="tile_slots"):
+        kernels.ell_plan([one], tile_slots=0)
+    meta = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.ell_plan([(meta, meta.view(8, 1), meta.view(8, 1))])
+    plan = kernels.ell_plan([one])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.ell_level_min(meta, plan, meta)
+    assert len(kernels.ell_plan([one] * 32).buckets) == 32
+
+
+def _jax_level_min(fragment, buckets):
+    """The JAX package's per-level form: ``fused_ell_row_min`` (Pallas,
+    interpret mode) per bucket, then ``vmin.at[verts].min(row_min)``."""
+    frag = jnp.asarray(fragment)
+    vmin = jnp.full(fragment.shape[0], INT32_MAX, dtype=jnp.int32)
+    for verts, dstb, rankb in buckets:
+        assert pk.ell_shape_ok(fragment.shape[0], *dstb.shape)
+        row_min = pk.fused_ell_row_min(frag, *(jnp.asarray(a) for a in (verts, dstb, rankb)))
+        vmin = vmin.at[jnp.asarray(verts)].min(row_min)
+    return vmin
+
+
+def _check_level_min(fragment, buckets, tile_slots):
+    want = _jax_level_min(fragment, buckets)
+    plan = kernels.ell_plan([tuple(_t(a) for a in b) for b in buckets], tile_slots=tile_slots)
+    n = fragment.shape[0]
+    for level_min in (kernels.ell_level_min_torch, kernels.ell_level_min):
+        vmin = torch.full((n,), INT32_MAX, dtype=torch.int32)
+        got = level_min(_t(fragment), plan, vmin)
+        assert got is vmin
+        _eq(got, want)
+    return want
+
+
+@pytest.mark.parametrize("shapes", [
+    [(8, 1), (4, 2), (4, 8), (2, 64)],
+    [(16, 4), (3, 40), (1, 130)],
+    [(5, 33), (2, 70), (1, 1)],
+])
+def test_ell_level_min_matches_pallas_per_bucket_and_scatter(shapes):
+    """Synthetic bucket sets: pad rows of vertex 0, a real row of vertex 0,
+    all-INT32_MAX rows, widths above the tile (16 slots here)."""
+    fragment, buckets = ell_bucket_set(len(shapes), 200, shapes)
+    want = np.asarray(_check_level_min(fragment, buckets, tile_slots=16))
+    assert want[0] < INT32_MAX  # the real vertex-0 row reached vmin[0]
+    assert (want == INT32_MAX).any()
+
+
+def test_ell_level_min_all_int32_max_leaves_vmin():
+    fragment, buckets = ell_bucket_set(9, 64, [(4, 3), (2, 20)])
+    for _, _, rankb in buckets:
+        rankb[:] = INT32_MAX
+    want = np.asarray(_check_level_min(fragment, buckets, tile_slots=8))
+    assert (want == INT32_MAX).all()
+
+
+@pytest.mark.parametrize("name", ["road40", "rmat12", "forest23"])
+def test_ell_level_min_on_the_deck_at_a_premerged_partition(deck, name):
+    """The deck's own buckets with vertices pre-merged in pairs (root = the
+    even id), at the default tile and one of 4 slots."""
+    jg, _ = deck[name]
+    jbuckets, _, _, n_pad = jb.prepare_ell_arrays(jg)
+    buckets = [tuple(np.asarray(a) for a in b) for b in jbuckets]
+    fragment = (np.arange(n_pad) & ~1).astype(np.int32)
+    for tile_slots in (kernels.ELL_TILE_SLOTS, 4):
+        _check_level_min(fragment, buckets, tile_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +394,8 @@ def test_ell_level_from_a_premerged_partition(deck, kernel):
     buckets, ra, rb = tb.ell_arrays_from_numpy(
         [[np.asarray(a) for a in b] for b in jbuckets], np.asarray(jra), np.asarray(jrb),
         device=CPU)
-    got = tb._ell_level(_t(fragment0), torch.zeros(m_pad, dtype=torch.uint8), buckets, ra, rb)
+    got = tb._ell_level(_t(fragment0), torch.zeros(m_pad, dtype=torch.uint8),
+                        kernels.ell_plan(buckets), ra, rb)
     _eq(got[0], want[0])
     _eq(got[1].numpy().astype(bool), want[1])
     assert bool(got[2]) == bool(want[2])

@@ -8,6 +8,7 @@ kernels in interpret mode, called directly on shapes that pass their guards.
 versions on a card.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -128,6 +129,43 @@ def test_hook_compress_on_a_real_moe_round(n):
     fragment0, src, dst, rank, ra, rb = jax_prepare(g, bucket_shapes=False)
     has, _, dst_frag = jseg.fragment_moe(fragment0, src, dst, rank, ra, rb)
     _check_hook(np.asarray(has), np.asarray(dst_frag), np.asarray(fragment0))
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("kind", ["none", "cycle"])
+def test_hook_compress_on_inputs_no_round_gives_matches_pallas(n, kind):
+    """Nothing hooked, and every node hooked around one cycle (garbage that
+    never reaches a fixpoint): the plain version runs the same fixed
+    ``num_jumps(n)`` jumps as the Pallas kernel, in every form. (At n off
+    the 128-lane grid the Pallas kernel jumps as often as its padded size
+    asks, which only garbage can tell apart.)"""
+    has, dst, frag = _hook_forest(n, n, kind)
+    want = pk.fused_hook_compress(*(jnp.asarray(a) for a in (has, dst, frag)))
+    args = [_t(a) for a in (has, dst, frag)]
+    for form in kernels.HOOK_FORMS:
+        got = kernels.hook_compress(*args, form=form)
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+    if kind == "none":
+        _eq(want[1], np.arange(n))
+
+
+def test_hook_compress_refuses_an_unknown_form():
+    args = [_t(a) for a in _hook_forest(0, 10, "random")]
+    with pytest.raises(ValueError, match="form must be one of"):
+        kernels.hook_compress(*args, form="warp")
+
+
+def test_hook_block_limits_match_the_launcher():
+    """The wrapper's copy of the block form's limits is the launcher's."""
+    text = (_build.SOURCES[0].parent / "hook_compress.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr long long (k\w+) = ([^;]+);", text):
+        env[name] = eval(expr.replace("/", "//"), {}, env)
+    assert env["kBlockMaxNodes"] == kernels.HOOK_BLOCK_MAX_NODES
+    assert env["kBlockFormThreshold"] == kernels.HOOK_BLOCK_FORM_THRESHOLD
+    assert kernels.HOOK_BLOCK_FORM_THRESHOLD <= kernels.HOOK_BLOCK_MAX_NODES
+    assert 8 * kernels.HOOK_BLOCK_MAX_NODES <= 232448  # two int32 buffers in 227 KB
 
 
 def test_break_symmetric_hooks_matches_jax():
@@ -322,17 +360,17 @@ int ghs_gather_key(int d, const void* a, const void* b, const void* c, const voi
              23 * (uint64_t)n + 29 * H(s));
 }
 int ghs_hook_compress(int d, const void* a, const void* b, const void* c, void* e, void* f,
-                      void* g, long long n, int j, void* s) {
+                      void* g, long long n, int j, int form, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) + 19 * H(g) +
-             23 * (uint64_t)n + 31 * (uint64_t)j + 29 * H(s));
+             23 * (uint64_t)n + 31 * (uint64_t)j + 37 * (uint64_t)form + 29 * H(s));
 }
 int ghs_probe(int d, const void* a, const void* b, void* c, long long n, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)n + 29 * H(s));
 }
-int ghs_ell_row_min(int d, const void* a, const void* b, const void* c, const void* e, void* f,
-                    long long r, long long w, void* s) {
-  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) +
-             23 * (uint64_t)r + 31 * (uint64_t)w + 29 * H(s));
+int ghs_ell_level(int d, const void* a, void* b, const void* c, long long count,
+                  long long tiles, int row_indexed, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)count +
+             31 * (uint64_t)tiles + 37 * (uint64_t)row_indexed + 29 * H(s));
 }
 int ghs_gather(int d, const void* a, const void* b, void* c, long long n, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)n + 29 * H(s));
@@ -381,12 +419,14 @@ def test_binding_passes_each_launcher_its_arguments(monkeypatch, stub_binding):
     h = lambda *ps: [c * p for c, p in zip((3, 5, 7, 13, 17, 19), ps)]  # noqa: E731
     assert mod.gather_key(1, *ptr[:6], big, stream) == _mix(11, *h(*ptr[:6]), 23 * big,
                                                            29 * stream)
-    assert mod.hook_compress(0, *ptr[:6], 1 << 18, 18, stream) == _mix(
-        *h(*ptr[:6]), 23 << 18, 31 * 18, 29 * stream)
+    for form in (0, 1, 2):
+        assert mod.hook_compress(0, *ptr[:6], 1 << 18, 18, form, stream) == _mix(
+            *h(*ptr[:6]), 23 << 18, 31 * 18, 37 * form, 29 * stream)
     for fn in (mod.probe, mod.gather):
         assert fn(2, *ptr[:3], big, 0) == _mix(22, *h(*ptr[:3]), 23 * big)
-    assert mod.ell_row_min(0, *ptr[:5], 259425, 32768, stream) == _mix(
-        *h(*ptr[:5]), 23 * 259425, 31 * 32768, 29 * stream)
+    for row_indexed in (0, 1):
+        assert mod.ell_level(0, *ptr[:3], 15, 4203, row_indexed, stream) == _mix(
+            *h(*ptr[:3]), 23 * 15, 31 * 4203, 37 * row_indexed, 29 * stream)
     assert mod.error_string(700) == "stub error 700"
     with pytest.raises(RuntimeError, match=r"launch failed: CUDA error 9 \(stub error 9\)"):
         kernels._fail("probe", mod, 9)

@@ -6,6 +6,11 @@ import numpy as np
 
 INT32_MAX = np.iinfo(np.int32).max
 
+#: (rows, W) of RMAT-18's (edge factor 16, seed 1) fifteen ELL buckets.
+RMAT18_BUCKETS = [(65536, 1), (32768, 2), (32768, 4), (32768, 8), (16384, 16), (32768, 32),
+                  (16384, 64), (8192, 128), (16384, 256), (64, 512), (4096, 1024),
+                  (1024, 2048), (256, 8192), (32, 16384), (1, 32768)]
+
 #: (n, e) with e a multiple of 128 (the shapes the Pallas flat kernel takes).
 FLAT_SHAPES = [(1, 128), (7, 256), (500, 1024), (1000, 4096), (3000, 128 * 37)]
 
@@ -27,7 +32,10 @@ def moe_inputs(seed, n, e):
 def hook_forest(seed, n, kind):
     """``(has, dst_frag, fragment)`` whose hook graph's only cycles are
     mutual pairs, as a real MOE round gives; ``dst_frag`` is garbage where
-    ``has`` is False."""
+    ``has`` is False. Two kinds are no forest: ``"none"`` hooks nothing
+    (the round's first jump changes nothing), and ``"cycle"`` is garbage a
+    real round never gives, every node hooked around one n-cycle, which no
+    number of jumps brings to a fixpoint once n > 2."""
     rng = np.random.default_rng(seed)
     has = np.zeros(n, dtype=bool)
     dst = rng.integers(0, n, n)
@@ -52,6 +60,11 @@ def hook_forest(seed, n, kind):
     elif kind == "chain":
         has[1:] = True
         dst[1:] = np.arange(n - 1)
+    elif kind == "cycle":
+        has[:] = True
+        dst = (np.arange(n) + 1) % n
+    elif kind != "none":
+        raise ValueError(kind)
     return has, dst.astype(np.int32), rng.integers(0, n, n).astype(np.int32)
 
 
@@ -67,6 +80,32 @@ def ell_inputs(seed, n, rows, width, *, fragments=None):
     rankb[rng.random((rows, width)) < 0.1] = INT32_MAX
     verts[-1], dstb[-1], rankb[-1] = 0, 0, INT32_MAX
     return fragment, verts, dstb, rankb
+
+def ell_bucket_set(seed, n, shapes, *, fragments=None):
+    """``(fragment, buckets)``: one fragment table of n labels and a random
+    bucket ``(verts, dstb, rankb)`` of each ``(rows, W)`` over it, as
+    :func:`ell_inputs` makes them (pad slots, a pad row of vertex 0 last).
+    The first bucket's first row is a real row of vertex 0, and a bucket
+    of three rows or more has an all-INT32_MAX row in the middle."""
+    rng = np.random.default_rng(seed)
+    fragment = rng.integers(0, fragments or max(1, n // 8), n).astype(np.int32)
+    buckets = []
+    for i, (rows, width) in enumerate(shapes):
+        if not rows:
+            buckets.append((np.zeros(0, np.int32), np.zeros((0, width), np.int32),
+                            np.zeros((0, width), np.int32)))
+            continue
+        _, verts, dstb, rankb = ell_inputs(seed * 100 + i, n, rows, width)
+        if rows >= 3:
+            rankb[rows // 2] = INT32_MAX
+        buckets.append((verts, dstb, rankb))
+    if shapes and shapes[0][0] >= 2:
+        verts, dstb, rankb = buckets[0]
+        verts[0] = 0
+        dstb[0] = rng.integers(0, n, dstb.shape[1])
+        rankb[0] = np.sort(rng.integers(0, 1 << 20, dstb.shape[1]))
+    return fragment, buckets
+
 
 def forest23(Graph, gen, **native):
     """Three RMAT-7 blocks made connected by spanning paths, plus 20
