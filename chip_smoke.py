@@ -9,7 +9,7 @@ Phases, each printing a line:
 
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``).
-2. main path, three paths, each with every kernel launch count set to 0 just
+2. main path, four paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -23,14 +23,22 @@ Phases, each printing a line:
       times, and take as many levels as the fused solve.
    c. gather: the gather microbenchmark (``gather_probe``) at 2^24 and 2^26
       indices, K5 against ``torch.index_select``.
+   d. rank: ``solve_graph(strategy="rank")`` on the fixture deck, then
+      ``minimum_spanning_forest`` (``auto``, the rank solver at these sizes)
+      on RMAT-18 (dense: the speculative route), ``road_grid_graph(2048,
+      2048, seed=1)`` (grid: the host-L2 route) and
+      ``random_road_network(1024, 1024, seed=1)`` (sparse: host-L2), cold,
+      warm, and once more reading back the form and jumps of every K1
+      launch. Prints each solve's time, edges/s, levels, route, census
+      chain (``f_size`` of each shrink) and K1 launches.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
    sizes: K1 in the form ``auto`` picks and in both forced forms, around
-   the block form's threshold, on chains (every jump needed), on nothing
-   hooked (the first jump ends the round) and on cyclic garbage (no jump
-   does); K3 per bucket and as one level over RMAT-18's own buckets and
+   the block form's threshold, up to 2^22, on chains (every jump needed),
+   on nothing hooked (the first jump ends the round) and on cyclic garbage
+   (no jump does); K3 per bucket and as one level over RMAT-18's own buckets and
    random bucket sets. Then the profiler shows one device kernel for one K1
    call and one for one K3 level. Then the K4 wrapper's host time over 10^4
    calls, split into the steps of the launch path, beside ``torch.take``'s;
@@ -39,9 +47,10 @@ Phases, each printing a line:
    version and (where one exists) the one PyTorch call for the same
    function timed with CUDA events at the main path's shapes: RMAT-18's
    level-1 inputs for K1, K2 and K3 (K3 as its one launch a level; K1 also
-   at RMAT-13's level-1 inputs, with the form run and the jumps taken at
-   every RMAT-18 level), 2^24 and 2^26 indices for K5, and K1 and K3 by the
-   profiler's device time too. A kernel and its library call (K4 and
+   at RMAT-13's level-1 inputs and, in the grid form, at the road grid's
+   first card level taken in its vertex space, n = 2^22, with the form run
+   and the jumps taken at every RMAT-18 level), 2^24 and 2^26 indices for
+   K5, and K1 and K3 by the profiler's device time too. A kernel and its library call (K4 and
    ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
    K5's rate of L2 sectors (m x 32 B over its time) is printed beside it.
 4. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
@@ -225,6 +234,96 @@ def _probe_host_split(torch, kernels, build, table, idx, idx64) -> dict:
     return split
 
 
+def _k1_summary(trace) -> list:
+    """``(n, form, jumps)`` of each K1 launch, grouped by n and form in the
+    order they first ran."""
+    groups = {}
+    for n, form, jumps in trace:
+        groups.setdefault((n, form), []).append(jumps)
+    return [{"n": n, "form": form, "launches": len(j), "jumps": j}
+            for (n, form), j in groups.items()]
+
+
+def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -> dict:
+    """The rank solver's main path: the fixture deck through
+    ``solve_graph(strategy="rank")``, then RMAT-18, the 2048 x 2048 road grid
+    and the 1024 x 1024 random road network through
+    ``minimum_spanning_forest`` (``auto``), cold, warm, and once more with
+    the form and jumps of each K1 launch read back (a sync a launch, so
+    that run is not timed). Records the route that answered and the census
+    chain (``f_size`` of each shrink) by wrapping the solver's functions."""
+    routes, census, trace = [], [], []
+    speculative = rank_solver.solve_rank_speculative
+    shrink = rank_solver._shrink_and_run
+    hook = rank_solver.hook_and_compress
+
+    def speculative_spy(*a, **k):
+        result = speculative(*a, **k)
+        routes.append("speculative" if result is not None else "mispredicted")
+        return result
+
+    def shrink_spy(*a, **k):
+        census.append(k["f_size"])
+        return shrink(*a, **k)
+
+    def traced_hook(has, dst, fragment):
+        out = hook(has, dst, fragment)
+        jumps, form = kernels.hook_compress_readout()
+        n = fragment.numel()
+        if form != ("block" if n <= kernels.HOOK_BLOCK_FORM_THRESHOLD else "grid"):
+            raise AssertionError(f"K1 at n={n} ran the {form} form")
+        trace.append((n, form, jumps))
+        return out
+
+    rank_solver.solve_rank_speculative = speculative_spy
+    rank_solver._shrink_and_run = shrink_spy
+    out = {}
+    try:
+        for name, g in deck.items():
+            ids, _, _ = boruvka.solve_graph(g, strategy="rank")
+            check(name, ids, float(g.w[ids].sum()))
+        for name in ("rmat18", "grid2048", "road1024"):
+            g = graphs[name]
+            if g.num_edges < boruvka.ELL_AUTO_EDGE_THRESHOLD:
+                raise AssertionError(f"{name}: {g.num_edges} edges, auto would not take rank")
+            family = rank_solver._pick_family(g)
+            rec = {"family": family}
+            for run in ("cold", "warm", "traced"):
+                routes.clear()
+                census.clear()
+                trace.clear()
+                if run == "traced":
+                    rank_solver.hook_and_compress = traced_hook
+                k1 = kernels.hook_compress.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = msf(g)
+                wall = time.perf_counter() - t
+                rank_solver.hook_and_compress = hook
+                check(name, res.edge_ids, float(g.w[res.edge_ids].sum()))
+                k1 = kernels.hook_compress.launches - k1
+                if run == "traced":
+                    if k1 != len(trace):
+                        raise AssertionError(f"{name}: K1 x{k1} but {len(trace)} traced")
+                    rec["k1"] = _k1_summary(trace)
+                    continue
+                if rank_solver.use_l2_path(family):
+                    route = "host-l2"
+                elif routes == ["speculative"]:
+                    route = "speculative"
+                else:
+                    route = "staged after a misprediction" if routes else "staged"
+                rec[run] = {"s": wall, "edges_per_s": g.num_edges / wall,
+                            "levels": res.num_levels, "route": route,
+                            "census_f_sizes": list(census), "k1_launches": k1}
+            out[name] = rec
+    finally:
+        rank_solver.solve_rank_speculative = speculative
+        rank_solver._shrink_and_run = shrink
+        rank_solver.hook_and_compress = hook
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -245,6 +344,7 @@ def main() -> int:
     from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
     from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
     from distributed_ghs_implementation_tpu_torch.models import boruvka
+    from distributed_ghs_implementation_tpu_torch.models import rank_solver
     from distributed_ghs_implementation_tpu_torch.ops import _build, kernels
     from distributed_ghs_implementation_tpu_torch.ops.segment_ops import fragment_moe
     from distributed_ghs_implementation_tpu_torch.utils.verify import (
@@ -268,13 +368,17 @@ def main() -> int:
     deck = _fixture_deck(Graph, gen)
     rmat13 = gen.rmat_graph(13, 16, seed=1)
     rmat18 = gen.rmat_graph(18, 16, seed=1)
-    graphs = {**deck, "rmat13": rmat13, "rmat18": rmat18}
+    grid2048 = gen.road_grid_graph(2048, 2048, seed=1)
+    road1024 = gen.random_road_network(1024, 1024, seed=1)
+    graphs = {**deck, "rmat13": rmat13, "rmat18": rmat18, "grid2048": grid2048,
+              "road1024": road1024}
     oracle = {name: rank_oracle_edge_ids(g) for name, g in graphs.items()}
     oracle_w = {name: scipy_mst_weight(g) for name, g in graphs.items()}
     if rmat13.num_edges >= boruvka.ELL_AUTO_EDGE_THRESHOLD:
         raise AssertionError(f"RMAT-13 has {rmat13.num_edges} edges: auto would not run fused")
-    print(f"setup: {time.perf_counter() - t0:.2f} s; RMAT-13 {rmat13.num_nodes} vertices "
-          f"{rmat13.num_edges} edges; RMAT-18 {rmat18.num_nodes} vertices {rmat18.num_edges} edges")
+    print(f"setup: {time.perf_counter() - t0:.2f} s; " + "; ".join(
+        f"{name} {graphs[name].num_nodes} vertices {graphs[name].num_edges} edges"
+        for name in ("rmat13", "rmat18", "grid2048", "road1024")))
 
     # -- 2. main path -------------------------------------------------------
     def zero_counts():
@@ -394,8 +498,17 @@ def main() -> int:
     probe_counts = read_counts("gather", ("gather",))
     print(f"main path, gather probe: {time.perf_counter() - t_probe:.2f} s; "
           f"{json.dumps({'records': probe_records, 'launches': probe_counts})}")
+
+    # 2d. rank path
+    zero_counts()
+    t_rank = time.perf_counter()
+    rank_solves = _rank_path(torch, kernels, rank_solver, boruvka, minimum_spanning_forest,
+                             deck, graphs, check)
+    rank_counts = read_counts("rank", ("hook_compress",))
+    print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
+          f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
-                for name in flat_counts}
+                + rank_counts[name] for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -423,6 +536,7 @@ def main() -> int:
     cases += [(n, kind, form) for n in (3, 8192, kernels.HOOK_BLOCK_MAX_NODES)
               for kind in ("random", "chain", "none", "cycle") for form in ("block", "grid")]
     cases += [(n, kind, "grid") for n in (n18, 1 << 20) for kind in ("none", "cycle")]
+    cases += [(1 << 22, kind, "auto") for kind in ("random", "chain")]
     for n, kind, form in cases:
         has, d, frag = (put(a) for a in _hook_forest(rng, n, kind))
         got = kernels.hook_compress(has, d, frag, form=form)
@@ -518,12 +632,30 @@ def main() -> int:
         h, _, d = fragment_moe(f1, s0, d0, r0, a0, b0)
         return st, (s0, d0, r0, a0, b0), (h, d, f1), ran
 
+    def level3_hook(graph):
+        """K1's inputs at the first card level of the host-L2 route, taken
+        in the vertex space (n = n_pad) instead of the census space the
+        route shrinks to first: the level over ``parent12``'s fragments."""
+        _, ra_d, rb_d, parent12, _ = rank_solver.prepare_rank_arrays_l2(graph)
+        fa, fb = parent12[ra_d], parent12[rb_d]
+        n = parent12.numel()
+        slot = torch.arange(fa.numel(), dtype=torch.int32, device=dev)
+        moe = rank_solver._moe_over(fa, fb, torch.where(fa != fb, slot, kernels.INT32_MAX), n)
+        has = moe < kernels.INT32_MAX
+        safe = torch.where(has, moe, 0)
+        wa, wb = fa[safe], fb[safe]
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        return has, torch.where(has, torch.where(wa == ids, wb, wa), ids), parent12
+
     state, arrays18, (has1, d1, frag1), k1_levels = level1(rmat18)
     src, dst, rank, ra, rb = arrays18
     while state.level < boruvka._max_levels(frag1.numel()) and bool(state.progress):
         state = boruvka.boruvka_level(state, *arrays18)
         k1_levels.append(kernels.hook_compress_readout())
     _, _, hook13, _ = level1(rmat13)
+    hook22 = level3_hook(grid2048)
+    if _max_abs_err(kernels.hook_compress(*hook22), kernels.hook_compress_torch(*hook22)):
+        raise AssertionError("K1 and its plain version disagree at the road grid's n_pad")
     print("K1 on the fused RMAT-18 solve, (form, jumps taken of num_jumps) a level: " + ", ".join(
         f"{form} {jumps}/{kernels.num_jumps(frag1.numel())}" for jumps, form in k1_levels))
     n, e = frag1.numel(), src.numel()
@@ -536,6 +668,7 @@ def main() -> int:
     for key, fn, want in (
         ("hook_compress n=2^18", lambda: kernels.hook_compress(has1, d1, frag1), "hook_compress"),
         ("hook_compress n=8192", lambda: kernels.hook_compress(*hook13), "hook_compress"),
+        ("hook_compress n=2^22", lambda: kernels.hook_compress(*hook22), "hook_compress"),
         ("ell_row_min one level", lambda: kernels.ell_level_min(frag1_ell, plan18, vmin_k),
          "ell_level"),
     ):
@@ -646,6 +779,22 @@ def main() -> int:
         "device_ms": device_ms["hook_compress n=8192"],
     }
     k1["at_n8192"]["jumps"], k1["at_n8192"]["form"] = kernels.hook_compress_readout()
+    n22 = hook22[2].numel()
+    kernels.hook_compress(*hook22)
+    k22 = k1["at_n2^22"] = {
+        "shape": f"n={n22}, road grid 2048x2048 level-3 inputs in the vertex space",
+        "ms": cuda_time_ms(lambda: kernels.hook_compress(*hook22)),
+        "plain_ms": cuda_time_ms(lambda: kernels.hook_compress_torch(*hook22)),
+        "bound_ms": 17 * n22 / HBM_BYTES_PER_S * 1e3,
+        "device_ms": device_ms["hook_compress n=2^22"],
+    }
+    k22["jumps"], k22["form"] = kernels.hook_compress_readout()
+    if k22["form"] != "grid":
+        raise AssertionError(f"K1 at n={n22} ran the {k22['form']} form")
+    print(f"time hook_compress ({k22['shape']}): kernel {k22['ms']:.4f} ms, device "
+          f"{k22['device_ms']:.4f} ms, plain {k22['plain_ms']:.4f} ms, bound "
+          f"{k22['bound_ms']:.5f} ms; grid form, {k22['jumps']} jumps")
+    k1["rank_path"] = {name: rec["k1"] for name, rec in rank_solves.items()}
     print(f"time hook_compress (n=8192, RMAT-13 level-1 inputs): kernel "
           f"{k1['at_n8192']['ms']:.4f} ms, plain {k1['at_n8192']['plain_ms']:.4f} ms, "
           f"bound {k1['at_n8192']['bound_ms']:.6f} ms; {k1['at_n8192']['form']} form, "

@@ -166,6 +166,26 @@ class Graph:
         return np.argsort(self.w, kind="stable")
 
     @functools.cached_property
+    def first_ranks(self) -> np.ndarray:
+        """Per-vertex minimum incident rank, int32 (INT32_MAX when isolated).
+
+        This is Borůvka's level 1 computed on the host: at the identity
+        partition every incident edge leaves its fragment, so each vertex's
+        minimum outgoing edge is its minimum-rank incident edge.
+        """
+        m = self.num_edges
+        order = self._rank_order
+        # The first occurrence of each vertex in rank-interleaved endpoint
+        # order is its minimum incident rank.
+        arr = np.empty(2 * m, dtype=np.int64)
+        arr[0::2] = self.u[order]
+        arr[1::2] = self.v[order]
+        verts, first_pos = np.unique(arr, return_index=True)
+        out = np.full(self.num_nodes, INT32_MAX, dtype=np.int32)
+        out[verts] = (first_pos // 2).astype(np.int32)
+        return out
+
+    @functools.cached_property
     def ell_buckets(self):
         """Degree-bucketed ELL layout of the directed adjacency.
 

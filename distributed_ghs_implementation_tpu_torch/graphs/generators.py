@@ -126,6 +126,44 @@ def rmat_graph(
     return Graph.from_arrays(n, u, v, w, dedup=dedup)
 
 
+def road_grid_graph(
+    rows: int,
+    cols: int,
+    *,
+    seed: int = 0,
+    diag_prob: float = 0.05,
+    weight_low: int = 1,
+    weight_high: int = 10_000,
+    keep_prob: float = 1.0,
+) -> Graph:
+    """Synthetic road grid: a ``rows x cols`` lattice with random diagonal
+    shortcuts and wide integer weights. Degree about 4 and diameter about
+    ``rows + cols``, far above ``log n``: the many-level regime.
+    ``keep_prob < 1`` thins the edges (the graph may then fall apart; the
+    solver returns the spanning forest)."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(rows, dtype=np.int64)
+    c = np.arange(cols, dtype=np.int64)
+    vid = r[:, None] * cols + c[None, :]
+    parts_u = [vid[:, :-1].ravel(), vid[:-1, :].ravel()]
+    parts_v = [vid[:, 1:].ravel(), vid[1:, :].ravel()]
+    if diag_prob > 0:
+        du = vid[:-1, :-1].ravel()
+        dv = vid[1:, 1:].ravel()
+        keep = rng.random(du.size) < diag_prob
+        parts_u.append(du[keep])
+        parts_v.append(dv[keep])
+    u = np.concatenate(parts_u)
+    v = np.concatenate(parts_v)
+    if keep_prob < 1.0:
+        # Drawn after the diagonal mask, so keep_prob=1.0 leaves the draws
+        # of a seed as they were.
+        sel = rng.random(u.size) < keep_prob
+        u, v = u[sel], v[sel]
+    w = rng.integers(weight_low, weight_high + 1, size=u.size, dtype=np.int64)
+    return Graph.from_arrays(int(rows * cols), u, v, w)
+
+
 def random_road_network(
     rows: int,
     cols: int,

@@ -87,8 +87,8 @@ def _max_levels(num_nodes: int) -> int:
     return max(1, math.ceil(math.log2(max(num_nodes, 2)))) + 1
 
 
-# Below this edge count the JAX package's auto strategy takes the flat fused
-# solve; at and above it, the rank solver, which the port does not have yet.
+# Below this edge count the auto strategy takes the flat fused solve; at and
+# above it, the rank solver (``models/rank_solver.py``).
 ELL_AUTO_EDGE_THRESHOLD = 1 << 17
 
 
@@ -425,27 +425,24 @@ def solve_graph(
     ``strategy``: ``"fused"`` = the flat level loop from the identity
     partition; ``"stepped"`` = host-stepped levels with edge compaction;
     ``"ell"`` = the degree-bucketed level loop (``bucket_shapes`` does not
-    apply: its arrays always pad to powers of two); ``"auto"`` = ``fused``
-    below ``ELL_AUTO_EDGE_THRESHOLD`` edges. The rank solver (``"rank"``,
-    and ``"auto"`` at or above the threshold) is not ported yet and raises.
-    A kernel that fails raises; nothing re-runs on another path.
+    apply: its arrays always pad to powers of two); ``"rank"`` = the
+    rank-space solver (``models/rank_solver.py``; its arrays pad to
+    ``_bucket_size`` steps); ``"auto"`` = ``fused`` below
+    ``ELL_AUTO_EDGE_THRESHOLD`` edges, ``rank`` at and above it. A kernel
+    that fails raises; nothing re-runs on another path.
     """
     device = resolve_device(device)
     n = graph.num_nodes
     if n == 0 or graph.num_edges == 0:
         return np.zeros(0, dtype=np.int64), np.arange(n, dtype=np.int32), 0
     if strategy == "auto":
-        if graph.num_edges >= ELL_AUTO_EDGE_THRESHOLD:
-            raise NotImplementedError(
-                f"strategy='auto' at {graph.num_edges} >= {ELL_AUTO_EDGE_THRESHOLD} "
-                "edges takes the rank solver, which is not ported yet (ROADMAP "
-                "queue 1 item 5); pass strategy='fused' or 'stepped'"
-            )
-        strategy = "fused"
+        strategy = "rank" if graph.num_edges >= ELL_AUTO_EDGE_THRESHOLD else "fused"
     if strategy == "rank":
-        raise NotImplementedError(
-            "strategy='rank' is not ported yet (ROADMAP queue 1 item 5)"
+        from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
+            solve_graph_rank,
         )
+
+        return solve_graph_rank(graph, device=device)
     if strategy not in ("fused", "stepped", "ell"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if strategy == "ell":
@@ -458,6 +455,11 @@ def solve_graph(
         else:
             mst_ranks, fragment, levels = _solve_from_iota(
                 *args[1:], num_nodes=args[0].shape[0])
+    return fetch_mst_edge_ids(graph, mst_ranks), fragment.cpu().numpy()[:n], int(levels)
+
+
+def fetch_mst_edge_ids(graph: Graph, mst_ranks: torch.Tensor) -> np.ndarray:
+    """Forest mask over ranks -> sorted edge ids: ``torch.nonzero`` on the
+    device, then only the forest's ranks cross to the host."""
     ranks = torch.nonzero(mst_ranks).flatten().cpu().numpy()
-    edge_ids = np.sort(graph.edge_id_of_rank(ranks))
-    return edge_ids, fragment.cpu().numpy()[:n], int(levels)
+    return np.sort(graph.edge_id_of_rank(ranks))

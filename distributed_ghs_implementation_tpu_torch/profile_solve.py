@@ -1,16 +1,27 @@
 """Where one solve's time goes on the card.
 
-    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve [--strategy fused|stepped|ell]
+    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
+        [--strategy fused|stepped|ell|rank] [--graph rmat|road-grid]
 
-Solves RMAT-18 (edge factor 16, seed 1: the largest graph ``chip_smoke.py``
-drives) once to warm up, then once more split into its phases (the host
-arrays: ``rank_arrays`` for the flat strategies, ``ell_buckets`` for
-``ell``; host-to-device copy; level loop; harvest of the edge ids), timed
-on the host clock around ``torch.cuda.synchronize()``, then once more under
+Solves a graph once to warm up (``--graph rmat``: RMAT-18, edge factor 16,
+seed 1, the default; ``road-grid``: ``road_grid_graph(2048, 2048,
+seed=1)``), then once more split into its phases, timed on the host clock
+around ``torch.cuda.synchronize()``, then once more under
 ``torch.profiler``: the device's busy time is the union of its kernel and
 copy intervals, its idle share is the rest of the solve's wall time, and
-each kernel name's device time and launch count are listed. Prints one
-JSON line, with the card's name and power limit.
+each kernel name's device time, launch count and longest launch are
+listed. Prints one JSON line, with the card's name and power limit.
+
+The phases of the flat and ELL strategies: the host arrays
+(``rank_arrays``, or ``ell_buckets`` for ``ell``), host-to-device copy,
+level loop, harvest of the edge ids. Those of ``rank``: the host passes
+(``first_ranks``, the level-1 and, on the host-L2 route, level-2
+partitions; the rank order stays cached, as for the other strategies),
+the copy of the staged arrays, the head (levels 1-2, or the level-3 entry
+of the host-L2 route), the finish chunks, the harvest. The phases run the
+route ``solve_graph`` takes one piece at a time, without the copy's
+overlap with the host passes; the profiled solve is a warm one, from the
+arrays the graph keeps staged.
 """
 
 from __future__ import annotations
@@ -24,11 +35,18 @@ import numpy as np
 import torch
 
 from distributed_ghs_implementation_tpu_torch.device import card_description, resolve_device
-from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph
+from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph, road_grid_graph
 from distributed_ghs_implementation_tpu_torch.models import boruvka
+from distributed_ghs_implementation_tpu_torch.models import rank_solver as rs
 
 
 SCALE, EDGE_FACTOR, SEED = 18, 16, 1
+GRAPHS = {
+    "rmat": (f"rmat-{SCALE} ef {EDGE_FACTOR} seed {SEED}",
+             lambda: rmat_graph(SCALE, EDGE_FACTOR, seed=SEED)),
+    "road-grid": ("road_grid_graph(2048, 2048, seed=1)",
+                  lambda: road_grid_graph(2048, 2048, seed=1)),
+}
 
 
 def _drop_cached_buckets(graph) -> None:
@@ -38,7 +56,81 @@ def _drop_cached_buckets(graph) -> None:
     graph.__dict__.pop("ell_buckets", None)
 
 
+def _rank_phases(graph, device) -> dict:
+    """The rank route of ``solve_graph`` one piece at a time (the
+    filter-Kruskal route, not ported, raises at the warm-up solve)."""
+    def clock():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    graph.__dict__.pop("first_ranks", None)
+    family = rs._pick_family(graph)
+    l2 = rs.use_l2_path(family)
+    t0 = clock()
+    n, m = graph.num_nodes, graph.num_edges
+    n_pad, m_pad = boruvka._bucket_size(n), boruvka._bucket_size(m)
+    ra, rb = graph.rank_endpoints(pad_to=m_pad)
+    vmin0 = np.full(n_pad, boruvka.INT32_MAX, dtype=np.int32)
+    vmin0[:n] = graph.first_ranks
+    host = [vmin0, ra, rb, rs.host_level1(vmin0, ra, rb)]
+    if l2:
+        parent12, l2r = rs.host_level2(host[3], ra, rb, m)
+        host[3:] = [parent12, rs._pad_l2_ranks(l2r, m_pad)]
+    t1 = clock()
+    staged = [rs._stage(a, device) for a in host]
+    t2 = clock()
+    chunks = []
+
+    def stamp(level, *_):
+        chunks.append((level, clock()))
+
+    if l2:
+        mst, fa, fb, (lv, count) = rs._head_l2(*staged)
+        fragment, route = staged[3], "host-l2"
+    else:
+        vmin0_d, ra_d, rb_d, parent1 = staged
+        fragment, mst, fa, fb, (lv, count) = rs._rank_head(vmin0_d, ra_d, rb_d, parent1)
+        route = "staged"
+    t3 = clock()
+    levels = None
+    if not l2 and family == "dense" and n_pad < rs._CENSUS_MIN_SPACE:
+        # solve_rank_auto's speculative finish, then its fallback
+        route = "speculative"
+        out_size = max(boruvka._bucket_size(m_pad // 8), boruvka._COMPACT_MIN_SLOTS)
+        if count <= out_size:
+            fragment, mst, _, _, _, (extra, left) = rs._finish_chunk(
+                fragment, mst, fa, fb, rs._iota(m_pad, device),
+                out_size=out_size, chunk_levels=boruvka._max_levels(n_pad))
+            levels = lv + extra if left == 0 else None
+        if levels is None:
+            route = "staged after a misprediction"
+            mst, _, levels = rs.solve_rank_staged(
+                vmin0_d, ra_d, rb_d, **rs._family_params(family), parent1=parent1,
+                on_chunk=stamp)
+    else:
+        params = rs._family_params(family)
+        compact_space = params["compact_space"]
+        if compact_space is None:
+            compact_space = n_pad >= rs._CENSUS_MIN_SPACE
+        _, _, levels = rs._finish_to_fixpoint(
+            fragment, mst, fa, fb, rs._iota(m_pad, device),
+            lv=lv, count=count, space=n_pad, max_levels=lv + boruvka._max_levels(n_pad),
+            chunk_levels=params["chunk_levels"], compact_space=compact_space, on_chunk=stamp)
+    t4 = clock()
+    boruvka.fetch_mst_edge_ids(graph, mst)
+    t5 = clock()
+    return {"levels": levels, "route": route, "family": family, "host_passes_s": t1 - t0,
+            "h2d_s": t2 - t1, "head_s": t3 - t2, "finish_s": t4 - t3,
+            "finish_chunks": [{"level": lv_c, "s": t - prev} for (lv_c, t), prev in
+                              zip(chunks, [t3] + [t for _, t in chunks])],
+            "harvest_s": t5 - t4, "total_s": t5 - t0}
+
+
 def _phases(graph, strategy: str, device) -> dict:
+    if strategy == "rank":
+        return _rank_phases(graph, device)
+
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -64,8 +156,7 @@ def _phases(graph, strategy: str, device) -> dict:
         mst, _, levels = boruvka._solve_from_iota(*args[1:], num_nodes=args[0].shape[0])
     sync()
     t3 = time.perf_counter()
-    ranks = torch.nonzero(mst).flatten().cpu().numpy()
-    np.sort(graph.edge_id_of_rank(ranks))
+    boruvka.fetch_mst_edge_ids(graph, mst)
     t4 = time.perf_counter()
     host_key = "host_ell_buckets_s" if strategy == "ell" else "host_rank_arrays_s"
     return {"levels": levels, host_key: t1 - t0, "h2d_s": t2 - t1,
@@ -73,16 +164,14 @@ def _phases(graph, strategy: str, device) -> dict:
 
 
 def _device_busy(prof) -> tuple[float, dict]:
-    """Union of the device intervals (s), and the time (s) and launches of
-    each kernel name."""
-    spans, by_name = [], defaultdict(lambda: [0.0, 0])
+    """Union of the device intervals (s), and the time (s), launches and
+    longest launch (s) of each kernel name."""
+    spans, by_name = [], defaultdict(list)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             start, end = evt.time_range.start, evt.time_range.end
             spans.append((start, end))
-            name = by_name[evt.name[:80]]
-            name[0] += (end - start) * 1e-6
-            name[1] += 1
+            by_name[evt.name[:80]].append((end - start) * 1e-6)
     busy, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -93,17 +182,20 @@ def _device_busy(prof) -> tuple[float, dict]:
             cur_end = max(cur_end, end)
     if cur_end is not None:
         busy += cur_end - cur_start
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    return busy * 1e-6, {name: {"s": t, "launches": c} for name, (t, c) in ranked}
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    return busy * 1e-6, {name: {"s": sum(ts), "launches": len(ts), "max_s": max(ts)}
+                         for name, ts in ranked}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--strategy", choices=("fused", "stepped", "ell"), default="fused")
+    ap.add_argument("--strategy", choices=("fused", "stepped", "ell", "rank"), default="fused")
+    ap.add_argument("--graph", choices=tuple(GRAPHS), default="rmat")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     card = card_description()
-    graph = rmat_graph(SCALE, EDGE_FACTOR, seed=SEED)
+    label, make = GRAPHS[args.graph]
+    graph = make()
     boruvka.solve_graph(graph, strategy=args.strategy, device=device)  # warm-up
     phases = _phases(graph, args.strategy, device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -115,7 +207,7 @@ def main(argv=None) -> int:
     busy, top = _device_busy(prof)
     print(json.dumps({
         "card": card,
-        "graph": f"rmat-{SCALE} ef {EDGE_FACTOR} seed {SEED}",
+        "graph": label,
         "nodes": graph.num_nodes, "edges": graph.num_edges, "strategy": args.strategy,
         "phases": phases,
         "profiled_wall_s": wall,

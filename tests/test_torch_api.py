@@ -135,8 +135,11 @@ def test_port_imports_and_solves_without_jax():
         "from distributed_ghs_implementation_tpu_torch.graphs.generators import "
         "readme_sample_graph\n"
         "import distributed_ghs_implementation_tpu_torch.utils.verify\n"
+        "from distributed_ghs_implementation_tpu_torch.models import rank_solver\n"
         "r = minimum_spanning_tree(readme_sample_graph(), device='cpu')\n"
         "assert r.total_weight == 20, r.total_weight\n"
+        "ids, _, lv = rank_solver.solve_graph_rank(readme_sample_graph(), device='cpu')\n"
+        "assert ids.tolist() == r.edge_ids.tolist() and lv > 0, (ids, lv)\n"
         "bad = [m for m in sys.modules if m == 'distributed_ghs_implementation_tpu' "
         "or m.startswith('distributed_ghs_implementation_tpu.')]\n"
         "assert not bad, bad\n"

@@ -212,16 +212,22 @@ def test_boruvka_solve_from_a_premerged_partition(deck):
     assert got[2] == int(want[2])
 
 
-def test_strategies_not_ported_raise():
+def test_strategies_not_ported_raise(monkeypatch):
+    """``rank``, and ``auto`` at the threshold, run the rank solver and equal
+    JAX; an unknown strategy raises."""
+    from distributed_ghs_implementation_tpu.graphs import native as jnative
+
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)  # JAX's NumPy host passes
     g = tgen.readme_sample_graph()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tb.solve_graph(g, strategy="rank", device=CPU)
+    _assert_same_result(tb.solve_graph(g, strategy="rank", device=CPU),
+                        jb.solve_graph(jgen.readme_sample_graph(), strategy="rank"))
     with pytest.raises(ValueError, match="unknown strategy"):
         tb.solve_graph(g, strategy="bogus", device=CPU)
     m = tb.ELL_AUTO_EDGE_THRESHOLD
-    path = tedge.Graph(m + 1, np.arange(m), np.arange(m) + 1, np.ones(m, dtype=np.int64))
-    with pytest.raises(NotImplementedError, match="rank solver"):
-        tb.solve_graph(path, device=CPU)
+    edges = (m + 1, np.arange(m), np.arange(m) + 1, np.ones(m, dtype=np.int64))
+    got = tb.solve_graph(tedge.Graph(*edges), device=CPU)
+    _assert_same_result(got, jb.solve_graph(jedge.Graph(*edges)))
+    assert got[0].size == m
 
 
 def test_empty_graphs():

@@ -12,14 +12,16 @@ import pytest
 import torch
 
 from distributed_ghs_implementation_tpu_torch.ops import kernels
-from distributed_ghs_implementation_tpu_torch.models import boruvka
-from distributed_ghs_implementation_tpu_torch.graphs import generators
+from distributed_ghs_implementation_tpu_torch.models import boruvka, rank_solver
+from distributed_ghs_implementation_tpu_torch.graphs import edgelist, generators
 from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
 from torch_inputs import (
+    DECK,
     FLAT_SHAPES,
     RMAT18_BUCKETS,
     ell_bucket_set,
     ell_inputs,
+    forest23,
     hook_forest,
     moe_inputs,
 )
@@ -326,3 +328,104 @@ def test_ell_solve_launches_k3_per_bucket_and_level_on_card(cuda):
     assert kernels.ell_row_min.launches - k3 == levels - 1
     assert levels == boruvka.solve_graph(g, strategy="fused", device=cuda)[2]
     np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
+
+
+def _rank_graphs():
+    """The fixture deck, RMAT-13 (ef 16, seed 1) and two road grids with 7
+    isolated vertices."""
+    out = {name: forest23(edgelist.Graph, generators) if make is None else make(generators)
+           for name, make in DECK.items()}
+    out["rmat13"] = generators.rmat_graph(13, 16, seed=1)
+    g1 = generators.road_grid_graph(30, 30, seed=5)
+    g2 = generators.road_grid_graph(12, 12, seed=6)
+    off = g1.num_nodes
+    out["two_grids"] = edgelist.Graph.from_arrays(
+        off + g2.num_nodes + 7, np.concatenate([g1.u, g2.u + off]),
+        np.concatenate([g1.v, g2.v + off]), np.concatenate([g1.w, g2.w]))
+    return out
+
+
+_RANK_GRAPHS = ["er48", "rmat12", "road40", "forest23", "readme", "rmat13", "two_grids"]
+
+
+def _assert_same_solve(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _RANK_GRAPHS)
+def test_rank_solve_on_card_equals_cpu_and_oracle(cuda, name):
+    """strategy="rank" on the card, element for element the port's CPU run;
+    K1 launches at every level the card runs."""
+    g = _rank_graphs()[name]
+    k1 = kernels.hook_compress.launches
+    got = boruvka.solve_graph(g, strategy="rank", device=cuda)
+    launched = kernels.hook_compress.launches - k1
+    _assert_same_solve(got, boruvka.solve_graph(g, strategy="rank", device="cpu"))
+    np.testing.assert_array_equal(got[0], rank_oracle_edge_ids(g))
+    if got[2] > 2:  # levels past the host's run on the card
+        assert launched >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_levels", [2, 3])
+def test_rank_census_chain_on_card_equals_cpu(cuda, monkeypatch, chunk_levels):
+    """A forced shrink chain (spare-slot scatters, the -1 pad ids of a
+    shrink, the replay over dead fragments) on the card, equal to the CPU."""
+    monkeypatch.setattr(rank_solver, "_SHRINK_MIN_SPACE", 64)
+    monkeypatch.setattr(rank_solver, "_ONE_SHOT_MAX_SLOTS", 0)
+    g = _rank_graphs()["two_grids"]
+    shrinks = []
+    orig = rank_solver._shrink_and_run
+
+    def spy(*a, **k):
+        shrinks.append(k["f_size"])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(rank_solver, "_shrink_and_run", spy)
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        vmin0, ra, rb = rank_solver.prepare_rank_arrays(g, device=device)
+        mst, frag, lv = rank_solver.solve_rank_staged(
+            vmin0, ra, rb, compact_after=1, chunk_levels=chunk_levels, compact_space=True)
+        results.append((mst.cpu().numpy(), frag.cpu().numpy(), lv))
+    _assert_same_solve(*results)
+    assert len(shrinks) >= 4  # two or more a device
+
+
+@pytest.mark.gpu
+def test_rank_two_pass_segment_minimum_on_card_equals_cpu(cuda, monkeypatch):
+    """The two-pass ``_moe_over`` (above 2^28 slots in production) forced
+    at RMAT-13's width."""
+    g = _rank_graphs()["rmat13"]
+    want = boruvka.solve_graph(g, strategy="rank", device="cpu")
+    monkeypatch.setattr(rank_solver, "_MOE_TWO_PASS_SLOTS", 0)
+    _assert_same_solve(boruvka.solve_graph(g, strategy="rank", device=cuda), want)
+
+
+@pytest.mark.gpu
+def test_rank_speculative_on_card_accepts_and_mispredicts(cuda):
+    g = generators.rmat_graph(12, 8, seed=11)
+    vmin0, ra, rb, parent1 = rank_solver.prepare_rank_arrays_full(g, device=cuda)
+    assert rank_solver.solve_rank_speculative(vmin0, ra, rb, out_size=2, parent1=parent1) is None
+    got = rank_solver.solve_rank_speculative(vmin0, ra, rb, out_size=ra.shape[0], parent1=parent1)
+    want = rank_solver.solve_rank_staged(vmin0, ra, rb, parent1=parent1)
+    assert got is not None
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]
+
+
+@pytest.mark.gpu
+def test_rank_stage_cache_is_not_reused_across_devices_on_card(cuda):
+    g = generators.road_grid_graph(20, 20, seed=3)
+    on_card = rank_solver.prepare_rank_arrays_l2(g, device=cuda)
+    on_cpu = rank_solver.prepare_rank_arrays_l2(g, device="cpu")
+    assert all(t.is_cuda for t in on_card) and all(t.is_cpu for t in on_cpu)
+    assert rank_solver.prepare_rank_arrays_l2(g, device=cuda) is on_card
+    index = torch.device("cuda", torch.cuda.current_device())
+    assert rank_solver.prepare_rank_arrays_l2(g, device=index) is on_card
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    _assert_same_solve(boruvka.solve_graph(g, strategy="rank", device="cpu"),
+                       boruvka.solve_graph(g, strategy="rank", device=cuda))
