@@ -38,8 +38,10 @@ Phases, each printing a line:
    sizes: K1 in the form ``auto`` picks and in both forced forms, around
    the block form's threshold, up to 2^22, on chains (every jump needed),
    on nothing hooked (the first jump ends the round) and on cyclic garbage
-   (no jump does); K3 per bucket and as one level over RMAT-18's own buckets and
-   random bucket sets. Then the profiler shows one device kernel for one K1
+   (no jump does); K1 on its own inputs from the rank path's traced run,
+   at every n it ran there (the census spaces of the road grid and the
+   road network among them); K3 per bucket and as one level over RMAT-18's
+   own buckets and random bucket sets. Then the profiler shows one device kernel for one K1
    call and one for one K3 level. Then the K4 wrapper's host time over 10^4
    calls, split into the steps of the launch path, beside ``torch.take``'s;
    then the two choices this run measures for K1 and K3 (block form
@@ -251,8 +253,12 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
     ``minimum_spanning_forest`` (``auto``), cold, warm, and once more with
     the form and jumps of each K1 launch read back (a sync a launch, so
     that run is not timed). Records the route that answered and the census
-    chain (``f_size`` of each shrink) by wrapping the solver's functions."""
+    chain (``f_size`` of each shrink) by wrapping the solver's functions.
+    Returns the records and K1's inputs at the first traced launch of each
+    (graph, n): the real shapes and data of the path, census spaces
+    included, for the check against the plain version."""
     routes, census, trace = [], [], []
+    k1_inputs, current = {}, []
     speculative = rank_solver.solve_rank_speculative
     shrink = rank_solver._shrink_and_run
     hook = rank_solver.hook_and_compress
@@ -267,6 +273,9 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
         return shrink(*a, **k)
 
     def traced_hook(has, dst, fragment):
+        key = (current[-1], fragment.numel())
+        if key not in k1_inputs:
+            k1_inputs[key] = tuple(t.clone() for t in (has, dst, fragment))
         out = hook(has, dst, fragment)
         jumps, form = kernels.hook_compress_readout()
         n = fragment.numel()
@@ -288,6 +297,7 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
                 raise AssertionError(f"{name}: {g.num_edges} edges, auto would not take rank")
             family = rank_solver._pick_family(g)
             rec = {"family": family}
+            current.append(name)
             for run in ("cold", "warm", "traced"):
                 routes.clear()
                 census.clear()
@@ -321,7 +331,7 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
         rank_solver.solve_rank_speculative = speculative
         rank_solver._shrink_and_run = shrink
         rank_solver.hook_and_compress = hook
-    return out
+    return out, k1_inputs
 
 
 def main() -> int:
@@ -502,8 +512,8 @@ def main() -> int:
     # 2d. rank path
     zero_counts()
     t_rank = time.perf_counter()
-    rank_solves = _rank_path(torch, kernels, rank_solver, boruvka, minimum_spanning_forest,
-                             deck, graphs, check)
+    rank_solves, rank_k1_inputs = _rank_path(
+        torch, kernels, rank_solver, boruvka, minimum_spanning_forest, deck, graphs, check)
     rank_counts = read_counts("rank", ("hook_compress",))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
@@ -656,6 +666,21 @@ def main() -> int:
     hook22 = level3_hook(grid2048)
     if _max_abs_err(kernels.hook_compress(*hook22), kernels.hook_compress_torch(*hook22)):
         raise AssertionError("K1 and its plain version disagree at the road grid's n_pad")
+    # K1 on its own inputs from the rank path's traced run, at every n it
+    # ran there: RMAT-18's n_pad and the census spaces of the road grid and
+    # the road network, among them. Tolerance 0.
+    for name in ("grid2048", "road1024"):
+        missing = [f for f in rank_solves[name]["warm"]["census_f_sizes"]
+                   if (name, f) not in rank_k1_inputs]
+        if missing:
+            raise AssertionError(f"{name}: no K1 launch traced at census size {missing}")
+    for (name, n), inputs in rank_k1_inputs.items():
+        gap = _max_abs_err(kernels.hook_compress(*inputs), kernels.hook_compress_torch(*inputs))
+        err["hook_compress"] = max(err["hook_compress"], gap)
+        if gap:
+            raise AssertionError(f"K1 and its plain version disagree on {name}'s inputs at n={n}")
+    print("K1 vs plain on the rank path's own inputs, element-exact at (graph, n): "
+          + ", ".join(f"{name} {n}" for name, n in rank_k1_inputs))
     print("K1 on the fused RMAT-18 solve, (form, jumps taken of num_jumps) a level: " + ", ".join(
         f"{form} {jumps}/{kernels.num_jumps(frag1.numel())}" for jumps, form in k1_levels))
     n, e = frag1.numel(), src.numel()

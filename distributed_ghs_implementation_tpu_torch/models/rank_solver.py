@@ -763,31 +763,20 @@ def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None):
 
 def make_production_solver(graph: Graph, *, device=None):
     """Stage the graph for its route (the host passes and copies run here,
-    so a caller can time the prep apart) and return ``solve(on_chunk=None)
-    -> (mst, fragment, levels)``. Routes: grid and sparse graphs take the
-    host-L2 route (:func:`solve_rank_l2`); dense graphs at filter scale
-    raise ``NotImplementedError`` (not ported yet), before any staging;
-    every other graph takes :func:`solve_rank_auto`, or with ``on_chunk``
-    the staged solve, whose chunk boundaries it reports."""
+    so a caller can time the prep apart) and return ``solve() -> (mst,
+    fragment, levels)``. The one place the route is chosen: grid and sparse
+    graphs take the host-L2 route (:func:`solve_rank_l2`); dense graphs at
+    filter scale raise ``NotImplementedError`` (not ported yet), before any
+    staging; every other graph takes :func:`solve_rank_auto`."""
     device = resolve_device(device)
     family = _pick_family(graph)
     if use_l2_path(family):
-        vmin0, ra, rb, parent12, l2_ranks = prepare_rank_arrays_l2(graph, device=device)
-
-        def solve(on_chunk=None):
-            return solve_rank_l2(vmin0, ra, rb, parent12, l2_ranks, on_chunk=on_chunk)
-    elif use_filtered_path(family, _bucket_size(graph.num_edges)):
+        staged = prepare_rank_arrays_l2(graph, device=device)
+        return lambda: solve_rank_l2(*staged)
+    if use_filtered_path(family, _bucket_size(graph.num_edges)):
         raise NotImplementedError(_FILTERED_NOT_PORTED.format(_bucket_size(graph.num_edges)))
-    else:
-        vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
-
-        def solve(on_chunk=None):
-            if on_chunk is None:
-                return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
-            return solve_rank_staged(
-                vmin0, ra, rb, **_family_params(family), on_chunk=on_chunk, parent1=parent1,
-            )
-    return solve
+    vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
+    return lambda: solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
 
 
 def solve_graph_rank(graph: Graph, *, device=None) -> Tuple[np.ndarray, np.ndarray, int]:

@@ -14,24 +14,24 @@ listed. Prints one JSON line, with the card's name and power limit.
 
 The phases of the flat and ELL strategies: the host arrays
 (``rank_arrays``, or ``ell_buckets`` for ``ell``), host-to-device copy,
-level loop, harvest of the edge ids. Those of ``rank``: the host passes
-(``first_ranks``, the level-1 and, on the host-L2 route, level-2
-partitions; the rank order stays cached, as for the other strategies),
-the copy of the staged arrays, the head (levels 1-2, or the level-3 entry
-of the host-L2 route), the finish chunks, the harvest. The phases run the
-route ``solve_graph`` takes one piece at a time, without the copy's
-overlap with the host passes; the profiled solve is a warm one, from the
-arrays the graph keeps staged.
+level loop, harvest of the edge ids. Those of ``rank`` are read off the
+route ``solve_graph`` takes, as it runs: ``first_ranks`` (taken first,
+alone), the staging (the level-1 and, on the host-L2 route, level-2 host
+passes under the copies, as in a solve; the host passes' own time
+beside it), the head (levels 1-2, or the level-3 entry of the host-L2
+route; after a misprediction, the rejected speculation and the staged
+head), each finish chunk, the harvest. The profiled solve is a warm one,
+from the arrays the graph keeps staged.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
 
 from distributed_ghs_implementation_tpu_torch.device import card_description, resolve_device
@@ -56,75 +56,94 @@ def _drop_cached_buckets(graph) -> None:
     graph.__dict__.pop("ell_buckets", None)
 
 
+# The rank solver's steps that end a phase: a head, or a finish chunk (a
+# chunk with a census ends in ``_shrink_and_run`` or ``_levels_loop``).
+_RANK_HEADS = ("_rank_head", "_head_l2")
+_RANK_CHUNKS = ("_finish_chunk", "_shrink_and_run", "_levels_loop")
+_RANK_HOST = ("host_level1", "host_level2")
+
+
+@contextlib.contextmanager
+def _observed(module, names, record):
+    """Wrap ``module``'s functions ``names`` for the block: each call runs
+    as before, then ``record(name, start, out)`` sees it."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def spy(name, fn):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record(name, start, out)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, spy(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def _rank_phases(graph, device) -> dict:
-    """The rank route of ``solve_graph`` one piece at a time (the
-    filter-Kruskal route, not ported, raises at the warm-up solve)."""
+    """The rank route as ``solve_graph`` runs it (``make_production_solver``,
+    its ``solve``, the harvest), with its phases read off the solver's own
+    steps, so the route is the solver's: the head and every finish chunk
+    end on a host read of their counts, where the clock stops. The graph's
+    staged arrays are dropped first, so the prep runs as in a cold solve;
+    ``first_ranks`` is taken before it, out of the copies' overlap."""
     def clock():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    graph.__dict__.pop("first_ranks", None)
+    steps, speculative = [], []
+
+    def record(name, start, out):
+        if name in _RANK_HOST:  # runs under the copies: no sync
+            steps.append((name, time.perf_counter() - start))
+        elif name == "solve_rank_speculative":
+            speculative.append(out is not None)
+        else:
+            if name in _RANK_CHUNKS:  # a chunk's own steps (its levels) are not chunks
+                while steps and steps[-1][0] in _RANK_CHUNKS and steps[-1][1] >= start:
+                    steps.pop()
+            steps.append((name, clock()))
+
+    for key in ("first_ranks", "_rank_stage_cache"):
+        graph.__dict__.pop(key, None)
     family = rs._pick_family(graph)
-    l2 = rs.use_l2_path(family)
-    t0 = clock()
-    n, m = graph.num_nodes, graph.num_edges
-    n_pad, m_pad = boruvka._bucket_size(n), boruvka._bucket_size(m)
-    ra, rb = graph.rank_endpoints(pad_to=m_pad)
-    vmin0 = np.full(n_pad, boruvka.INT32_MAX, dtype=np.int32)
-    vmin0[:n] = graph.first_ranks
-    host = [vmin0, ra, rb, rs.host_level1(vmin0, ra, rb)]
-    if l2:
-        parent12, l2r = rs.host_level2(host[3], ra, rb, m)
-        host[3:] = [parent12, rs._pad_l2_ranks(l2r, m_pad)]
-    t1 = clock()
-    staged = [rs._stage(a, device) for a in host]
-    t2 = clock()
-    chunks = []
-
-    def stamp(level, *_):
-        chunks.append((level, clock()))
-
-    if l2:
-        mst, fa, fb, (lv, count) = rs._head_l2(*staged)
-        fragment, route = staged[3], "host-l2"
-    else:
-        vmin0_d, ra_d, rb_d, parent1 = staged
-        fragment, mst, fa, fb, (lv, count) = rs._rank_head(vmin0_d, ra_d, rb_d, parent1)
-        route = "staged"
-    t3 = clock()
-    levels = None
-    if not l2 and family == "dense" and n_pad < rs._CENSUS_MIN_SPACE:
-        # solve_rank_auto's speculative finish, then its fallback
+    names = _RANK_HOST + _RANK_HEADS + _RANK_CHUNKS + ("solve_rank_speculative",)
+    with _observed(rs, names, record):
+        t0 = clock()
+        graph.first_ranks  # noqa: B018 -- the cached pass, timed alone
+        t1 = clock()
+        solve = rs.make_production_solver(graph, device=device)
+        t2 = clock()
+        mst, _, levels = solve()
+        t3 = clock()
+        boruvka.fetch_mst_edge_ids(graph, mst)
+        t4 = clock()
+    if rs.use_l2_path(family):
+        route = "host-l2"
+    elif speculative == [True]:
         route = "speculative"
-        out_size = max(boruvka._bucket_size(m_pad // 8), boruvka._COMPACT_MIN_SLOTS)
-        if count <= out_size:
-            fragment, mst, _, _, _, (extra, left) = rs._finish_chunk(
-                fragment, mst, fa, fb, rs._iota(m_pad, device),
-                out_size=out_size, chunk_levels=boruvka._max_levels(n_pad))
-            levels = lv + extra if left == 0 else None
-        if levels is None:
-            route = "staged after a misprediction"
-            mst, _, levels = rs.solve_rank_staged(
-                vmin0_d, ra_d, rb_d, **rs._family_params(family), parent1=parent1,
-                on_chunk=stamp)
     else:
-        params = rs._family_params(family)
-        compact_space = params["compact_space"]
-        if compact_space is None:
-            compact_space = n_pad >= rs._CENSUS_MIN_SPACE
-        _, _, levels = rs._finish_to_fixpoint(
-            fragment, mst, fa, fb, rs._iota(m_pad, device),
-            lv=lv, count=count, space=n_pad, max_levels=lv + boruvka._max_levels(n_pad),
-            chunk_levels=params["chunk_levels"], compact_space=compact_space, on_chunk=stamp)
-    t4 = clock()
-    boruvka.fetch_mst_edge_ids(graph, mst)
-    t5 = clock()
-    return {"levels": levels, "route": route, "family": family, "host_passes_s": t1 - t0,
-            "h2d_s": t2 - t1, "head_s": t3 - t2, "finish_s": t4 - t3,
-            "finish_chunks": [{"level": lv_c, "s": t - prev} for (lv_c, t), prev in
-                              zip(chunks, [t3] + [t for _, t in chunks])],
-            "harvest_s": t5 - t4, "total_s": t5 - t0}
+        route = "staged after a misprediction" if speculative else "staged"
+    marks = [(name, t) for name, t in steps if name not in _RANK_HOST]
+    # The last head is the one whose result stands (a misprediction runs
+    # the staged head again): what runs before it is the head phase, the
+    # chunks after it the finish.
+    head = max(i for i, (name, _) in enumerate(marks) if name in _RANK_HEADS)
+    bounds = [t2] + [t for _, t in marks]
+    return {"levels": levels, "route": route, "family": family,
+            "first_ranks_s": t1 - t0,
+            "host_levels_s": sum(s for name, s in steps if name in _RANK_HOST),
+            "stage_s": t2 - t1, "head_s": marks[head][1] - t2, "finish_s": t3 - marks[head][1],
+            "finish_chunks": [{"step": name, "s": t - prev} for (name, t), prev in
+                              zip(marks[head + 1:], bounds[head + 1:])],
+            "harvest_s": t4 - t3, "total_s": t4 - t0}
 
 
 def _phases(graph, strategy: str, device) -> dict:

@@ -213,16 +213,30 @@ def test_boruvka_solve_from_a_premerged_partition(deck):
 
 
 def test_strategies_not_ported_raise(monkeypatch):
+    """What the port does not run raises: an unknown strategy, and the
+    rank solver's filter-Kruskal route, by ``rank`` and by ``auto`` at the
+    threshold (its rank width lowered so that small dense graphs take it)."""
+    from distributed_ghs_implementation_tpu_torch.models import rank_solver as trs
+
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tb.solve_graph(tgen.readme_sample_graph(), strategy="bogus", device=CPU)
+    monkeypatch.setattr(trs, "_FILTER_MIN_RANKS", 1024)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5, step 6"):
+        tb.solve_graph(tgen.rmat_graph(10, 16, seed=3), strategy="rank", device=CPU)
+    dense = tgen.rmat_graph(13, 22, seed=5)
+    assert dense.num_edges >= tb.ELL_AUTO_EDGE_THRESHOLD
+    with pytest.raises(NotImplementedError, match="filter-Kruskal"):
+        tb.solve_graph(dense, device=CPU)
+
+
+def test_rank_and_auto_at_the_threshold_take_the_rank_solver(monkeypatch):
     """``rank``, and ``auto`` at the threshold, run the rank solver and equal
-    JAX; an unknown strategy raises."""
+    JAX on the graphs that raised before the rank solver was ported."""
     from distributed_ghs_implementation_tpu.graphs import native as jnative
 
     monkeypatch.setattr(jnative, "get_lib", lambda: None)  # JAX's NumPy host passes
-    g = tgen.readme_sample_graph()
-    _assert_same_result(tb.solve_graph(g, strategy="rank", device=CPU),
+    _assert_same_result(tb.solve_graph(tgen.readme_sample_graph(), strategy="rank", device=CPU),
                         jb.solve_graph(jgen.readme_sample_graph(), strategy="rank"))
-    with pytest.raises(ValueError, match="unknown strategy"):
-        tb.solve_graph(g, strategy="bogus", device=CPU)
     m = tb.ELL_AUTO_EDGE_THRESHOLD
     edges = (m + 1, np.arange(m), np.arange(m) + 1, np.ones(m, dtype=np.int64))
     got = tb.solve_graph(tedge.Graph(*edges), device=CPU)

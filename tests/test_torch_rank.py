@@ -516,16 +516,54 @@ def test_stage_cache_is_keyed_by_device():
     assert set(cache) == {("l2", torch.device("cpu"))}
 
 
-@pytest.mark.parametrize("name,routes", [
-    ("rmat", ("speculative", "staged after a misprediction")), ("grid", ("host-l2",)),
-    ("road", ("host-l2",))])
-def test_profile_phases_split_a_rank_solve_on_the_cpu(graphs, name, routes):
+@pytest.mark.parametrize("name,route", [
+    ("rmat", "staged after a misprediction"), ("grid", "host-l2"), ("road", "host-l2")])
+def test_profile_phases_split_a_rank_solve_on_the_cpu(graphs, name, route):
+    """The profiler times the solver's own route: the same levels as
+    ``solve_graph``, the route the solver's predicates give, and phases that
+    add up to the whole."""
     tg = graphs[name][1]
     phases = profile_solve._phases(tg, "rank", torch.device(CPU))
     assert phases["levels"] == tb.solve_graph(tg, strategy="rank", device=CPU)[2]
-    assert phases["route"] in routes
-    assert {"host_passes_s", "h2d_s", "head_s", "finish_s", "finish_chunks",
-            "harvest_s"} <= set(phases)
+    assert phases["route"] == route
+    assert phases["family"] == trs._pick_family(tg)
+    chunks = phases["finish_chunks"]
+    assert chunks and {c["step"] for c in chunks} <= set(profile_solve._RANK_CHUNKS)
+    assert sum(c["s"] for c in chunks) <= phases["finish_s"] + 1e-9
+    assert 0 < phases["host_levels_s"] <= phases["stage_s"]
+    assert phases["total_s"] == pytest.approx(sum(phases[k] for k in (
+        "first_ranks_s", "stage_s", "head_s", "finish_s", "harvest_s")))
+    for fn in ("_rank_head", "host_level1", "solve_rank_speculative"):  # unwrapped after
+        assert getattr(trs, fn).__module__ == trs.__name__
+
+
+def test_profile_phases_report_an_accepted_speculation(graphs, monkeypatch):
+    """At a speculative width the head's survivors fit (half the ranks, as
+    in the accepted test above), the speculation answers in one finish
+    chunk, and the profiler says so."""
+    tg = graphs["rmat"][1]
+    speculate = trs.solve_rank_speculative
+
+    def wider(vmin0, ra, rb, *, out_size, **kw):
+        return speculate(vmin0, ra, rb, out_size=tb._bucket_size(ra.shape[0] // 2), **kw)
+
+    monkeypatch.setattr(trs, "solve_rank_speculative", wider)
+    phases = profile_solve._phases(tg, "rank", torch.device(CPU))
+    assert phases["route"] == "speculative"
+    assert [c["step"] for c in phases["finish_chunks"]] == ["_finish_chunk"]
+    assert phases["levels"] == tb.solve_graph(tg, strategy="rank", device=CPU)[2]
+
+
+def test_production_solver_routes_as_jax(graphs):
+    """``make_production_solver``'s ``solve()`` equals JAX's on every
+    family: the host-L2 route and ``solve_rank_auto``."""
+    for name, (jg, tg) in graphs.items():
+        got = trs.make_production_solver(tg, device=CPU)()
+        want = jrs.make_production_solver(jg)()
+        np.testing.assert_array_equal(got[0].numpy().astype(bool), np.asarray(want[0]),
+                                      err_msg=name)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]), err_msg=name)
+        assert got[2] == int(want[2]), name
 
 
 def test_device_busy_merges_overlapping_spans_and_keeps_the_longest_launch():
