@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing a line:
 
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
-   ``build/kernels/``).
+   ``build/kernels/``) and the native host library from ``native/`` (under
+   ``build/native/``).
 2. main path, four paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
@@ -26,11 +27,17 @@ Phases, each printing a line:
    d. rank: ``solve_graph(strategy="rank")`` on the fixture deck, then
       ``minimum_spanning_forest`` (``auto``, the rank solver at these sizes)
       on RMAT-18 (dense: the speculative route), ``road_grid_graph(2048,
-      2048, seed=1)`` (grid: the host-L2 route) and
-      ``random_road_network(1024, 1024, seed=1)`` (sparse: host-L2), cold,
-      warm, and once more reading back the form and jumps of every K1
-      launch. Prints each solve's time, edges/s, levels, route, census
-      chain (``f_size`` of each shrink) and K1 launches.
+      2048, seed=1)`` (grid: the host-L2 route),
+      ``random_road_network(1024, 1024, seed=1)`` (sparse: host-L2), and
+      the filter-Kruskal route's two dense graphs: RMAT-20 ef 16 seed 24
+      (under the census size: the speculative filtered program from the
+      host level 2; its forest weight also against the recorded 35,737,768)
+      and RMAT-21 ef 16 seed 1 (the filtered solve from the host level 2,
+      the fused filter), cold, warm, and once more reading back the form
+      and jumps of every K1 launch. Prints each solve's time, edges/s,
+      levels, route, census chain (``f_size`` of each shrink), the alive
+      counts each finish started from (on the filter route: the prefix's,
+      then the filter's survivors) and K1 launches.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -51,7 +58,8 @@ Phases, each printing a line:
    level-1 inputs for K1, K2 and K3 (K3 as its one launch a level; K1 also
    at RMAT-13's level-1 inputs and, in the grid form, at the road grid's
    first card level taken in its vertex space, n = 2^22, with the form run
-   and the jumps taken at every RMAT-18 level), 2^24 and 2^26 indices for
+   and the jumps taken at every RMAT-18 level, and at every n the filter
+   route's traced run gave it), 2^24 and 2^26 indices for
    K5, and K1 and K3 by the profiler's device time too. A kernel and its library call (K4 and
    ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
    K5's rate of L2 sectors (m x 32 B over its time) is printed beside it.
@@ -75,6 +83,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 L2_SECTOR_BYTES = 32  # what one random 4 B read costs the L2
 HOST_CALLS = 10_000
+# The SciPy oracle's forest weight of RMAT-20 ef 16 seed 24 on the native
+# generator's stream, as the JAX package's bench.py records it.
+RMAT20_ORACLE_WEIGHT = 35_737_768
+FILTER_GRAPHS = ("rmat20", "rmat21")
 JAX_OPS = "distributed_ghs_implementation_tpu/ops"
 PORT = "distributed_ghs_implementation_tpu_torch"
 
@@ -246,31 +258,44 @@ def _k1_summary(trace) -> list:
             for (n, form), j in groups.items()]
 
 
-def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -> dict:
+def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, graphs,
+               check) -> dict:
     """The rank solver's main path: the fixture deck through
-    ``solve_graph(strategy="rank")``, then RMAT-18, the 2048 x 2048 road grid
-    and the 1024 x 1024 random road network through
+    ``solve_graph(strategy="rank")``, then RMAT-18, the 2048 x 2048 road
+    grid, the 1024 x 1024 random road network, RMAT-20 and RMAT-21 through
     ``minimum_spanning_forest`` (``auto``), cold, warm, and once more with
     the form and jumps of each K1 launch read back (a sync a launch, so
-    that run is not timed). Records the route that answered and the census
-    chain (``f_size`` of each shrink) by wrapping the solver's functions.
-    Returns the records and K1's inputs at the first traced launch of each
-    (graph, n): the real shapes and data of the path, census spaces
-    included, for the check against the plain version."""
-    routes, census, trace = [], [], []
+    that run is not timed). Records the route that answered, the census
+    chain (``f_size`` of each shrink), the prefix of the filter route and
+    the alive count each finish started from, by wrapping the solver's
+    functions. Returns the records and K1's inputs at the first traced
+    launch of each (graph, n): the real shapes and data of the path, census
+    spaces included, for the check against the plain version."""
+    routes, census, trace, finishes, prefixes = [], [], [], [], []
     k1_inputs, current = {}, []
-    speculative = rank_solver.solve_rank_speculative
-    shrink = rank_solver._shrink_and_run
-    hook = rank_solver.hook_and_compress
+    saved = {name: getattr(rank_solver, name) for name in (
+        "solve_rank_speculative", "solve_rank_filtered_speculative", "solve_rank_filtered",
+        "_shrink_and_run", "_finish_to_fixpoint", "_filtered_head", "_filtered_head_l2",
+        "_speculative_tail", "hook_and_compress")}
+    hook = saved["hook_and_compress"]
 
-    def speculative_spy(*a, **k):
-        result = speculative(*a, **k)
-        routes.append("speculative" if result is not None else "mispredicted")
-        return result
-
-    def shrink_spy(*a, **k):
-        census.append(k["f_size"])
-        return shrink(*a, **k)
+    def spy(name):
+        def call(*a, **k):
+            out = saved[name](*a, **k)
+            if name.startswith("solve_rank"):
+                routes.append((name, out is not None))
+            elif name == "_shrink_and_run":
+                census.append(k["f_size"])
+            elif name == "_finish_to_fixpoint":
+                finishes.append(k["count"])
+            elif name == "_speculative_tail":
+                finishes.append(dict(zip(("levels", "prefix_alive_after_head",
+                                          "prefix_alive_at_end", "filter_survivors",
+                                          "survivors_alive_at_end"), out[2])))
+            else:
+                prefixes.append(k["prefix"])
+            return out
+        return call
 
     def traced_hook(has, dst, fragment):
         key = (current[-1], fragment.numel())
@@ -284,24 +309,27 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
         trace.append((n, form, jumps))
         return out
 
-    rank_solver.solve_rank_speculative = speculative_spy
-    rank_solver._shrink_and_run = shrink_spy
+    for name in saved:
+        if name != "hook_and_compress":
+            setattr(rank_solver, name, spy(name))
     out = {}
     try:
         for name, g in deck.items():
             ids, _, _ = boruvka.solve_graph(g, strategy="rank")
             check(name, ids, float(g.w[ids].sum()))
-        for name in ("rmat18", "grid2048", "road1024"):
+        for name in ("rmat18", "grid2048", "road1024") + FILTER_GRAPHS:
             g = graphs[name]
             if g.num_edges < boruvka.ELL_AUTO_EDGE_THRESHOLD:
                 raise AssertionError(f"{name}: {g.num_edges} edges, auto would not take rank")
             family = rank_solver._pick_family(g)
+            filtered = rank_solver.use_filtered_path(family, boruvka._bucket_size(g.num_edges))
+            if filtered != (name in FILTER_GRAPHS):
+                raise AssertionError(f"{name}: the filter route {'taken' if filtered else 'not'}")
             rec = {"family": family}
             current.append(name)
             for run in ("cold", "warm", "traced"):
-                routes.clear()
-                census.clear()
-                trace.clear()
+                for log in (routes, census, trace, finishes, prefixes):
+                    log.clear()
                 if run == "traced":
                     rank_solver.hook_and_compress = traced_hook
                 k1 = kernels.hook_compress.launches
@@ -317,20 +345,18 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
                         raise AssertionError(f"{name}: K1 x{k1} but {len(trace)} traced")
                     rec["k1"] = _k1_summary(trace)
                     continue
-                if rank_solver.use_l2_path(family):
-                    route = "host-l2"
-                elif routes == ["speculative"]:
-                    route = "speculative"
-                else:
-                    route = "staged after a misprediction" if routes else "staged"
+                route = rank_route(family, routes)
+                if filtered and not route.startswith("filtered") or k1 < 1:
+                    raise AssertionError(f"{name}: route {route}, K1 x{k1}")
                 rec[run] = {"s": wall, "edges_per_s": g.num_edges / wall,
                             "levels": res.num_levels, "route": route,
                             "census_f_sizes": list(census), "k1_launches": k1}
+                if filtered:
+                    rec[run].update(prefix=prefixes[-1], finishes_from=list(finishes))
             out[name] = rec
     finally:
-        rank_solver.solve_rank_speculative = speculative
-        rank_solver._shrink_and_run = shrink
-        rank_solver.hook_and_compress = hook
+        for name, fn in saved.items():
+            setattr(rank_solver, name, fn)
     return out, k1_inputs
 
 
@@ -346,12 +372,14 @@ def main() -> int:
         minimum_spanning_forest,
         minimum_spanning_tree,
     )
+    from distributed_ghs_implementation_tpu_torch.profile_solve import rank_route
     from distributed_ghs_implementation_tpu_torch.device import (
         card_description,
         cuda_time_in_turns_ms,
         cuda_time_ms,
     )
     from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
+    from distributed_ghs_implementation_tpu_torch.graphs import native
     from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
     from distributed_ghs_implementation_tpu_torch.models import boruvka
     from distributed_ghs_implementation_tpu_torch.models import rank_solver
@@ -370,8 +398,13 @@ def main() -> int:
     t0 = time.perf_counter()
     cached = _build.library_path().is_file()
     lib_path = _build.build_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({'cached' if cached else 'compiled'}) "
-          f"{lib_path.relative_to(ROOT)}")
+    t1 = time.perf_counter()
+    native_cached = native.library_path().is_file()
+    native_path = native.build_library()
+    native.get_lib()
+    print(f"build: kernels {t1 - t0:.2f} s ({'cached' if cached else 'compiled'}) "
+          f"{lib_path.relative_to(ROOT)}; native host library {time.perf_counter() - t1:.2f} s "
+          f"({'cached' if native_cached else 'compiled'}) {native_path.relative_to(ROOT)}")
 
     # Host-side inputs and oracles: set-up, outside the main path's window.
     t0 = time.perf_counter()
@@ -380,15 +413,22 @@ def main() -> int:
     rmat18 = gen.rmat_graph(18, 16, seed=1)
     grid2048 = gen.road_grid_graph(2048, 2048, seed=1)
     road1024 = gen.random_road_network(1024, 1024, seed=1)
+    rmat20 = gen.rmat_graph(20, 16, seed=24)
+    rmat21 = gen.rmat_graph(21, 16, seed=1)
     graphs = {**deck, "rmat13": rmat13, "rmat18": rmat18, "grid2048": grid2048,
-              "road1024": road1024}
+              "road1024": road1024, "rmat20": rmat20, "rmat21": rmat21}
     oracle = {name: rank_oracle_edge_ids(g) for name, g in graphs.items()}
     oracle_w = {name: scipy_mst_weight(g) for name, g in graphs.items()}
     if rmat13.num_edges >= boruvka.ELL_AUTO_EDGE_THRESHOLD:
         raise AssertionError(f"RMAT-13 has {rmat13.num_edges} edges: auto would not run fused")
+    if oracle_w["rmat20"] != RMAT20_ORACLE_WEIGHT:
+        raise AssertionError(f"RMAT-20 seed 24: oracle weight {oracle_w['rmat20']}, recorded "
+                             f"{RMAT20_ORACLE_WEIGHT}")
     print(f"setup: {time.perf_counter() - t0:.2f} s; " + "; ".join(
-        f"{name} {graphs[name].num_nodes} vertices {graphs[name].num_edges} edges"
-        for name in ("rmat13", "rmat18", "grid2048", "road1024")))
+        f"{name} {graphs[name].num_nodes} vertices {graphs[name].num_edges} edges "
+        f"{getattr(graphs[name], 'generator_path', '')}"
+        for name in ("rmat13", "rmat18", "grid2048", "road1024") + FILTER_GRAPHS)
+        + f"; RMAT-20's oracle weight is the recorded {RMAT20_ORACLE_WEIGHT}")
 
     # -- 2. main path -------------------------------------------------------
     def zero_counts():
@@ -513,7 +553,8 @@ def main() -> int:
     zero_counts()
     t_rank = time.perf_counter()
     rank_solves, rank_k1_inputs = _rank_path(
-        torch, kernels, rank_solver, boruvka, minimum_spanning_forest, deck, graphs, check)
+        torch, kernels, rank_solver, rank_route, boruvka, minimum_spanning_forest, deck, graphs,
+        check)
     rank_counts = read_counts("rank", ("hook_compress",))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
@@ -669,9 +710,8 @@ def main() -> int:
     # K1 on its own inputs from the rank path's traced run, at every n it
     # ran there: RMAT-18's n_pad and the census spaces of the road grid and
     # the road network, among them. Tolerance 0.
-    for name in ("grid2048", "road1024"):
-        missing = [f for f in rank_solves[name]["warm"]["census_f_sizes"]
-                   if (name, f) not in rank_k1_inputs]
+    for name, rec in rank_solves.items():
+        missing = [f for f in rec["warm"]["census_f_sizes"] if (name, f) not in rank_k1_inputs]
         if missing:
             raise AssertionError(f"{name}: no K1 launch traced at census size {missing}")
     for (name, n), inputs in rank_k1_inputs.items():
@@ -820,6 +860,21 @@ def main() -> int:
           f"{k22['device_ms']:.4f} ms, plain {k22['plain_ms']:.4f} ms, bound "
           f"{k22['bound_ms']:.5f} ms; grid form, {k22['jumps']} jumps")
     k1["rank_path"] = {name: rec["k1"] for name, rec in rank_solves.items()}
+    # K1 at the filter route's own n: each traced input of RMAT-20 and
+    # RMAT-21, the vertex space and any census space.
+    k1["filter_route"] = []
+    for (name, n), inputs in rank_k1_inputs.items():
+        if name in FILTER_GRAPHS:
+            kernels.hook_compress(*inputs)
+            rec = {"graph": name, "n": n,
+                   "ms": cuda_time_ms(lambda: kernels.hook_compress(*inputs)),
+                   "plain_ms": cuda_time_ms(lambda: kernels.hook_compress_torch(*inputs)),
+                   "bound_ms": 17 * n / HBM_BYTES_PER_S * 1e3}
+            rec["jumps"], rec["form"] = kernels.hook_compress_readout()
+            k1["filter_route"].append(rec)
+            print(f"time hook_compress ({name}'s first traced inputs at n={n}): kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.5f} ms; {rec['form']} form, {rec['jumps']} jumps")
     print(f"time hook_compress (n=8192, RMAT-13 level-1 inputs): kernel "
           f"{k1['at_n8192']['ms']:.4f} ms, plain {k1['at_n8192']['plain_ms']:.4f} ms, "
           f"bound {k1['at_n8192']['bound_ms']:.6f} ms; {k1['at_n8192']['form']} form, "

@@ -7,8 +7,10 @@ carries its *rank*, its position in the total order ``(weight, edge id)``.
 That order makes the minimum spanning forest unique, so two solvers that are
 both right return the same edge ids.
 
-This is the port's own copy of the NumPy paths of the JAX package's
-``graphs/edgelist.py`` (the native ctypes branches stay there).
+This is the port's own copy of the JAX package's ``graphs/edgelist.py``.
+The rank order and the first ranks run in the port's native library
+(``graphs/native.py``), as they do in the JAX package; each keeps its NumPy
+form, which ``native=False`` selects.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import itertools
 from typing import Iterable, Tuple
 
 import numpy as np
+
+from distributed_ghs_implementation_tpu_torch.graphs import native as native_lib
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -146,14 +150,19 @@ class Graph:
         ra, rb = self.rank_endpoints(pad_to=m_size)
         return src, dst, rank, ra, rb
 
-    def rank_endpoints(self, *, pad_to: int | None = None) -> Tuple[np.ndarray, np.ndarray]:
+    def rank_endpoints(
+        self, *, pad_to: int | None = None, native: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray]:
         """``(ra, rb)``: endpoints of the rank-``r`` edge, indexed by rank,
-        right-padded with zeros."""
+        right-padded with zeros, int32; one native pass unless ``native`` is
+        False."""
         m = self.num_edges
         size = m if pad_to is None else int(pad_to)
         if size < m:
             raise ValueError("pad_to smaller than edge count")
         order = self._rank_order
+        if native:
+            return native_lib.rank_endpoints_i32(order, self.u, self.v, size)
         ra = np.zeros(size, dtype=np.int32)
         rb = np.zeros(size, dtype=np.int32)
         ra[:m] = self.u[order]
@@ -162,8 +171,8 @@ class Graph:
 
     @functools.cached_property
     def _rank_order(self) -> np.ndarray:
-        """Edge ids sorted by ``(weight, edge id)``: a stable sort by weight."""
-        return np.argsort(self.w, kind="stable")
+        """Edge ids sorted by ``(weight, edge id)``."""
+        return rank_order(self.w)
 
     @functools.cached_property
     def first_ranks(self) -> np.ndarray:
@@ -173,17 +182,7 @@ class Graph:
         partition every incident edge leaves its fragment, so each vertex's
         minimum outgoing edge is its minimum-rank incident edge.
         """
-        m = self.num_edges
-        order = self._rank_order
-        # The first occurrence of each vertex in rank-interleaved endpoint
-        # order is its minimum incident rank.
-        arr = np.empty(2 * m, dtype=np.int64)
-        arr[0::2] = self.u[order]
-        arr[1::2] = self.v[order]
-        verts, first_pos = np.unique(arr, return_index=True)
-        out = np.full(self.num_nodes, INT32_MAX, dtype=np.int32)
-        out[verts] = (first_pos // 2).astype(np.int32)
-        return out
+        return first_ranks_of(self.num_nodes, *self.rank_endpoints())
 
     @functools.cached_property
     def ell_buckets(self):
@@ -241,6 +240,34 @@ class Graph:
     def edge_id_of_rank(self, ranks: np.ndarray) -> np.ndarray:
         """Map ranks (as produced by :meth:`rank_arrays`) back to edge ids."""
         return self._rank_order[ranks]
+
+
+def rank_order(w: np.ndarray, *, native: bool = True) -> np.ndarray:
+    """Edge ids sorted by ``(weight, edge id)``. Integer weights whose range
+    spans at most 2^22 values take the native stable counting sort; float
+    weights and wider ranges take a stable argsort, as in the JAX package.
+    ``native=False`` takes the argsort for every weight."""
+    if native and w.dtype.kind in "iu" and w.size:
+        order = native_lib.rank_order_counting(w)
+        if order is not None:
+            return order
+    return np.argsort(w, kind="stable")
+
+
+def first_ranks_of(num_nodes: int, ra: np.ndarray, rb: np.ndarray, *,
+                   native: bool = True) -> np.ndarray:
+    """:attr:`Graph.first_ranks` from the unpadded rank endpoints: one native
+    pass, or with ``native=False`` the first occurrence of each vertex in
+    rank-interleaved endpoint order."""
+    if native:
+        return native_lib.first_rank_i32(num_nodes, ra, rb)
+    arr = np.empty(2 * ra.size, dtype=np.int64)
+    arr[0::2] = ra
+    arr[1::2] = rb
+    verts, first_pos = np.unique(arr, return_index=True)
+    out = np.full(num_nodes, INT32_MAX, dtype=np.int32)
+    out[verts] = (first_pos // 2).astype(np.int32)
+    return out
 
 
 def component_labels(num_nodes: int, u: np.ndarray, v: np.ndarray) -> np.ndarray:

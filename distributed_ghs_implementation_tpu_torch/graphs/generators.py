@@ -1,9 +1,10 @@
 """Seeded graph generators: Erdős–Rényi, G(n, m), RMAT, road networks and
 fixtures.
 
-The port's own copies of the NumPy samplers in the JAX package's
-``graphs/generators.py``: on the same seed each gives the same ``u/v/w``
-as its counterpart there with ``use_native=False``.
+The port's own copies of the samplers in the JAX package's
+``graphs/generators.py``: on the same seed each gives the same ``u/v/w`` as
+its counterpart there. ``rmat_graph`` draws, as there, from the native
+generator at scale 16 and above and from NumPy below.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
+from distributed_ghs_implementation_tpu_torch.graphs import native
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import (
     Graph,
     component_labels,
@@ -103,9 +105,27 @@ def rmat_graph(
     weight_low: int = 1,
     weight_high: int = 255,
     dedup: bool = True,
+    use_native: str | bool = "auto",
 ) -> Graph:
     """Graph500-style RMAT: ``2**scale`` vertices, ``edge_factor * 2**scale``
-    sampled edges (fewer after loops and duplicates are dropped)."""
+    sampled edges (fewer after loops and duplicates are dropped).
+
+    ``use_native="auto"`` draws from the native generator at ``scale >= 16``
+    with ``dedup`` and from NumPy otherwise; ``True`` and ``False`` force
+    one. The two draw different streams: a seed gives the same graph as the
+    JAX package's on the same stream. The graph's ``generator_path`` says
+    which (``"rmat-native"`` or ``"rmat-numpy"``).
+    """
+    if use_native is True and not dedup:
+        raise ValueError("native RMAT always dedups; use use_native=False with dedup=False")
+    if use_native == "auto":
+        use_native = scale >= 16 and dedup
+    if use_native:
+        u, v, w, n = native.rmat_edges(scale, edge_factor, seed=seed, a=a, b=b, c=c,
+                                       weight_low=weight_low, weight_high=weight_high)
+        g = Graph(n, u, v, w)  # canonical and deduped already
+        g.__dict__["generator_path"] = "rmat-native"
+        return g
     rng = np.random.default_rng(seed)
     n = 1 << scale
     m = int(edge_factor) << scale
@@ -123,7 +143,9 @@ def rmat_graph(
         u = (u << 1) | src_bit
         v = (v << 1) | dst_bit
     w = rng.integers(weight_low, weight_high + 1, size=m, dtype=np.int64)
-    return Graph.from_arrays(n, u, v, w, dedup=dedup)
+    g = Graph.from_arrays(n, u, v, w, dedup=dedup)
+    g.__dict__["generator_path"] = "rmat-numpy"
+    return g
 
 
 def road_grid_graph(

@@ -1,15 +1,18 @@
 """Rank-space Borůvka solver: the route ``solve_graph`` takes at 2^17 edges
 and above.
 
-Port of the JAX package's ``models/rank_solver.py`` without its
-filter-Kruskal route (dense graphs at ``_FILTER_MIN_RANKS`` padded ranks and
-above), which raises here.
+Port of the JAX package's ``models/rank_solver.py``: the staged,
+speculative and host-L2 routes, and for dense graphs at ``_FILTER_MIN_RANKS``
+padded ranks and above the filter-Kruskal route.
 
 * **Level 1 runs on the host.** At the identity partition each vertex's
   minimum outgoing edge is its minimum-rank incident edge
   (``Graph.first_ranks``), and :func:`host_level1` hooks and compresses on
   the host while the rank endpoints are copied to the card. Grid and sparse
-  graphs run level 2 on the host as well (:func:`host_level2`).
+  graphs run level 2 on the host as well (:func:`host_level2`), and so do
+  dense graphs on the filter route, over the filter's prefix. The rank
+  order, the endpoints, the first ranks and level 2's first cross ranks run
+  in the native host library (``graphs/native.py``).
 * **Rank space.** The state of undirected rank ``r`` is its two current
   fragment endpoints ``(fa[r], fb[r])``; the rank (or, after a compaction,
   the slot index) is the tie-break order, so weights never reach the card.
@@ -36,7 +39,8 @@ import numpy as np
 import torch
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
-from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+from distributed_ghs_implementation_tpu_torch.graphs import native as native_lib
+from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph, first_ranks_of
 from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     _COMPACT_MIN_SLOTS,
     _bucket_size,
@@ -115,22 +119,27 @@ def _host_break_and_jump(parent: np.ndarray, what: str) -> np.ndarray:
     )
 
 
-def host_level2(parent1: np.ndarray, ra: np.ndarray, rb: np.ndarray, m: int):
+def host_level2(parent1: np.ndarray, ra: np.ndarray, rb: np.ndarray, m: int, *,
+                native: bool = True):
     """Level 2 on the host, equal to the card's level over the level-1
-    fragments: each fragment's first cross rank, the hook with the
-    mutual-pair break, pointer jumping. Returns ``(parent12, l2_ranks)``,
-    the composed two-level vertex partition and the sorted ranks level 2
-    chose. ``m`` is the true (unpadded) edge count."""
+    fragments: each fragment's first cross rank (one native pass, or with
+    ``native=False`` its NumPy form), the hook with the mutual-pair break,
+    pointer jumping. Returns ``(parent12, l2_ranks)``, the composed
+    two-level vertex partition and the sorted ranks level 2 chose. Ranks
+    ``[0, m)`` take part: the true edge count, or the filter's prefix."""
     n = parent1.shape[0]
-    fa = parent1[ra[:m]]
-    fb = parent1[rb[:m]]
-    cross = np.nonzero(fa != fb)[0]
-    arr = np.empty(2 * cross.size, dtype=np.int64)
-    arr[0::2] = fa[cross]
-    arr[1::2] = fb[cross]
-    frags, first_pos = np.unique(arr, return_index=True)
-    moe2 = np.full(n, INT32_MAX, dtype=np.int32)
-    moe2[frags] = cross[first_pos // 2].astype(np.int32)
+    if native:
+        moe2 = native_lib.first_cross_rank(n, ra[:m], rb[:m], parent1)
+    else:
+        fa = parent1[ra[:m]]
+        fb = parent1[rb[:m]]
+        cross = np.nonzero(fa != fb)[0]
+        arr = np.empty(2 * cross.size, dtype=np.int64)
+        arr[0::2] = fa[cross]
+        arr[1::2] = fb[cross]
+        frags, first_pos = np.unique(arr, return_index=True)
+        moe2 = np.full(n, INT32_MAX, dtype=np.int32)
+        moe2[frags] = cross[first_pos // 2].astype(np.int32)
     has = moe2 < INT32_MAX
     safe = np.where(has, moe2, 0)
     wa = parent1[ra[safe]]
@@ -386,14 +395,18 @@ def _cache_put(graph: Graph, kind: str, device, staged, m_pad: int) -> None:
         graph.__dict__.setdefault("_rank_stage_cache", {})[(kind, _device_key(device))] = staged
 
 
+def _pinned(a: np.ndarray) -> torch.Tensor:
+    """An int32 copy of ``a`` in page-locked host memory."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).pin_memory()
+
+
 def _stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """An int32 copy of ``a`` on ``device``. To the card it goes from pinned
     memory with ``non_blocking=True``: the call returns once the copy is
     queued, and host work after it overlaps the transfer."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.clone()
+        return _pinned(a).to(device, non_blocking=True)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).clone()
 
 
 def _sync(device: torch.device) -> None:
@@ -403,7 +416,8 @@ def _sync(device: torch.device) -> None:
 
 def _prep_head(graph: Graph, device: torch.device):
     """The shared head of the preps: the rank endpoints, their copies
-    issued first, then ``vmin0`` and the level-1 partition computed on the
+    issued first, then ``vmin0`` (the first ranks, from these endpoints
+    unless the graph has them) and the level-1 partition computed on the
     host under the copies. Returns ``(m, m_pad, ra, rb, vmin0, parent1, sa,
     sb)``: host arrays and the staged (in-flight) endpoints."""
     n = graph.num_nodes
@@ -414,6 +428,8 @@ def _prep_head(graph: Graph, device: torch.device):
     ra, rb = graph.rank_endpoints(pad_to=m_pad)
     sa, sb = _stage(ra, device), _stage(rb, device)
     # --- everything below overlaps the endpoint copies ---
+    if "first_ranks" not in graph.__dict__:  # fill the cached property
+        graph.__dict__["first_ranks"] = first_ranks_of(n, ra[:m], rb[:m])
     vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
     vmin0[:n] = graph.first_ranks
     parent1 = host_level1(vmin0, ra, rb)
@@ -460,6 +476,37 @@ def prepare_rank_arrays_l2(graph: Graph, *, device=None):
     return staged
 
 
+def prepare_rank_arrays_filtered(graph: Graph, *, device=None):
+    """The filter route's staging: ``(vmin0, ra, rb, parent1, parent12,
+    l2_ranks, prefix)``, with the host level 2 over the prefix the
+    consuming solve runs. Under the census size that is the speculative
+    program's (mult-2) prefix, and ``parent1`` is staged too, for the
+    fallback after a misprediction; from the census size up it is
+    :func:`_prefix_plan`'s, and ``parent1`` is ``None`` (the level-2 head
+    never reads it). Where the split is degenerate (``2 * prefix > m_pad``)
+    or the graph is under the filter width, no solve reads a level 2: the
+    full staging, with ``parent12`` and ``l2_ranks`` ``None``."""
+    device = resolve_device(device)
+    cached = _cache_get(graph, "filtered", device)
+    if cached is not None:
+        return cached
+    n_pad = _bucket_size(graph.num_nodes)
+    m_pad = _bucket_size(graph.num_edges)
+    prefix, _ = _prefix_plan(n_pad, m_pad)
+    speculative = n_pad < _CENSUS_MIN_SPACE
+    l2_prefix = _prefix_size(n_pad, m_pad, 2) if speculative else prefix
+    # The speculative prefix is the larger: its split degenerates first.
+    if 2 * l2_prefix > m_pad or not use_filtered_path("dense", m_pad):
+        return prepare_rank_arrays_full(graph, device=device) + (None, None, prefix)
+    _, m_pad, ra, rb, vmin0, parent1, sa, sb = _prep_head(graph, device)
+    parent12, l2r = host_level2(parent1, ra, rb, l2_prefix)
+    staged = (_stage(vmin0, device), sa, sb, _stage(parent1, device) if speculative else None,
+              _stage(parent12, device), _stage(_pad_l2_ranks(l2r, m_pad), device), l2_prefix)
+    _sync(device)
+    _cache_put(graph, "filtered", device, staged, m_pad)
+    return staged
+
+
 # ---------------------------------------------------------------------------
 # Routing policy.
 # ---------------------------------------------------------------------------
@@ -499,11 +546,6 @@ _ONE_SHOT_MAX_SLOTS = 1 << 22
 
 # Dense graphs at or above this rank width take the filter-Kruskal route.
 _FILTER_MIN_RANKS = 1 << 23
-
-_FILTERED_NOT_PORTED = (
-    "the filter-Kruskal route (dense graphs at {} >= 2^23 padded ranks) is not "
-    "ported yet (ROADMAP queue 1 item 5, step 6)"
-)
 
 
 def use_filtered_path(family: str, num_ranks: int) -> bool:
@@ -744,14 +786,377 @@ def _finish_to_fixpoint(
     return mst, frag_state, lv
 
 
-def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None):
-    """The routing of a staged solve by family: dense graphs under the
-    census size try the speculative finish (survivors predicted at m/8) and
-    run the staged solve on a misprediction; every other graph runs the
-    staged solve. The filter-Kruskal route raises: it is not ported yet."""
-    if use_filtered_path(family, ra.shape[0]):
-        raise NotImplementedError(_FILTERED_NOT_PORTED.format(ra.shape[0]))
+# ---------------------------------------------------------------------------
+# The filter-Kruskal route (dense graphs at _FILTER_MIN_RANKS padded ranks and
+# above). The rank order sorts the edges by weight, so the lightest ranks are
+# a prefix of ra/rb. Levels 2 and up run over the prefix only; then one pass
+# over the suffix drops every edge whose endpoints the prefix forest already
+# joins, and the few survivors finish through the usual chunks. Level 1
+# hooks on each vertex's global minimum (vmin0); a prefix level picks a
+# fragment's global minimum whenever it has an outgoing prefix edge (every
+# suffix rank is heavier) and stalls it otherwise; the filter drops only
+# edges that close a cycle of forest edges. So the forest is the staged
+# solve's, element for element.
+# ---------------------------------------------------------------------------
+
+
+def _filtered_head(vmin0, ra, rb, parent1, *, prefix: int):
+    """The level-1 marks and level 2 over the prefix slots only. Returns
+    ``(fragment, mst, fa, fb, (levels, alive_count))`` with ``mst``
+    full-width, ``fa``/``fb`` prefix-width and the two stats 0-d tensors,
+    not read yet."""
+    mst = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
+    _mark(mst, vmin0 < INT32_MAX, vmin0)
+    fragment, fa, fb, has2, safe2, count = _prefix_level2_core(
+        parent1, parent1[ra[:prefix]], parent1[rb[:prefix]]
+    )
+    _mark(mst, has2, safe2)
+    return fragment, mst, fa, fb, (1 + has2.any().int(), count)
+
+
+def _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, *, prefix: int):
+    """:func:`_filtered_head` from the host's level 2 over the prefix
+    (:func:`host_level2` over ``prefix`` ranks): one prefix relabel and the
+    level-1 and level-2 marks. The pads of ``l2_ranks`` (``m_pad``), which
+    JAX's scatter drops, mark rank 0 with 0 here, which changes nothing."""
+    mst = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
+    _mark(mst, vmin0 < INT32_MAX, vmin0)
+    has2 = l2_ranks < prefix
+    _mark(mst, has2, l2_ranks)
+    fa = parent12[ra[:prefix]]
+    fb = parent12[rb[:prefix]]
+    return parent12, mst, fa, fb, (1 + has2.any().int(), (fa != fb).sum())
+
+
+def _filter_suffix_ends(fragment, ra, rb, *, prefix: int):
+    """The suffix endpoints relabeled to the current fragments, and the
+    survivor count (0-d). Pad ranks (``ra == rb == 0``) are dead."""
+    fa = fragment[ra[prefix:]]
+    fb = fragment[rb[prefix:]]
+    return fa, fb, (fa != fb).sum()
+
+
+def _filter_compact(fa, fb, prefix: int, *, out_size: int):
+    """Compact the filter survivors; slot ``i`` carries rank ``prefix + i``."""
+    cfa, cfb, crank, _valid = _compact_slots(fa, fb, _iota(fa.shape[0], fa.device) + prefix,
+                                             out_size)
+    return cfa, cfb, crank
+
+
+def _filter_suffix_fused(fragment, ra, rb, *, prefix: int, out_size: int):
+    """The filter and its compaction with no suffix-width endpoint arrays:
+    the ``j``-th survivor's position is a binary search for ``j + 1`` in the
+    running count of alive suffix ranks, and the survivors' endpoints are
+    gathered again at ``out_size``. Returns ``(cfa, cfb, crank, count)``,
+    ``count`` 0-d; ``count > out_size`` means survivors were dropped, and
+    the caller runs the two-step filter instead."""
+    alive = fragment[ra[prefix:]] != fragment[rb[prefix:]]
+    cum = torch.cumsum(alive, 0, dtype=torch.int32)
+    count = cum[-1]
+    j = _iota(out_size, ra.device)
+    cpos = torch.searchsorted(cum, j + 1, side="left", out_int32=True)
+    valid = j < count
+    # Masked before the gather: a position with no survivor is len(cum),
+    # which reads past the end of ra.
+    crank = torch.where(valid, cpos + prefix, 0)
+    cfa = torch.where(valid, fragment[ra[crank]], 0)
+    cfb = torch.where(valid, fragment[rb[crank]], 0)
+    return cfa, cfb, crank, count
+
+
+def _filter_chunk_ends(fragment, ra, rb, start: int, *, width: int):
+    """One chunk of the filter: ranks ``[start, start + width)`` relabeled,
+    and its survivor count (0-d)."""
+    fa = fragment[ra[start:start + width]]
+    fb = fragment[rb[start:start + width]]
+    return fa, fb, (fa != fb).sum()
+
+
+# Suffix bytes (the relabeled endpoint pair, 8 bytes a rank) above which the
+# filter runs in chunks: JAX's value, kept so that the prefix plan, and with
+# it the level count, is JAX's.
+_FILTER_CHUNK_BYTES = 1 << 32
+# Ranks a chunk. JAX takes 2^26 for a 16 GB chip; the card has 80 GB, and
+# 2^28 (2 GiB of relabeled endpoints a chunk) needs a quarter of the chunks,
+# each a host read. The survivors are the same in any chunking.
+_FILTER_CHUNK_RANKS = 1 << 28
+# The filter's survivors are predicted at m_pad / 128 (JAX's measured share
+# on RMAT is 0.21% of the suffix); more overflow the fused filter.
+_FILTER_SURVIVOR_DIVISOR = 128
+
+
+def _filter_width(m_pad: int) -> int:
+    return max(_bucket_size(m_pad // _FILTER_SURVIVOR_DIVISOR), _COMPACT_MIN_SLOTS)
+
+
+def _filter_suffix_chunked(fragment, ra, rb, prefix: int):
+    """The filter over the suffix in rank-ordered chunks, each compacted in
+    order, so the survivors come out in ascending rank, the tie-break order.
+    Width-size temporaries only a chunk at a time. A chunk count that does
+    not divide the suffix moves the last chunk back to end at ``m_pad`` and
+    masks the ranks it reads again. Returns ``(cfa, cfb, crank, count)``,
+    all ``None`` and 0 when nothing survives."""
+    m_pad = ra.shape[0]
+    suffix = m_pad - prefix
+    n_chunks = max(1, -(-suffix // _FILTER_CHUNK_RANKS))
+    width = -(-suffix // n_chunks)
+    parts = []
+    count = 0
+    for k in range(n_chunks):
+        start = prefix + k * width
+        overlap = max(start + width - m_pad, 0)
+        start -= overlap
+        fa, fb, cnt = _filter_chunk_ends(fragment, ra, rb, start, width=width)
+        if overlap:
+            keep = _iota(width, ra.device) >= overlap
+            fa = torch.where(keep, fa, 0)
+            fb = torch.where(keep, fb, 0)
+            cnt = (fa != fb).sum()
+        cnt = int(cnt)
+        if cnt:
+            out_c = max(_bucket_size(cnt), _COMPACT_MIN_SLOTS)
+            parts.append([t[:cnt] for t in _filter_compact(fa, fb, start, out_size=out_c)])
+            count += cnt
+        del fa, fb
+    if not parts:
+        return None, None, None, 0
+    pad = torch.zeros(max(_bucket_size(count), _COMPACT_MIN_SLOTS) - count, dtype=torch.int32,
+                      device=ra.device)
+    return (*(torch.cat([p[i] for p in parts] + [pad]) for i in range(3)), count)
+
+
+def _prefix_size(n_pad: int, m_pad: int, mult: int = 2) -> int:
+    """The filter's split point: the lightest ``mult * n_pad`` ranks,
+    bucketed."""
+    return _bucket_size(min(mult * n_pad, m_pad))
+
+
+def _prefix_plan(n_pad: int, m_pad: int) -> Tuple[int, bool]:
+    """``(prefix, force_chunked)`` of the filtered solve, one place for the
+    prep and the solver: ``mult=1`` where the single-pass filter fits,
+    ``mult=2`` where the filter runs in chunks."""
+    suffix1 = m_pad - _prefix_size(n_pad, m_pad, 1)
+    force_chunked = 8 * suffix1 > _FILTER_CHUNK_BYTES
+    return _prefix_size(n_pad, m_pad, 2 if force_chunked else 1), force_chunked
+
+
+def _check_l2_prefix(l2_prefix, prefix: int, who: str) -> None:
+    """A host level 2 computed for another prefix would silently drop the
+    level-2 marks past the smaller one: refuse it."""
+    if l2_prefix != prefix:
+        raise ValueError(
+            f"parent12/l2_ranks were computed for prefix {l2_prefix} but {who} runs "
+            f"prefix {prefix}: in the speculative regime the prep computes them for "
+            f"the mult-2 prefix, which only the speculative program may read; route "
+            f"through solve_rank_auto or make_production_solver, or pass parent1 alone"
+        )
+
+
+def solve_rank_filtered(
+    vmin0,
+    ra,
+    rb,
+    *,
+    chunk_levels: int = 3,
+    prefix_mult: int | None = None,
+    on_chunk=None,
+    parent1=None,
+    parent12=None,
+    l2_ranks=None,
+    l2_prefix: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The filter-Kruskal solve: the head and finish over the prefix, one
+    filter pass over the suffix (fused with its compaction; in chunks
+    above ``_FILTER_CHUNK_BYTES``), the survivors' finish. Returns what
+    :func:`solve_rank_staged` returns, element for element.
+
+    ``parent12``/``l2_ranks`` (:func:`prepare_rank_arrays_filtered`) carry
+    the host's level 2 over the prefix, and ``l2_prefix`` the prefix it was
+    computed for, which must be this call's. ``on_chunk`` as in
+    :func:`solve_rank_staged` (``count`` is the alive count of the current
+    phase's slots)."""
     n_pad = vmin0.shape[0]
+    m_pad = ra.shape[0]
+    if prefix_mult is None:
+        prefix, force_chunked = _prefix_plan(n_pad, m_pad)
+    else:
+        prefix, force_chunked = _prefix_size(n_pad, m_pad, prefix_mult), False
+    if parent12 is not None:
+        _check_l2_prefix(l2_prefix, prefix, "this call")
+    if 2 * prefix > m_pad:  # too little suffix to split: the staged solve
+        return solve_rank_staged(vmin0, ra, rb, chunk_levels=chunk_levels, on_chunk=on_chunk,
+                                 parent1=parent1)
+    if parent12 is not None:
+        head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
+    else:
+        head = _filtered_head(vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1),
+                              prefix=prefix)
+    fragment, mst, fa, fb, stats = head
+    lv, count = _ints(*stats)
+    if on_chunk is not None:
+        on_chunk(lv, fragment, mst, count)
+    finish = dict(space=n_pad, chunk_levels=chunk_levels,
+                  compact_space=n_pad >= _CENSUS_MIN_SPACE, on_chunk=on_chunk)
+    mst, fragment, lv = _finish_to_fixpoint(
+        fragment, mst, fa, fb, _iota(prefix, ra.device),
+        lv=lv, count=count, max_levels=lv + _max_levels(n_pad), **finish,
+    )
+    if force_chunked or 8 * (m_pad - prefix) > _FILTER_CHUNK_BYTES:
+        cfa, cfb, crank, count = _filter_suffix_chunked(fragment, ra, rb, prefix)
+    else:
+        out_size = _filter_width(m_pad)
+        cfa, cfb, crank, count = _filter_suffix_fused(fragment, ra, rb, prefix=prefix,
+                                                      out_size=out_size)
+        count = int(count)
+        if count > out_size:  # overflow: the two-step filter at the true count
+            fa_s, fb_s, count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
+            count = int(count)
+            cfa, cfb, crank = _filter_compact(
+                fa_s, fb_s, prefix, out_size=max(_bucket_size(count), _COMPACT_MIN_SLOTS))
+            del fa_s, fb_s
+    if count > 0:
+        mst, fragment, lv = _finish_to_fixpoint(
+            fragment, mst, cfa, cfb, crank,
+            lv=lv, count=count, max_levels=lv + _max_levels(n_pad), **finish,
+        )
+    return mst, fragment, lv
+
+
+def _filtered_speculative_program(vmin0, ra, rb, parent1, *, prefix: int, prefix_out: int,
+                                  out_size: int, max_levels: int):
+    """The filtered solve at predicted widths, with no host read between
+    its stages: the head, the prefix survivors compacted to ``prefix_out``
+    and their levels to the fixpoint, the filter compacted to ``out_size``,
+    the survivors' levels. Returns ``(fragment, mst, (levels,
+    prefix_count, prefix_alive_end, filter_count, survivor_alive_end))``."""
+    head = _filtered_head(vmin0, ra, rb, parent1, prefix=prefix)
+    return _speculative_tail(*head, ra, rb, prefix=prefix, prefix_out=prefix_out,
+                             out_size=out_size, max_levels=max_levels)
+
+
+def _filtered_speculative_program_l2(vmin0, ra, rb, parent12, l2_ranks, *, prefix: int,
+                                     prefix_out: int, out_size: int, max_levels: int):
+    """:func:`_filtered_speculative_program` from the host's level 2 over
+    this program's prefix."""
+    head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
+    return _speculative_tail(*head, ra, rb, prefix=prefix, prefix_out=prefix_out,
+                             out_size=out_size, max_levels=max_levels)
+
+
+def _speculative_tail(fragment, mst, fa, fb, stats0, ra, rb, *, prefix: int, prefix_out: int,
+                      out_size: int, max_levels: int):
+    """The speculative programs after their head. The levels loops read
+    their own counts a level; the head's and the filter's counts are read
+    once, at the end."""
+    cfa, cfb, crank, _ = _compact_slots(fa, fb, _iota(prefix, ra.device), prefix_out)
+    fragment, mst, _, _, (k1, prefix_alive) = _levels_loop(
+        fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
+    fa_s, fb_s, filter_count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
+    cfa, cfb, crank = _filter_compact(fa_s, fb_s, prefix, out_size=out_size)
+    del fa_s, fb_s
+    fragment, mst, _, _, (k2, survivor_alive) = _levels_loop(
+        fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
+    lv0, prefix_count, filter_count = _ints(stats0[0], stats0[1], filter_count)
+    return fragment, mst, (lv0 + k1 + k2, prefix_count, prefix_alive, filter_count,
+                           survivor_alive)
+
+
+def solve_rank_filtered_speculative(
+    vmin0,
+    ra,
+    rb,
+    *,
+    prefix_mult: int = 2,
+    prefix_out: int | None = None,
+    out_size: int | None = None,
+    parent1=None,
+    parent12=None,
+    l2_ranks=None,
+    l2_prefix: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int] | None:
+    """The filtered solve as one speculative program: ``(mst, fragment,
+    levels)``, equal to :func:`solve_rank_filtered`'s, or ``None`` when a
+    prediction missed (the caller then runs :func:`solve_rank_filtered`).
+    Default widths: ``prefix / 8`` prefix survivors, ``m_pad / 128`` filter
+    survivors. ``parent12``/``l2_ranks``/``l2_prefix`` as in
+    :func:`solve_rank_filtered`, for this program's prefix."""
+    n_pad = vmin0.shape[0]
+    m_pad = ra.shape[0]
+    prefix = _prefix_size(n_pad, m_pad, prefix_mult)
+    if 2 * prefix > m_pad:
+        return None
+    if parent12 is not None:
+        _check_l2_prefix(l2_prefix, prefix, f"the speculative program (prefix_mult={prefix_mult})")
+    if prefix_out is None:
+        prefix_out = max(_bucket_size(prefix // 8), _COMPACT_MIN_SLOTS)
+    if out_size is None:
+        out_size = _filter_width(m_pad)
+    widths = dict(prefix=prefix, prefix_out=prefix_out, out_size=out_size,
+                  max_levels=_max_levels(n_pad))
+    if parent12 is not None:
+        fragment, mst, stats = _filtered_speculative_program_l2(
+            vmin0, ra, rb, parent12, l2_ranks, **widths)
+    else:
+        fragment, mst, stats = _filtered_speculative_program(
+            vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1), **widths)
+    lv, prefix_count, prefix_alive, filter_count, survivor_alive = stats
+    if (prefix_count <= prefix_out and filter_count <= out_size
+            and prefix_alive == 0 and survivor_alive == 0):
+        return mst, fragment, lv
+    return None
+
+
+def solve_rank_resume(vmin0, ra, rb, initial_state, *, family: str = "dense", on_chunk=None):
+    """Resume a solve from checkpoint state ``(fragment, mst_rank_mask,
+    level)``: the rest is Borůvka from that partition. Up to
+    ``_FILTER_CHUNK_BYTES`` of slot endpoints this is
+    :func:`solve_rank_staged`'s ``initial_state`` path; above, the alive
+    slots are rebuilt by the chunked filter over every rank (a slot is
+    alive iff its endpoints' fragments differ), so no full-width endpoint
+    pair is held, and the survivors go straight to the finish."""
+    params = _family_params(family)
+    n_pad = vmin0.shape[0]
+    m_pad = ra.shape[0]
+    if 8 * m_pad <= _FILTER_CHUNK_BYTES:
+        return solve_rank_staged(vmin0, ra, rb, **params, initial_state=initial_state,
+                                 on_chunk=on_chunk)
+    fragment, mst, lv = _restore_state(initial_state, n_pad, m_pad, ra.device)
+    cfa, cfb, crank, count = _filter_suffix_chunked(fragment, ra, rb, 0)
+    if count == 0:
+        return mst, fragment, lv
+    compact_space = params["compact_space"]
+    if compact_space is None:
+        compact_space = n_pad >= _CENSUS_MIN_SPACE
+    return _finish_to_fixpoint(
+        fragment, mst, cfa, cfb, crank,
+        lv=lv, count=count, space=n_pad, max_levels=lv + _max_levels(n_pad),
+        chunk_levels=params["chunk_levels"], compact_space=compact_space, on_chunk=on_chunk,
+    )
+
+
+def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None, parent12=None,
+                    l2_ranks=None, l2_prefix=None):
+    """The routing of a staged solve by family. Dense graphs at the filter
+    width take the filter route: from the census size up
+    :func:`solve_rank_filtered` with the host level 2, under it the
+    speculative filtered program, and on a misprediction (or with no host
+    level 2) :func:`solve_rank_filtered` from ``parent1``. Other dense
+    graphs under the census size try the speculative finish (survivors
+    predicted at m/8) and run the staged solve on a misprediction; every
+    other graph runs the staged solve. ``parent12``/``l2_ranks``/
+    ``l2_prefix`` come from :func:`prepare_rank_arrays_filtered`."""
+    n_pad = vmin0.shape[0]
+    if use_filtered_path(family, ra.shape[0]):
+        l2 = dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
+        if n_pad >= _CENSUS_MIN_SPACE and parent12 is not None:
+            return solve_rank_filtered(vmin0, ra, rb, parent1=parent1, **l2)
+        if n_pad < _CENSUS_MIN_SPACE:
+            # parent12 is for the speculative program's (mult-2) prefix:
+            # the fallback below must not read it.
+            result = solve_rank_filtered_speculative(vmin0, ra, rb, parent1=parent1, **l2)
+            if result is not None:
+                return result
+        return solve_rank_filtered(vmin0, ra, rb, parent1=_ensure_parent1(vmin0, ra, rb, parent1))
     parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
     if family == "dense" and n_pad < _CENSUS_MIN_SPACE:
         out_size = max(_bucket_size(ra.shape[0] // 8), _COMPACT_MIN_SLOTS)
@@ -766,15 +1171,19 @@ def make_production_solver(graph: Graph, *, device=None):
     so a caller can time the prep apart) and return ``solve() -> (mst,
     fragment, levels)``. The one place the route is chosen: grid and sparse
     graphs take the host-L2 route (:func:`solve_rank_l2`); dense graphs at
-    filter scale raise ``NotImplementedError`` (not ported yet), before any
-    staging; every other graph takes :func:`solve_rank_auto`."""
+    the filter width stage for the filter route
+    (:func:`prepare_rank_arrays_filtered`); every graph but the grid and
+    sparse ones is solved by :func:`solve_rank_auto`."""
     device = resolve_device(device)
     family = _pick_family(graph)
     if use_l2_path(family):
         staged = prepare_rank_arrays_l2(graph, device=device)
         return lambda: solve_rank_l2(*staged)
     if use_filtered_path(family, _bucket_size(graph.num_edges)):
-        raise NotImplementedError(_FILTERED_NOT_PORTED.format(_bucket_size(graph.num_edges)))
+        vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = prepare_rank_arrays_filtered(
+            graph, device=device)
+        return lambda: solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1,
+                                       parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
     vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
     return lambda: solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
 

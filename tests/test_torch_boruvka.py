@@ -213,20 +213,27 @@ def test_boruvka_solve_from_a_premerged_partition(deck):
 
 
 def test_strategies_not_ported_raise(monkeypatch):
-    """What the port does not run raises: an unknown strategy, and the
-    rank solver's filter-Kruskal route, by ``rank`` and by ``auto`` at the
-    threshold (its rank width lowered so that small dense graphs take it)."""
+    """An unknown strategy raises; the rank solver's filter-Kruskal route,
+    which raised before it was ported, equals JAX's, by ``rank`` and by
+    ``auto`` at the threshold (the rank width lowered on both sides so that
+    small dense graphs take the route)."""
+    from distributed_ghs_implementation_tpu.graphs import native as jnative
+    from distributed_ghs_implementation_tpu.models import rank_solver as jrs
     from distributed_ghs_implementation_tpu_torch.models import rank_solver as trs
 
     with pytest.raises(ValueError, match="unknown strategy"):
         tb.solve_graph(tgen.readme_sample_graph(), strategy="bogus", device=CPU)
-    monkeypatch.setattr(trs, "_FILTER_MIN_RANKS", 1024)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5, step 6"):
-        tb.solve_graph(tgen.rmat_graph(10, 16, seed=3), strategy="rank", device=CPU)
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)  # JAX's NumPy host passes
+    for mod in (trs, jrs):
+        monkeypatch.setattr(mod, "_FILTER_MIN_RANKS", 1024)
+    _assert_same_result(tb.solve_graph(tgen.rmat_graph(10, 16, seed=3), strategy="rank",
+                                       device=CPU),
+                        jb.solve_graph(jgen.rmat_graph(10, 16, seed=3), strategy="rank"))
     dense = tgen.rmat_graph(13, 22, seed=5)
     assert dense.num_edges >= tb.ELL_AUTO_EDGE_THRESHOLD
-    with pytest.raises(NotImplementedError, match="filter-Kruskal"):
-        tb.solve_graph(dense, device=CPU)
+    assert trs.use_filtered_path(trs._pick_family(dense), tb._bucket_size(dense.num_edges))
+    _assert_same_result(tb.solve_graph(dense, device=CPU),
+                        jb.solve_graph(jgen.rmat_graph(13, 22, seed=5)))
 
 
 def test_rank_and_auto_at_the_threshold_take_the_rank_solver(monkeypatch):

@@ -429,3 +429,115 @@ def test_rank_stage_cache_is_not_reused_across_devices_on_card(cuda):
         assert torch.equal(a.cpu(), b)
     _assert_same_solve(boruvka.solve_graph(g, strategy="rank", device="cpu"),
                        boruvka.solve_graph(g, strategy="rank", device=cuda))
+
+
+@pytest.fixture(scope="module")
+def rmat19():
+    """RMAT-19 ef 16 seed 1 (native stream): 7.7 M edges, 2^23 padded
+    ranks, the first scale the filter route takes; and its oracle. Built
+    only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = generators.rmat_graph(19, 16, seed=1)
+    assert rank_solver.use_filtered_path(rank_solver._pick_family(g),
+                                         boruvka._bucket_size(g.num_edges))
+    return g, rank_oracle_edge_ids(g)
+
+
+def _filtered_solve_on_card(g, cuda, monkeypatch, calls=()):
+    """``make_production_solver``'s solve on the card, with the port's
+    functions ``calls`` recorded as ``(name, answered)``."""
+    log = []
+    for name in calls:
+        fn = getattr(rank_solver, name)
+
+        def spy(*a, _name=name, _fn=fn, **k):
+            out = _fn(*a, **k)
+            log.append((_name, out is not None))
+            return out
+
+        monkeypatch.setattr(rank_solver, name, spy)
+    g.__dict__.pop("_rank_stage_cache", None)
+    mst, frag, levels = rank_solver.make_production_solver(g, device=cuda)()
+    return (boruvka.fetch_mst_edge_ids(g, mst), frag.cpu().numpy(), levels), log
+
+
+def _same_partition(a, b):
+    """Two vertex labelings with the same components, whatever the roots'
+    ids (routes that run other levels may pick other roots)."""
+    a, b = np.asarray(a, dtype=np.int64), np.asarray(b, dtype=np.int64)
+    assert np.unique(a * (b.max() + 1) + b).size == np.unique(a).size == np.unique(b).size
+
+
+_FILTER_CALLS = ("solve_rank_filtered_speculative", "solve_rank_filtered",
+                 "_filter_suffix_fused", "_filter_suffix_ends", "_filter_suffix_chunked")
+
+
+@pytest.mark.gpu
+def test_filter_route_on_card_equals_oracle(cuda, rmat19, monkeypatch):
+    """``auto`` on RMAT-19: the speculative filtered program from the host
+    level 2; K1 launches."""
+    g, oracle = rmat19
+    k1 = kernels.hook_compress.launches
+    got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
+    assert kernels.hook_compress.launches > k1
+    assert log[-1] == ("solve_rank_filtered_speculative", True)
+    np.testing.assert_array_equal(got[0], oracle)
+
+
+@pytest.mark.gpu
+def test_filter_misprediction_on_card_equals_oracle(cuda, rmat19, monkeypatch):
+    """Survivors predicted at 2,048: the speculative program answers
+    ``None``, and ``solve_rank_filtered`` runs, its fused filter overflowing
+    to the two-step filter; the forest is the accepted route's."""
+    g, oracle = rmat19
+    want, _ = _filtered_solve_on_card(g, cuda, monkeypatch)
+    monkeypatch.setattr(rank_solver, "_FILTER_SURVIVOR_DIVISOR", 1 << 30)
+    got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
+    assert [name for name, _ in log] == [
+        "_filter_suffix_ends", "solve_rank_filtered_speculative",  # the program's own filter
+        "_filter_suffix_fused", "_filter_suffix_ends", "solve_rank_filtered"]
+    assert log[1][1] is False
+    np.testing.assert_array_equal(got[0], oracle)
+    _same_partition(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_filter_overflow_on_card_equals_oracle(cuda, rmat19, monkeypatch):
+    """From the census size up (lowered to RMAT-19's), the filtered solve
+    from the host level 2; with survivors predicted at 2,048 the fused
+    filter overflows to the two-step filter, with the same forest."""
+    g, oracle = rmat19
+    monkeypatch.setattr(rank_solver, "_CENSUS_MIN_SPACE", 1 << 19)
+    want, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
+    assert [name for name, _ in log] == ["_filter_suffix_fused", "solve_rank_filtered"]
+    monkeypatch.setattr(rank_solver, "_FILTER_SURVIVOR_DIVISOR", 1 << 30)
+    got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
+    assert [name for name, _ in log] == ["_filter_suffix_fused", "_filter_suffix_ends",
+                                         "solve_rank_filtered"]
+    for result in (want, got):
+        np.testing.assert_array_equal(result[0], oracle)
+    _assert_same_solve(got, want)
+
+
+@pytest.mark.gpu
+def test_chunked_filter_on_card_equals_oracle(cuda, rmat19, monkeypatch):
+    """The chunked filter (forced by a lowered ``_FILTER_CHUNK_BYTES``, so
+    the prefix is the mult-2 one), in chunks that do not divide the
+    suffix; and the resume's wide branch from the solve's first state."""
+    g, oracle = rmat19
+    monkeypatch.setattr(rank_solver, "_CENSUS_MIN_SPACE", 1 << 19)
+    monkeypatch.setattr(rank_solver, "_FILTER_CHUNK_BYTES", 1024)
+    monkeypatch.setattr(rank_solver, "_FILTER_CHUNK_RANKS", 1_000_003)
+    got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
+    assert [name for name, _ in log] == ["_filter_suffix_chunked", "solve_rank_filtered"]
+    np.testing.assert_array_equal(got[0], oracle)
+    vmin0, ra, rb, parent1 = rank_solver.prepare_rank_arrays_full(g, device=cuda)
+    states = []
+    rank_solver.solve_rank_filtered(
+        vmin0, ra, rb, parent1=parent1,
+        on_chunk=lambda lv, frag, mst, count: states.append(
+            (frag.cpu().numpy(), mst.cpu().numpy().astype(bool), lv)))
+    mst, frag, _ = rank_solver.solve_rank_resume(vmin0, ra, rb, states[1])
+    np.testing.assert_array_equal(boruvka.fetch_mst_edge_ids(g, mst), oracle)
+    _same_partition(frag.cpu().numpy(), got[1])

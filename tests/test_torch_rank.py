@@ -448,19 +448,6 @@ def test_routing_predicates_match_jax(avg_degree):
         assert trs.use_filtered_path(family, ranks) == jrs.use_filtered_path(family, ranks)
 
 
-def test_filtered_route_raises_before_staging(monkeypatch):
-    monkeypatch.setattr(trs, "_FILTER_MIN_RANKS", 1024)
-    tg = tgen.rmat_graph(10, 16, seed=3)
-    assert trs._pick_family(tg) == "dense"
-    with pytest.raises(NotImplementedError, match="queue 1 item 5, step 6"):
-        trs.make_production_solver(tg, device=CPU)
-    assert "_rank_stage_cache" not in tg.__dict__
-    with pytest.raises(NotImplementedError, match="filter-Kruskal"):
-        tb.solve_graph(tg, strategy="rank", device=CPU)
-    with pytest.raises(NotImplementedError, match="filter-Kruskal"):
-        trs.solve_rank_auto(*_t(*_host(tg)), family="dense")
-
-
 @pytest.mark.parametrize("n_pad,m_pad,raises", [
     ((1 << 31) - 1, (1 << 31) - 1, False), (1 << 31, 8, True), (8, 1 << 31, True)])
 def test_check_rank_envelope_matches_jax(n_pad, m_pad, raises):
