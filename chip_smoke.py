@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, four paths, each with every kernel launch count set to 0 just
+2. main path, five paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -38,6 +38,16 @@ Phases, each printing a line:
       levels, route, census chain (``f_size`` of each shrink), the alive
       counts each finish started from (on the filter route: the prefix's,
       then the filter's survivors) and K1 launches.
+   e. supervision (``_supervision_path``): supervised solves with no fault
+      on RMAT-18, the road grid and RMAT-21 (the unsupervised route, timed
+      in turns against the plain warm solve), a degrade to the stepped rung
+      (RMAT-18; K1 once a level), the watchdog (the road grid), checkpointed
+      solves of the road grid and RMAT-21 with every save timed, resumes
+      from the first and the second chunk boundary and from a torn
+      primary over the first boundary's state (to a mid-solve ``.bak``),
+      the hooked RMAT-18 solve against the speculative one, the
+      instrumented rank solve of the road grid, and a ``profiler_trace``
+      that names K1.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -72,6 +82,8 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import sys
 import time
@@ -83,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 L2_SECTOR_BYTES = 32  # what one random 4 B read costs the L2
 HOST_CALLS = 10_000
+TURNS = 20  # turns of each side where two solves are timed against each other
 # The SciPy oracle's forest weight of RMAT-20 ef 16 seed 24 on the native
 # generator's stream, as the JAX package's bench.py records it.
 RMAT20_ORACLE_WEIGHT = 35_737_768
@@ -360,6 +373,230 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
     return out, k1_inputs
 
 
+def _supervision_path(torch, kernels, rank_solver, rank_route, observed, msf, graphs, oracle,
+                      check, scratch) -> dict:
+    """Supervised solves, checkpoint and resume, and the per-level metrics,
+    on the card, each against the oracle:
+
+    * supervised, no fault, through ``minimum_spanning_forest(supervised=
+      True)`` on RMAT-18, the road grid and RMAT-21: one ``device#1 ok``
+      and the unsupervised route; the supervised and the plain warm solve
+      timed in turns by CUDA events (20 turns each);
+    * degrade: RMAT-18 with the device rung's attempt site armed twice
+      (no backoff): ``device transient`` twice, then the stepped rung, which
+      launches K1 once a level and K2 never: it relabels its slots to
+      fragment ids every level, so each level's minimum takes the identity
+      form (as in the JAX package);
+    * watchdog: the road grid under a 60 s deadline with the device rung's
+      slow site armed twice at 3600 s: ``device timeout`` twice, then the
+      stepped rung;
+    * checkpoint and resume: ``solve_graph_checkpointed(strategy="rank",
+      every=1)`` on the road grid and RMAT-21 (each save timed), resumes
+      from the states saved at the first and the second chunk boundary
+      (off the filter route with the uninterrupted level count), and a
+      resume from a torn primary: the first boundary's state saved, the
+      second's save torn, so the resume falls back to a mid-solve ``.bak``,
+      warns, and finishes the solve from there; the hooked (chunked)
+      RMAT-18 solve timed against the unhooked (speculative) one in turns;
+    * the instrumented rank solve of the road grid: one ``metrics.level``
+      record a chunk boundary, the last with the component count;
+    * ``profiler_trace`` around a warm RMAT-18 solve: its trace names K1.
+    """
+    import warnings
+
+    from distributed_ghs_implementation_tpu_torch.device import cuda_time_in_turns_ms
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.utils import checkpoint, metrics, resilience
+
+    out = {}
+    faults = resilience.FAULTS
+    faults.reset()
+
+    def routed(call, family):
+        calls = []
+        with observed(rank_solver, ("solve_rank_speculative",
+                                    "solve_rank_filtered_speculative", "solve_rank_filtered"),
+                      lambda name, start, res: calls.append((name, res is not None))):
+            res = call()
+        return res, rank_route(family, calls)
+
+    def trail(log):
+        return [f"{r.rung} {r.outcome}" for r in log.records]
+
+    # Supervised, no fault.
+    t = time.perf_counter()
+    for name in ("rmat18", "grid2048", "rmat21"):
+        g = graphs[name]
+        family = rank_solver._pick_family(g)
+        plain, plain_route = routed(lambda: msf(g), family)
+        sup, sup_route = routed(lambda: msf(g, supervised=True), family)
+        check(name, sup.edge_ids, float(g.w[sup.edge_ids].sum()))
+        if trail(sup.incidents) != ["device ok"] or sup.backend != "supervised/device":
+            raise AssertionError(f"{name}: supervised {sup.backend} {sup.incidents.summary()}")
+        if sup_route != plain_route or sup.num_levels != plain.num_levels:
+            raise AssertionError(f"{name}: supervised route {sup_route}, {sup.num_levels} levels; "
+                                 f"plain {plain_route}, {plain.num_levels} levels")
+        turns = cuda_time_in_turns_ms(lambda: msf(g, supervised=True), lambda: msf(g),
+                                      reps=TURNS, iters=1)
+        out[f"supervised_{name}"] = {"route": sup_route, "levels": sup.num_levels,
+                                     "turns": TURNS, "supervised_ms": turns["a_ms"],
+                                     "supervised_spread_ms": turns["a_spread_ms"],
+                                     "plain_ms": turns["b_ms"],
+                                     "plain_spread_ms": turns["b_spread_ms"]}
+    out["supervised_phase_s"] = time.perf_counter() - t
+
+    # Degrade to the stepped rung.
+    t = time.perf_counter()
+    g = graphs["rmat18"]
+    k1, k2 = kernels.hook_compress.launches, kernels.gather_key.launches
+    with faults.inject("resilience.attempt.device", times=2):
+        res = msf(g, supervisor=resilience.Supervisor(resilience.SupervisorConfig(
+            backoff_base_s=0)))
+    check("rmat18", res.edge_ids, float(g.w[res.edge_ids].sum()))
+    k1, k2 = kernels.hook_compress.launches - k1, kernels.gather_key.launches - k2
+    want = ["device transient", "device transient", "stepped ok"]
+    if trail(res.incidents) != want or k1 != res.num_levels or k2:
+        raise AssertionError(f"degrade: {res.incidents.summary()}, K1 x{k1}, K2 x{k2}, "
+                             f"{res.num_levels} levels")
+    out["degrade_rmat18"] = {"trail": trail(res.incidents), "levels": res.num_levels,
+                             "hook_compress": k1, "gather_key": k2,
+                             "s": time.perf_counter() - t}
+
+    # The watchdog, on the road grid.
+    t = time.perf_counter()
+    g = graphs["grid2048"]
+    config = resilience.SupervisorConfig(deadline_s=60, backoff_base_s=0)
+    with faults.inject("resilience.slow.device", times=2, kind="slow", value=3600):
+        res = msf(g, supervisor=resilience.Supervisor(config))
+    check("grid2048", res.edge_ids, float(g.w[res.edge_ids].sum()))
+    if trail(res.incidents) != ["device timeout", "device timeout", "stepped ok"]:
+        raise AssertionError(f"watchdog: {res.incidents.summary()}")
+    out["watchdog_grid2048"] = {"trail": trail(res.incidents), "levels": res.num_levels,
+                                "s": time.perf_counter() - t}
+
+    # Checkpoint and resume.
+    saves = []
+    save = checkpoint.save_checkpoint
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        path = save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return path
+
+    for name in ("grid2048", "rmat21"):
+        t = time.perf_counter()
+        g = graphs[name]
+        uninterrupted = msf(g).num_levels
+        path = str(scratch / f"{name}.npz")
+        saves.clear()
+        checkpoint.save_checkpoint = timed_save
+        try:
+            ids, _, levels = checkpoint.solve_graph_checkpointed(g, path, strategy="rank",
+                                                                 every=1)
+        finally:
+            checkpoint.save_checkpoint = save
+        check(name, ids, float(g.w[ids].sum()))
+        if levels != uninterrupted:
+            raise AssertionError(f"{name}: checkpointed {levels} levels, uninterrupted "
+                                 f"{uninterrupted}")
+        rec = {"levels": levels, "saves": len(saves), "save_s": list(saves),
+               "checkpoint_bytes": os.path.getsize(path)}
+        # The states at the first and the second chunk boundary, saved from
+        # the card, each resumed.
+        saved = {1: str(scratch / f"{name}-chunk1.npz"), 2: str(scratch / f"{name}-chunk2.npz")}
+        seen = []
+
+        def hook(level, fragment, mst, count):
+            seen.append((int(level), int(count)))
+            if len(seen) in saved:
+                checkpoint.save_checkpoint(saved[len(seen)], fragment, mst, level,
+                                           fingerprint=checkpoint.graph_fingerprint(g))
+
+        rank_solver.make_production_solver(g)(on_chunk=hook)
+        if len(seen) < 2:
+            raise AssertionError(f"{name}: {len(seen)} chunk boundaries")
+        filtered = rank_solver.use_filtered_path(rank_solver._pick_family(g),
+                                                 rank_solver._bucket_size(g.num_edges))
+        rec.update(boundaries=seen, resumed_levels={})
+        # Read before the resumes below write their own states over them.
+        first, second = (checkpoint.load_checkpoint(saved[k]) for k in (1, 2))
+        for k, resume_path in saved.items():
+            ids, _, resumed = checkpoint.solve_graph_checkpointed(g, resume_path,
+                                                                  strategy="rank")
+            check(name, ids, float(g.w[ids].sum()))
+            rec["resumed_levels"][f"from_boundary_{k}"] = resumed
+            if not filtered and resumed != levels:
+                raise AssertionError(f"{name}: resumed from boundary {k} in {resumed} levels, "
+                                     f"uninterrupted {levels}")
+        # A torn primary over a mid-solve state: the first boundary's state
+        # saved, the second's save torn; the resume falls back to the first
+        # (the .bak), warns, and finishes the solve from there.
+        fingerprint = checkpoint.graph_fingerprint(g)
+        torn = str(scratch / f"{name}-torn.npz")
+        checkpoint.save_checkpoint(torn, *first, fingerprint=fingerprint)
+        with faults.inject("checkpoint.save", times=1, kind="torn"):
+            try:
+                checkpoint.save_checkpoint(torn, *second, fingerprint=fingerprint)
+            except resilience.InjectedFault:
+                pass
+            else:
+                raise AssertionError("the torn save did not raise")
+        bak_level = checkpoint.load_checkpoint(torn + ".bak")[2]
+        if bak_level != seen[0][0] or bak_level >= levels:
+            raise AssertionError(f"{name}: .bak at level {bak_level}, first boundary "
+                                 f"{seen[0]}, {levels} levels")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ids, _, torn_levels = checkpoint.solve_graph_checkpointed(g, torn, strategy="rank")
+        check(name, ids, float(g.w[ids].sum()))
+        rec["torn_resume"] = {"bak_level": bak_level, "levels": torn_levels}
+        if (not filtered and torn_levels != levels) or not any(
+                "previous generation" in str(w.message) for w in caught):
+            raise AssertionError(f"{name}: torn resume {torn_levels} levels, warnings "
+                                 f"{[str(w.message) for w in caught]}")
+        rec["s"] = time.perf_counter() - t
+        out[f"checkpoint_{name}"] = rec
+
+    # The hooked (chunked) RMAT-18 solve against the unhooked (speculative).
+    solve = rank_solver.make_production_solver(graphs["rmat18"])
+    turns = cuda_time_in_turns_ms(lambda: solve(on_chunk=lambda *a: None), solve,
+                                  reps=TURNS, iters=1)
+    out["hooked_rmat18"] = {"turns": TURNS, "hooked_ms": turns["a_ms"],
+                            "hooked_spread_ms": turns["a_spread_ms"],
+                            "speculative_ms": turns["b_ms"],
+                            "speculative_spread_ms": turns["b_spread_ms"]}
+
+    # The instrumented rank solve of the road grid.
+    t = time.perf_counter()
+    g = graphs["grid2048"]
+    mark = BUS.mark()
+    (ids, _, levels), met = metrics.solve_graph_instrumented(g, strategy="rank")
+    check("grid2048", ids, float(g.w[ids].sum()))
+    chunks = [rec for rec in BUS.events_since(mark) if rec[1] == "solver.chunk"]
+    components = g.num_nodes - oracle["grid2048"].size
+    if (len(met.levels) != len(chunks) or met.levels[-1].fragments_after != components
+            or met.levels[-1].level != levels):
+        raise AssertionError(f"instrumented: {len(met.levels)} records, {len(chunks)} chunks, "
+                             f"last {met.levels[-1]}, {components} components")
+    out["instrumented_grid2048"] = {
+        "records": [(m.level, m.fragments_before, m.fragments_after, m.edges_alive_after)
+                    for m in met.levels], "s": time.perf_counter() - t}
+
+    # profiler_trace around a warm RMAT-18 solve.
+    t = time.perf_counter()
+    with metrics.profiler_trace(str(scratch / "trace")) as path:
+        msf(graphs["rmat18"])
+    with open(path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    k1_names = sorted(name for name in names if "hook_compress" in name)
+    if not k1_names:
+        raise AssertionError("profiler_trace: no hook_compress kernel in the trace")
+    out["profiler_trace"] = {"kernels": k1_names, "bytes": os.path.getsize(path),
+                             "s": time.perf_counter() - t}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -372,7 +609,7 @@ def main() -> int:
         minimum_spanning_forest,
         minimum_spanning_tree,
     )
-    from distributed_ghs_implementation_tpu_torch.profile_solve import rank_route
+    from distributed_ghs_implementation_tpu_torch.profile_solve import _observed, rank_route
     from distributed_ghs_implementation_tpu_torch.device import (
         card_description,
         cuda_time_in_turns_ms,
@@ -558,8 +795,24 @@ def main() -> int:
     rank_counts = read_counts("rank", ("hook_compress",))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
+
+    # 2e. supervision, checkpoint and resume, per-level metrics
+    zero_counts()
+    t_sup = time.perf_counter()
+    scratch = ROOT / "build" / "smoke"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    try:
+        supervision = _supervision_path(
+            torch, kernels, rank_solver, rank_route, _observed, minimum_spanning_forest,
+            graphs, oracle, check, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    sup_counts = read_counts("supervision", ("hook_compress",))
+    print(f"main path, supervision: {time.perf_counter() - t_sup:.2f} s, all forests equal the "
+          f"rank oracle; {json.dumps({**supervision, 'launches': sup_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
-                + rank_counts[name] for name in flat_counts}
+                + rank_counts[name] + sup_counts[name] for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)

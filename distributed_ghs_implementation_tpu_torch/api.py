@@ -2,23 +2,35 @@
 
 ``GHSAlgorithm(num_nodes, edges).run() -> [(u, v), ...]`` and the functional
 ``minimum_spanning_forest`` / ``minimum_spanning_tree``, as in the JAX
-package. The only backend so far is ``"device"``: the Borůvka solve on one
-card (``device=None`` means CUDA; ``device="cpu"`` runs the kernels' plain
-PyTorch versions).
+package. ``backend`` selects the path:
+
+  * ``"device"`` (default): the Borůvka solve on one card (``device=None``
+    means CUDA; ``device="cpu"`` runs the kernels' plain PyTorch versions);
+  * ``"host"``: native single-core Kruskal over the rank order, on no card
+    (integer weights);
+  * ``"sharded"`` and ``"protocol"``: not ported yet; they raise unless the
+    solve is supervised, which enters the ladder at ``"device"`` for
+    ``"protocol"`` and records ``"sharded"`` as unavailable.
+
+``supervised=True`` (or a ``supervisor``) runs the solve under
+``utils.resilience.Supervisor``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
-from distributed_ghs_implementation_tpu_torch.models.boruvka import solve_graph
 
-_NOT_PORTED_BACKENDS = ("sharded", "protocol", "host")
+if TYPE_CHECKING:  # deferred: the supervisor stays off the plain path
+    from distributed_ghs_implementation_tpu_torch.utils.resilience import IncidentLog
+
+_NOT_PORTED_BACKENDS = ("sharded", "protocol")
 
 
 @dataclasses.dataclass
@@ -31,8 +43,9 @@ class MSTResult:
     wall_time_s: float
     backend: str
     num_components: int
-    # Set by supervised solves only, which the port does not have yet.
-    incidents: Optional[object] = None
+    # Set by supervised solves only: the structured attempt and fallback
+    # record.
+    incidents: Optional["IncidentLog"] = None
 
     @property
     def edges(self) -> List[Tuple[int, int]]:
@@ -69,27 +82,57 @@ class MSTResult:
         return self.num_components == 1 and self.num_edges == self.graph.num_nodes - 1
 
 
+def _solve(graph: Graph, backend: str, device) -> Tuple[np.ndarray, np.ndarray, int]:
+    if backend == "device":
+        from distributed_ghs_implementation_tpu_torch.models.boruvka import solve_graph
+
+        return solve_graph(graph, device=device)
+    if backend == "host":
+        from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
+            solve_graph_kruskal_host,
+        )
+
+        return solve_graph_kruskal_host(graph)
+    if backend in _NOT_PORTED_BACKENDS:
+        raise NotImplementedError(f"backend {backend!r} is not ported yet")
+    raise ValueError(
+        f"unknown backend {backend!r}; expected device|sharded|protocol|host"
+    )
+
+
 def minimum_spanning_forest(
     graph: Graph,
     *,
     backend: str = "device",
     supervised: bool = False,
+    supervisor=None,
     device=None,
 ) -> MSTResult:
     """Compute the minimum spanning forest (a tree per component) of ``graph``
-    on ``device`` (``None`` = CUDA)."""
-    if supervised:
-        raise NotImplementedError(
-            "supervised solves are not ported yet (ROADMAP queue 1 item 6)"
-        )
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(f"backend {backend!r} is not ported yet")
-    if backend != "device":
-        raise ValueError(
-            f"unknown backend {backend!r}; expected device|sharded|protocol|host"
-        )
+    on ``device`` (``None`` = CUDA; the device rule holds for every backend).
+
+    ``supervised=True`` runs the solve under the supervisor
+    (``utils.resilience``): watchdog deadline, bounded retry with backoff on
+    transient errors, and the ``sharded -> device -> stepped -> host``
+    degradation ladder from ``backend`` (backends outside the ladder, such
+    as ``"protocol"``, enter at ``"device"``). The result's ``backend`` then
+    reads ``"supervised/<rung that succeeded>"`` and ``incidents`` holds the
+    attempt log. Passing a configured ``Supervisor`` as ``supervisor``
+    implies ``supervised=True``.
+    """
+    device = resolve_device(device)
     t0 = time.perf_counter()
-    edge_ids, fragment, levels = solve_graph(graph, device=device)
+    incidents = None
+    supervised = supervised or supervisor is not None
+    if supervised:
+        from distributed_ghs_implementation_tpu_torch.utils.resilience import Supervisor
+
+        sup = supervisor or Supervisor()
+        edge_ids, fragment, levels, incidents = sup.solve(graph, entry=backend, device=device)
+        backend_label = f"supervised/{incidents.final_rung or backend}"
+    else:
+        edge_ids, fragment, levels = _solve(graph, backend, device)
+        backend_label = backend
     wall = time.perf_counter() - t0
     num_components = int(np.unique(fragment).size) if graph.num_nodes else 0
     return MSTResult(
@@ -97,8 +140,9 @@ def minimum_spanning_forest(
         edge_ids=edge_ids,
         num_levels=levels,
         wall_time_s=wall,
-        backend=backend,
+        backend=backend_label,
         num_components=num_components,
+        incidents=incidents,
     )
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import itertools
 from typing import Iterable, Tuple
 
@@ -119,6 +120,33 @@ class Graph:
             lo, hi, w = lo[first], hi[first], w[first]
         w = w.astype(np.int64) if w.dtype.kind in "iu" else w.astype(np.float64)
         return Graph(num_nodes, lo, hi, w)
+
+    # ------------------------------------------------------------------
+    # Identity
+    # ------------------------------------------------------------------
+    @functools.cached_property
+    def _digest(self) -> str:
+        h = hashlib.sha256()
+        h.update(np.int64(self.num_nodes).tobytes())
+        h.update(self.w.dtype.char.encode())  # int 5 vs float 5.0 differ
+        h.update(np.ascontiguousarray(self.u).tobytes())
+        h.update(np.ascontiguousarray(self.v).tobytes())
+        h.update(np.ascontiguousarray(self.w).tobytes())
+        return h.hexdigest()
+
+    def digest(self) -> str:
+        """Content hash over ``(num_nodes, w.dtype.char, u, v, w)``, hex
+        sha256: the JAX package's ``Graph.digest``, byte for byte, so a
+        checkpoint fingerprint means the same graph in both packages.
+        Construction canonicalizes the edges, so two graphs of the same
+        weighted edge set share a digest whatever their input order.
+        Computed once per instance."""
+        return self._digest
+
+    def digest_words(self) -> np.ndarray:
+        """:meth:`digest` as four int64 words, the array form a checkpoint
+        fingerprint embeds."""
+        return np.frombuffer(bytes.fromhex(self._digest), dtype=np.int64).copy()
 
     def rank_arrays(
         self, *, pad_edges_to: int | None = None, pad_ranks_to: int | None = None

@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from distributed_ghs_implementation_tpu_torch.ops._build import KernelBuildError
+
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE / "native" / "graph_native.cpp"
 BUILD_ROOT = _PACKAGE.parent / "build" / "native"
@@ -116,15 +118,20 @@ def build_library() -> Path:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The loaded library, built at the first call; raises if it cannot be
-    built or loaded."""
+    """The loaded library, built at the first call; raises
+    :class:`KernelBuildError` if it cannot be built or loaded."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = restype, argtypes
+            try:
+                lib = ctypes.CDLL(str(build_library()))
+                for name, (restype, argtypes) in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+            except Exception as e:
+                raise KernelBuildError(
+                    f"the native host library could not be built or loaded: {e}"
+                ) from e
             _lib = lib
         return _lib
 
@@ -215,3 +222,26 @@ def first_cross_rank(num_nodes: int, ra: np.ndarray, rb: np.ndarray,
     out = np.empty(num_nodes, dtype=np.int32)
     lib.first_cross_rank(num_nodes, ra.shape[0], _p32(ra), _p32(rb), _p32(parent1), _p32(out))
     return out
+
+
+def kruskal_msf_solve_native(num_nodes: int, order: np.ndarray, u: np.ndarray, v: np.ndarray,
+                             w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Kruskal over the precomputed rank order, one union-find pass:
+    ``(edge_ids, labels)``, the forest's edges in rank order and each
+    vertex's component label. Integer weights. Raises ``ValueError`` when
+    ``order`` is not a weight-nondecreasing permutation of the edges, as the
+    JAX package's wrapper does."""
+    lib = get_lib()
+    order, u, v, w = _i64(order), _i64(u), _i64(v), _i64(w)
+    _check(u.shape == v.shape == w.shape and order.shape[0] <= u.shape[0],
+           "kruskal_msf_solve needs len(u) == len(v) == len(w) >= len(order)")
+    _check(min(u.min(initial=0), v.min(initial=0)) >= 0
+           and max(u.max(initial=-1), v.max(initial=-1)) < num_nodes,
+           "kruskal_msf_solve needs every endpoint in [0, num_nodes)")
+    out_edges = np.empty(max(num_nodes, 1), dtype=np.int64)
+    labels = np.empty(max(num_nodes, 1), dtype=np.int64)
+    count = int(lib.kruskal_msf_solve(num_nodes, order.shape[0], _p64(order), _p64(u), _p64(v),
+                                      _p64(w), _p64(out_edges), _p64(labels)))
+    if count < 0:
+        raise ValueError("rank order is not a non-decreasing permutation of the edges")
+    return out_edges[:count], labels[:num_nodes]

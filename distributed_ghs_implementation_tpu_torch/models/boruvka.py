@@ -29,6 +29,7 @@ import torch
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 from distributed_ghs_implementation_tpu_torch.ops import kernels
 from distributed_ghs_implementation_tpu_torch.ops.segment_ops import (
     INT32_MAX,
@@ -301,7 +302,8 @@ def solve_arrays_stepped(
     mid-solve (see :func:`state_from_numpy`; its ``mst_ranks`` is updated in
     place); the slots are relabeled to the restored partition first.
     ``on_level(level, fragment, mst_ranks, has, count, wall_time_s)`` fires
-    after each stepped level. Returns ``(mst_ranks, fragment, levels)``.
+    after each stepped level, after its ``solver.level`` event on the bus.
+    Returns ``(mst_ranks, fragment, levels)``.
     """
     n = fragment0.shape[0]
     if initial_state is not None:
@@ -324,6 +326,8 @@ def solve_arrays_stepped(
         )
         levels += 1
         has, count = torch.stack((has.long(), count)).tolist()  # one round trip
+        BUS.complete("solver.level", time.perf_counter() - t0, cat="solver", level=levels,
+                     edges_alive=count // 2)  # directed slots -> undirected edges
         if on_level is not None:
             on_level(levels, fragment, mst_ranks, bool(has), count,
                      time.perf_counter() - t0)
@@ -335,7 +339,8 @@ def solve_arrays_stepped(
                 src_f, dst_f, rank = _compact_kernel(src_f, dst_f, rank, tgt)
     if levels >= max_levels:
         return mst_ranks, fragment, levels
-    return _continue_solve(fragment, mst_ranks, levels, src_f, dst_f, rank, ra, rb)
+    with BUS.span("solver.fused_finish", cat="solver", from_level=levels):
+        return _continue_solve(fragment, mst_ranks, levels, src_f, dst_f, rank, ra, rb)
 
 
 def _next_pow2(x: int) -> int:
@@ -429,7 +434,8 @@ def solve_graph(
     rank-space solver (``models/rank_solver.py``; its arrays pad to
     ``_bucket_size`` steps); ``"auto"`` = ``fused`` below
     ``ELL_AUTO_EDGE_THRESHOLD`` edges, ``rank`` at and above it. A kernel
-    that fails raises; nothing re-runs on another path.
+    that fails raises; nothing re-runs on another path. The solve is one
+    ``solver.solve`` span on the event bus (``obs/``).
     """
     device = resolve_device(device)
     n = graph.num_nodes
@@ -437,14 +443,28 @@ def solve_graph(
         return np.zeros(0, dtype=np.int64), np.arange(n, dtype=np.int32), 0
     if strategy == "auto":
         strategy = "rank" if graph.num_edges >= ELL_AUTO_EDGE_THRESHOLD else "fused"
+    if strategy not in ("fused", "stepped", "ell", "rank"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    with BUS.span("solver.solve", cat="solver", strategy=strategy, nodes=n,
+                  edges=graph.num_edges, kernel=kernel_label(device)):
+        return _solve_graph(graph, strategy, bucket_shapes, device)
+
+
+def kernel_label(device: torch.device) -> str:
+    """What runs the kernels on ``device``, as the ``kernel`` argument of
+    the ``solver.solve`` event reads it: ``"cuda"`` (the hand kernels) on
+    the card, ``"torch"`` (their plain versions) on the CPU. The JAX
+    package's event reads ``"pallas"`` or ``"xla"`` there."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def _solve_graph(graph: Graph, strategy: str, bucket_shapes: bool, device):
     if strategy == "rank":
         from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
             solve_graph_rank,
         )
 
         return solve_graph_rank(graph, device=device)
-    if strategy not in ("fused", "stepped", "ell"):
-        raise ValueError(f"unknown strategy {strategy!r}")
     if strategy == "ell":
         buckets, ra, rb, n_pad = prepare_ell_arrays(graph, device=device)
         mst_ranks, fragment, levels = ell_solve_loop(buckets, ra, rb, num_nodes=n_pad)
@@ -455,7 +475,15 @@ def solve_graph(
         else:
             mst_ranks, fragment, levels = _solve_from_iota(
                 *args[1:], num_nodes=args[0].shape[0])
-    return fetch_mst_edge_ids(graph, mst_ranks), fragment.cpu().numpy()[:n], int(levels)
+    return harvest(graph, mst_ranks, fragment, levels)
+
+
+def harvest(graph: Graph, mst_ranks: torch.Tensor, fragment: torch.Tensor,
+            levels) -> Tuple[np.ndarray, np.ndarray, int]:
+    """A solve's device state -> ``solve_graph``'s result: ``(sorted edge
+    ids, fragment[:n] on the host, levels)``."""
+    return (fetch_mst_edge_ids(graph, mst_ranks),
+            fragment[: graph.num_nodes].cpu().numpy(), int(levels))
 
 
 def fetch_mst_edge_ids(graph: Graph, mst_ranks: torch.Tensor) -> np.ndarray:

@@ -33,6 +33,7 @@ int32; the mask is uint8 (0/1).
 
 from __future__ import annotations
 
+import time
 from typing import Tuple
 
 import numpy as np
@@ -46,8 +47,10 @@ from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     _bucket_size,
     _mark,
     _max_levels,
-    fetch_mst_edge_ids,
+    fetch_mst_edge_ids,  # noqa: F401 -- a name of the JAX module's, used by callers
+    harvest,
 )
+from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 from distributed_ghs_implementation_tpu_torch.ops.segment_ops import INT32_MAX, segment_min
 from distributed_ghs_implementation_tpu_torch.ops.union_find import hook_and_compress
 
@@ -1168,24 +1171,105 @@ def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None, paren
 
 def make_production_solver(graph: Graph, *, device=None):
     """Stage the graph for its route (the host passes and copies run here,
-    so a caller can time the prep apart) and return ``solve() -> (mst,
-    fragment, levels)``. The one place the route is chosen: grid and sparse
-    graphs take the host-L2 route (:func:`solve_rank_l2`); dense graphs at
-    the filter width stage for the filter route
-    (:func:`prepare_rank_arrays_filtered`); every graph but the grid and
-    sparse ones is solved by :func:`solve_rank_auto`."""
+    so a caller can time the prep apart) and return ``solve(on_chunk=None)
+    -> (mst, fragment, levels)``. The one place the route is chosen, for
+    ``solve_graph_rank``, the checkpointed, instrumented and supervised
+    solves alike:
+
+    * grid and sparse graphs take the host-L2 route
+      (:func:`solve_rank_l2`, which passes ``on_chunk`` on);
+    * dense graphs at the filter width stage for the filter route
+      (:func:`prepare_rank_arrays_filtered`): without a hook
+      :func:`solve_rank_auto`, with one the chunked
+      :func:`solve_rank_filtered`, which gets the host level 2 only when
+      the prep computed it for that solve's prefix (in the speculative
+      regime it was computed for the mult-2 prefix);
+    * every other graph: without a hook :func:`solve_rank_auto`, with one
+      the staged solve, whose chunk boundaries the hook sees.
+
+    Without a hook the route is exactly the unhooked one: asking for
+    chunk boundaries selects the chunked forms, so only a caller that
+    passes ``on_chunk`` leaves the speculative programs.
+    ``on_chunk(level, vertex_fragment, mst, count)`` gets live tensors
+    that the solve goes on updating: a hook that keeps them copies them.
+    """
     device = resolve_device(device)
     family = _pick_family(graph)
     if use_l2_path(family):
         staged = prepare_rank_arrays_l2(graph, device=device)
-        return lambda: solve_rank_l2(*staged)
-    if use_filtered_path(family, _bucket_size(graph.num_edges)):
+
+        def solve(on_chunk=None):
+            return solve_rank_l2(*staged, on_chunk=on_chunk)
+    elif use_filtered_path(family, _bucket_size(graph.num_edges)):
         vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = prepare_rank_arrays_filtered(
             graph, device=device)
-        return lambda: solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1,
-                                       parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
-    vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
-    return lambda: solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
+        plan_prefix, _ = _prefix_plan(_bucket_size(graph.num_nodes),
+                                      _bucket_size(graph.num_edges))
+        chunk_l2 = (dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
+                    if parent12 is not None and l2_prefix == plan_prefix else {})
+
+        def solve(on_chunk=None):
+            if on_chunk is None:
+                return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1,
+                                       parent12=parent12, l2_ranks=l2_ranks,
+                                       l2_prefix=l2_prefix)
+            return solve_rank_filtered(vmin0, ra, rb, on_chunk=on_chunk, parent1=parent1,
+                                       **chunk_l2)
+    else:
+        vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
+
+        def solve(on_chunk=None):
+            if on_chunk is None:
+                return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
+            return solve_rank_staged(vmin0, ra, rb, **_family_params(family),
+                                     on_chunk=on_chunk, parent1=parent1)
+    return _observed_solver(solve, family)
+
+
+def _observed_solver(inner, family: str):
+    """``inner`` with event-bus telemetry: the solve is a
+    ``solver.rank.solve`` span (``family``, ``chunked``), and when the
+    caller asks for chunk boundaries each one is also a ``solver.chunk``
+    event (``level``, ``edges_alive``) before the caller's hook sees it. A
+    caller that passes no hook gets none: a hook selects the chunked forms,
+    and observing must never reroute a solve."""
+    def solve(on_chunk=None):
+        if not BUS.enabled:
+            return inner(on_chunk=on_chunk)
+        hook = on_chunk
+        if hook is not None:
+            last = [time.perf_counter()]
+
+            def on_chunk(level, fragment, mst, count):
+                now = time.perf_counter()
+                BUS.complete("solver.chunk", now - last[0], cat="solver", level=int(level),
+                             edges_alive=int(count))
+                last[0] = now
+                hook(level, fragment, mst, count)
+
+        with BUS.span("solver.rank.solve", cat="solver", family=str(family),
+                      chunked=hook is not None):
+            return inner(on_chunk=on_chunk)
+
+    return solve
+
+
+def solve_graph_kruskal_host(graph: Graph) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The ``host`` backend: Kruskal over the precomputed rank order, one
+    union-find pass in the native host library, on no card. The rank order
+    makes the forest unique, so its edge ids equal every device solve's.
+    ``levels`` is 0 (no Borůvka level runs). Integer weights only (the
+    rank order it checks is the native counting sort's): float weights
+    raise ``NotImplementedError``. A native library that cannot be built
+    raises ``RuntimeError``, as every native pass does."""
+    n = graph.num_nodes
+    if n == 0 or graph.num_edges == 0:
+        return np.zeros(0, dtype=np.int64), np.arange(n, dtype=np.int32), 0
+    if not graph.is_integer_weighted:
+        raise NotImplementedError("host backend needs integer weights")
+    edge_ids, labels = native_lib.kruskal_msf_solve_native(
+        n, graph._rank_order, graph.u, graph.v, graph.w)
+    return np.sort(edge_ids), labels.astype(np.int32), 0
 
 
 def solve_graph_rank(graph: Graph, *, device=None) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -1196,4 +1280,4 @@ def solve_graph_rank(graph: Graph, *, device=None) -> Tuple[np.ndarray, np.ndarr
     if n == 0 or graph.num_edges == 0:
         return np.zeros(0, dtype=np.int64), np.arange(n, dtype=np.int32), 0
     mst, fragment, levels = make_production_solver(graph, device=device)()
-    return fetch_mst_edge_ids(graph, mst), fragment[:n].cpu().numpy(), int(levels)
+    return harvest(graph, mst, fragment, levels)

@@ -41,6 +41,14 @@ NVCC_FLAGS = (
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel or native library that could not be built or loaded, for
+    whatever cause (no compiler, a compile error, a directory that cannot
+    be written, a full disk, a library the loader refuses). The cause is
+    chained. A supervised solve treats it as fatal, an ``OSError`` cause
+    included: no retry or slower rung can build what did not build."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -117,8 +125,12 @@ def build_library() -> Path:
 def load_library():
     """Build if needed and import the extension module: one function per
     launcher (``probe``, ``gather``, ...) taking Python ints and returning
-    the launch's CUDA error code, and ``error_string(code)``."""
-    spec = importlib.util.spec_from_file_location(MODULE_NAME, build_library())
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    the launch's CUDA error code, and ``error_string(code)``. Any failure
+    raises :class:`KernelBuildError`."""
+    try:
+        spec = importlib.util.spec_from_file_location(MODULE_NAME, build_library())
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    except Exception as e:
+        raise KernelBuildError(f"the CUDA kernel library could not be built or loaded: {e}") from e
     return module

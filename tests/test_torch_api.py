@@ -110,12 +110,15 @@ def test_unsupported_device_type_raises():
 
 
 def test_backends_not_ported_raise():
+    """``sharded`` and ``protocol`` raise unless the solve is supervised;
+    ``host`` and supervised solves are ported."""
     g = tgen.readme_sample_graph()
-    for backend in ("sharded", "protocol", "host"):
+    for backend in ("sharded", "protocol"):
         with pytest.raises(NotImplementedError, match=backend):
             minimum_spanning_forest(g, backend=backend, device=CPU)
-    with pytest.raises(NotImplementedError, match="supervised"):
-        minimum_spanning_forest(g, supervised=True, device=CPU)
+        supervised = minimum_spanning_forest(g, backend=backend, supervised=True, device=CPU)
+        assert supervised.backend == "supervised/device" and supervised.total_weight == 20
+    assert minimum_spanning_forest(g, backend="host", device=CPU).total_weight == 20
     with pytest.raises(ValueError, match="unknown backend"):
         minimum_spanning_forest(g, backend="nope", device=CPU)
 
@@ -140,6 +143,22 @@ def test_port_imports_and_solves_without_jax():
         "assert r.total_weight == 20, r.total_weight\n"
         "ids, _, lv = rank_solver.solve_graph_rank(readme_sample_graph(), device='cpu')\n"
         "assert ids.tolist() == r.edge_ids.tolist() and lv > 0, (ids, lv)\n"
+        "import tempfile\n"
+        "from distributed_ghs_implementation_tpu_torch import obs\n"
+        "from distributed_ghs_implementation_tpu_torch.obs import export, pulse, slo, tracing\n"
+        "from distributed_ghs_implementation_tpu_torch.utils import (\n"
+        "    checkpoint, integrity, locking, metrics, resilience)\n"
+        "from distributed_ghs_implementation_tpu_torch import minimum_spanning_forest\n"
+        "g = readme_sample_graph()\n"
+        "s = minimum_spanning_forest(g, supervised=True, device='cpu')\n"
+        "assert s.backend == 'supervised/device' and s.total_weight == 20, s.backend\n"
+        "assert minimum_spanning_forest(g, backend='host', device='cpu').total_weight == 20\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    c = checkpoint.solve_graph_checkpointed(g, d + '/c.npz', device='cpu')\n"
+        "    assert c[0].tolist() == r.edge_ids.tolist()\n"
+        "    export.write_chrome_trace(obs.BUS, d + '/t.json')\n"
+        "(m, _, _), lm = metrics.solve_graph_instrumented(g, strategy='rank', device='cpu')\n"
+        "assert m.tolist() == r.edge_ids.tolist() and lm.levels\n"
         "bad = [m for m in sys.modules if m == 'distributed_ghs_implementation_tpu' "
         "or m.startswith('distributed_ghs_implementation_tpu.')]\n"
         "assert not bad, bad\n"

@@ -541,3 +541,159 @@ def test_chunked_filter_on_card_equals_oracle(cuda, rmat19, monkeypatch):
     mst, frag, _ = rank_solver.solve_rank_resume(vmin0, ra, rb, states[1])
     np.testing.assert_array_equal(boruvka.fetch_mst_edge_ids(g, mst), oracle)
     _same_partition(frag.cpu().numpy(), got[1])
+
+
+# ---------------------------------------------------------------------------
+# Supervised solves, checkpoint and resume, per-level metrics (RMAT-18)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rmat18():
+    """RMAT-18 ef 16 seed 1 and its oracle; built only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = generators.rmat_graph(18, 16, seed=1)
+    return g, rank_oracle_edge_ids(g)
+
+
+@pytest.fixture()
+def faults():
+    from distributed_ghs_implementation_tpu_torch.utils import resilience
+
+    resilience.FAULTS.reset()
+    yield resilience
+    resilience.FAULTS.reset()
+
+
+def _trail(log):
+    return [(r.rung, r.attempt, r.outcome) for r in log.records]
+
+
+@pytest.mark.gpu
+def test_supervised_solve_on_card_takes_the_unsupervised_route(cuda, rmat18, faults,
+                                                              monkeypatch):
+    from distributed_ghs_implementation_tpu_torch.api import minimum_spanning_forest
+
+    g, oracle = rmat18
+    log = []
+    fn = rank_solver.solve_rank_speculative
+    monkeypatch.setattr(rank_solver, "solve_rank_speculative",
+                        lambda *a, **k: log.append(1) or fn(*a, **k))
+    plain = minimum_spanning_forest(g, device=cuda)
+    supervised = minimum_spanning_forest(g, supervised=True, device=cuda)
+    assert log == [1, 1]  # the speculative route, both times
+    assert supervised.backend == "supervised/device"
+    assert _trail(supervised.incidents) == [("device", 1, "ok")]
+    np.testing.assert_array_equal(supervised.edge_ids, oracle)
+    assert supervised.num_levels == plain.num_levels
+
+
+@pytest.mark.gpu
+def test_supervised_degrade_on_card_runs_the_stepped_kernels(cuda, rmat18, faults):
+    """The stepped rung launches K1 once a level; its slots are fragment
+    ids at every level, so each level's minimum takes the identity form and
+    K2 does not launch."""
+    g, oracle = rmat18
+    sup = faults.Supervisor(faults.SupervisorConfig(backoff_base_s=0))
+    k1, k2 = kernels.hook_compress.launches, kernels.gather_key.launches
+    with faults.FAULTS.inject("resilience.attempt.device", times=2):
+        ids, _, levels, log = sup.solve(g, device=cuda)
+    assert _trail(log) == [("device", 1, "transient"), ("device", 2, "transient"),
+                           ("stepped", 1, "ok")]
+    assert kernels.hook_compress.launches - k1 == levels
+    assert kernels.gather_key.launches - k2 == 0
+    np.testing.assert_array_equal(ids, oracle)
+
+
+@pytest.mark.gpu
+def test_supervised_watchdog_and_host_rung_on_card(cuda, rmat18, faults):
+    g, oracle = rmat18
+    config = faults.SupervisorConfig(deadline_s=60, backoff_base_s=0)
+    with faults.FAULTS.inject("resilience.slow.device", times=2, kind="slow", value=3600):
+        ids, _, _, log = faults.Supervisor(config).solve(g, device=cuda)
+    assert _trail(log) == [("device", 1, "timeout"), ("device", 2, "timeout"),
+                           ("stepped", 1, "ok")]
+    np.testing.assert_array_equal(ids, oracle)
+    for rung in ("device", "stepped"):
+        faults.FAULTS.arm(f"resilience.attempt.{rung}", times=2)
+    ids, _, levels, log = faults.Supervisor(config).solve(g, device=cuda)
+    assert log.final_rung == "host" and levels == 0
+    np.testing.assert_array_equal(ids, oracle)
+
+
+@pytest.mark.gpu
+def test_checkpoint_and_resume_on_card(cuda, rmat18, faults, tmp_path):
+    from distributed_ghs_implementation_tpu_torch.utils import checkpoint
+
+    g, oracle = rmat18
+    path = str(tmp_path / "rmat18.npz")
+    ids, frag, levels = checkpoint.solve_graph_checkpointed(g, path, strategy="rank",
+                                                            device=cuda)
+    np.testing.assert_array_equal(ids, oracle)
+    want = boruvka.solve_graph(g, strategy="stepped", device=cuda)
+    _same_partition(frag, want[1])
+    # The states at the first and the second chunk boundary, saved from the card.
+    saved = {1: str(tmp_path / "first.npz"), 2: str(tmp_path / "second.npz")}
+    fingerprint = checkpoint.graph_fingerprint(g)
+    seen = []
+
+    def hook(level, fragment, mst, count):
+        seen.append(int(level))
+        if len(seen) in saved:
+            checkpoint.save_checkpoint(saved[len(seen)], fragment, mst, level,
+                                       fingerprint=fingerprint)
+
+    hooked = rank_solver.make_production_solver(g, device=cuda)(on_chunk=hook)
+    assert len(seen) >= 2 and hooked[2] == levels
+    # Read before the resume below writes its own states over the second.
+    first, second = (checkpoint.load_checkpoint(saved[k]) for k in (1, 2))
+    got = checkpoint.solve_graph_checkpointed(g, saved[2], strategy="rank", device=cuda)
+    np.testing.assert_array_equal(got[0], oracle)
+    assert got[2] == levels
+    # A torn primary over a mid-solve state: the first boundary's state is
+    # saved, the save of the second is torn, and the resume falls back to
+    # the first (the .bak), warns, and finishes the solve from there.
+    torn = str(tmp_path / "torn.npz")
+    assert first[2] == seen[0] < second[2] <= levels
+    checkpoint.save_checkpoint(torn, *first, fingerprint=fingerprint)
+    with faults.FAULTS.inject("checkpoint.save", times=1, kind="torn"):
+        with pytest.raises(faults.InjectedFault):
+            checkpoint.save_checkpoint(torn, *second, fingerprint=fingerprint)
+    assert checkpoint.load_checkpoint(torn + ".bak")[2] == seen[0]
+    with pytest.warns(RuntimeWarning, match="previous generation"):
+        got = checkpoint.solve_graph_checkpointed(g, torn, strategy="rank", device=cuda)
+    np.testing.assert_array_equal(got[0], oracle)
+    assert got[2] == levels
+
+
+@pytest.mark.gpu
+def test_instrumented_rank_solve_on_card_equals_cpu(cuda, rmat18):
+    from distributed_ghs_implementation_tpu_torch.utils import metrics
+
+    g, oracle = rmat18
+    (ids, frag, levels), got = metrics.solve_graph_instrumented(g, strategy="rank", device=cuda)
+    np.testing.assert_array_equal(ids, oracle)
+    assert got.levels[-1].fragments_after == g.num_nodes - oracle.size
+    assert got.levels[-1].level == levels
+    (_, _, _), want = metrics.solve_graph_instrumented(g, strategy="rank", device="cpu")
+    assert ([(m.level, m.fragments_before, m.fragments_after, m.edges_alive_after)
+             for m in got.levels]
+            == [(m.level, m.fragments_before, m.fragments_after, m.edges_alive_after)
+                for m in want.levels])
+
+
+@pytest.mark.gpu
+def test_profiler_trace_names_the_kernels_on_card(cuda, rmat18, tmp_path):
+    import json
+
+    from distributed_ghs_implementation_tpu_torch.api import minimum_spanning_forest
+    from distributed_ghs_implementation_tpu_torch.utils.metrics import profiler_trace
+
+    g, _ = rmat18
+    minimum_spanning_forest(g, device=cuda)
+    with profiler_trace(str(tmp_path)) as path:
+        minimum_spanning_forest(g, device=cuda)
+    with open(path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    assert any("hook_compress" in name for name in names)
