@@ -48,6 +48,22 @@ Phases, each printing a line:
       the hooked RMAT-18 solve against the speculative one, the
       instrumented rank solve of the road grid, and a ``profiler_trace``
       that names K1.
+   f. batch and serve (``_batch_serve_path``): ``solve_lanes`` at 16 lanes,
+      fused and vmap, over 16 RMAT-13 ef 16 graphs (seeds 1-16, one bucket:
+      K1 at n = 2^17, the grid form), 16 128-vertex graphs (n = 2,048, the
+      block form) and 16 graphs of the ceiling bucket (n = 2^20): a fused
+      batch of L levels launches K1 L times and K2 L - 1 times, L the most
+      levels a graph takes alone, and vmap reports each graph's own; the
+      batch API over a deck of both sets with a partial batch and RMAT-18
+      (over the ceiling: the supervised rank route), and 8 threads
+      submitting; ``run_warmup`` over the deck's buckets, then the deck
+      again with no ``compile.miss``; the deck through ``SolveScheduler``
+      twice (the second pass all from the cache, no K1 or K2 launch), 8
+      callers of one graph (one solve, 7 joins), a disk store round trip;
+      inserts, tree-edge deletes and reweights on RMAT-13 through
+      ``DynamicMST``; and times in turns: graphs/s of a fused batch, of
+      vmap and of 16 serial solves, ``solve_many`` pipelined against
+      synchronous, the build of a bucket.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -68,8 +84,10 @@ Phases, each printing a line:
    level-1 inputs for K1, K2 and K3 (K3 as its one launch a level; K1 also
    at RMAT-13's level-1 inputs and, in the grid form, at the road grid's
    first card level taken in its vertex space, n = 2^22, with the form run
-   and the jumps taken at every RMAT-18 level, and at every n the filter
-   route's traced run gave it), 2^24 and 2^26 indices for
+   and the jumps taken at every RMAT-18 level, at every n the filter
+   route's traced run gave it, and at every level of the lane batches at
+   the stacked n and at one lane; K2 also on the 16-lane stacks), 2^24 and
+   2^26 indices for
    K5, and K1 and K3 by the profiler's device time too. A kernel and its library call (K4 and
    ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
    K5's rate of L2 sectors (m x 32 B over its time) is printed beside it.
@@ -200,15 +218,22 @@ def _in_turns(timer, kern, library, iters: int = 10) -> dict:
 
 def _device_kernels(torch, fn, calls: int) -> list:
     """``(name, us)`` of every device kernel that ``calls`` calls of ``fn``
-    ran, by the profiler."""
+    ran, by the profiler. The profiler's schedule takes a warm-up step of
+    the same calls first and keeps only the second step (the tracer can
+    miss the first kernels after it starts), and the step's own range on
+    the device track is not a kernel."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     return [(evt.name, evt.time_range.end - evt.time_range.start) for evt in prof.events()
-            if evt.device_type == torch.autograd.DeviceType.CUDA]
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not evt.name.startswith("ProfilerStep")]  # the step's own range
 
 
 def _host_us(torch, fn) -> float:
@@ -597,6 +622,333 @@ def _supervision_path(torch, kernels, rank_solver, rank_route, observed, msf, gr
     return out
 
 
+def _batch_serve_path(torch, kernels, boruvka, msf, sets, set_oracle, graphs, oracle,
+                      scratch) -> tuple:
+    """The batch lane engine and the serve stack's solve half on the card,
+    every forest against the SciPy rank oracle:
+
+    a. lanes: ``solve_lanes`` over 16 lanes of each set (``sets``: 16
+       RMAT-13 ef 16 graphs of one bucket, where K1 runs at n = 2^17 in its
+       grid form; 128-vertex graphs, n = 2,048, the block form; and 16
+       graphs of the ceiling bucket, 2^16 x 2^17, n = 2^20), fused and
+       vmap. A fused batch of L levels launches K1 L times and K2 L - 1
+       times, L the most levels a graph of it takes alone; vmap reports
+       each graph's own levels. K1's inputs are traced at the stacked n and
+       at one lane, for the check against the plain version;
+    b. engine: ``minimum_spanning_forest_batch`` over the deck (both sets,
+       a partial last batch, RMAT-18 over the ceiling, which bypasses to
+       the supervised rank route), then 8 threads ``submit`` at once;
+    c. warmup: ``run_warmup`` over the deck's buckets after the solver
+       cache is cleared, then the request phase of b again, which must add
+       no ``compile.miss``;
+    d. scheduler and store: the deck through ``SolveScheduler`` with an
+       engine twice (the second pass all from the cache, no K1 or K2
+       launch), 8 threads asking for one graph (one solve, 7 joins), a disk
+       store round trip;
+    e. dynamic: inserts, deletes of tree edges and reweights on RMAT-13,
+       the forest after each equal to the oracle and a fresh solve, with
+       the K1 and K2 launches of the incremental path counted;
+    f. times on the card, 20 turns a side by CUDA events (each side ends in
+       host reads, so this is the wall clock of the call): a 16-lane fused
+       batch against 16 serial ``minimum_spanning_forest`` calls and vmap
+       against fused, at both sets, and a fused batch split into its host
+       stack and the rest (copies, levels, unpack); ``solve_many``
+       pipelined against synchronous; the build of each bucket at warmup.
+
+    Returns the records and the traced K1 inputs ``{(set, lanes, n):
+    [(has, dst_frag, fragment) a level]}``.
+    """
+    import threading
+
+    from distributed_ghs_implementation_tpu_torch import minimum_spanning_forest_batch
+    from distributed_ghs_implementation_tpu_torch.batch import lanes, warmup
+    from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine
+    from distributed_ghs_implementation_tpu_torch.batch.policy import BatchPolicy
+    from distributed_ghs_implementation_tpu_torch.device import cuda_time_in_turns_ms, cuda_time_ms
+    from distributed_ghs_implementation_tpu_torch.graphs.generators import gnm_random_graph
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.serve import (
+        DynamicMST,
+        ResultStore,
+        SolveScheduler,
+        Update,
+        solve_cache_key,
+    )
+    from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+
+    out = {}
+    BUS.enable()
+    lanes.clear_solver_cache()
+
+    def k12():
+        return kernels.hook_compress.launches, kernels.gather_key.launches
+
+    def counter(name):
+        return BUS.counters().get(name, 0)
+
+    def same(what, ids, want):
+        if not np.array_equal(np.sort(ids), want):
+            raise AssertionError(f"{what}: forest differs from the rank oracle")
+
+    # a. lanes
+    t = time.perf_counter()
+    k1_inputs = {}
+    for name, gs in sets.items():
+        gs16 = gs[:16]
+        singles = [msf(g) for g in gs16]
+        for i, r in enumerate(singles):
+            same(f"{name}[{i}] alone", r.edge_ids, set_oracle[name][i])
+        own = [r.num_levels for r in singles]
+        n_pad, m_pad = lanes.bucket_key(gs16[0])
+        n = 16 * n_pad
+        want_form = "block" if n <= kernels.HOOK_BLOCK_FORM_THRESHOLD else "grid"
+        rec = {"bucket": [n_pad, m_pad], "lanes": 16, "n": n, "own_levels": own}
+        frags = {}
+        for mode in ("fused", "vmap"):
+            lanes.solve_lanes(gs16, lanes=16, mode=mode)  # builds the bucket
+            before = k12()
+            torch.cuda.synchronize()
+            res = lanes.solve_lanes(gs16, lanes=16, mode=mode)
+            d1, d2 = (a - b for a, b in zip(k12(), before))
+            _, form = kernels.hook_compress_readout()
+            levels = [lv for _, _, lv in res]
+            for i, (ids, frag, _) in enumerate(res):
+                same(f"{name}[{i}] {mode}", ids, set_oracle[name][i])
+            frags[mode] = [frag for _, frag, _ in res]
+            want_levels = [max(own)] * 16 if mode == "fused" else own
+            if levels != want_levels:
+                raise AssertionError(f"{name} {mode}: levels {levels}, want {want_levels}")
+            if (d1, d2) != (max(levels), max(levels) - 1) or form != want_form:
+                raise AssertionError(f"{name} {mode}: {max(levels)} levels but K1 x{d1}, K2 x{d2}, "
+                                     f"K1 {form} form at n={n}")
+            rec[mode] = {"levels": sorted(set(levels)), "hook_compress": d1, "gather_key": d2,
+                         "k1_form": form}
+        if any(not np.array_equal(a, b) for a, b in zip(frags["fused"], frags["vmap"])):
+            raise AssertionError(f"{name}: fused and vmap fragments differ")
+        # K1's inputs at the stacked n and at one lane, every level.
+        hook = boruvka.hook_and_compress
+        for count in (16, 1):
+            lanes.precompile_bucket(n_pad, m_pad, count)  # keep the build's launch out
+            key = (name, count, count * n_pad)
+            traced = k1_inputs[key] = []
+
+            def spy(has, dst_frag, fragment, traced=traced):
+                traced.append((has.clone(), dst_frag.clone(), fragment.clone()))
+                return hook(has, dst_frag, fragment)
+
+            boruvka.hook_and_compress = spy
+            try:
+                lanes.solve_lanes(gs16[:count], lanes=count)
+            finally:
+                boruvka.hook_and_compress = hook
+        out[f"lanes_{name}"] = rec
+    out["lanes_phase_s"] = time.perf_counter() - t
+
+    # b. engine
+    t = time.perf_counter()
+    deck = sets["rmat13"][:16] + sets["small128"] + [graphs["rmat18"]]
+    want = set_oracle["rmat13"][:16] + set_oracle["small128"] + [oracle["rmat18"]]
+    backends = ["batch/fused"] * (len(deck) - 1) + ["supervised/device"]
+
+    def check_deck(results, what):
+        for i, (r, w, b) in enumerate(zip(results, want, backends)):
+            same(f"{what} deck[{i}]", r.edge_ids, w)
+            if r.backend != b:
+                raise AssertionError(f"{what} deck[{i}]: backend {r.backend}, want {b}")
+
+    formed = counter("batch.batches.formed")
+    t1 = time.perf_counter()
+    check_deck(minimum_spanning_forest_batch(deck), "batch API")
+    out["batch_api_cold_s"] = time.perf_counter() - t1
+    batches = counter("batch.batches.formed") - formed
+    if batches != 3:
+        raise AssertionError(f"the deck formed {batches} batches, not 3 (16 + 16 + 5 lanes)")
+    engine = BatchEngine(policy=BatchPolicy(max_wait_s=0.05))
+    picks = list(range(0, 16, 4)) + list(range(16, 36, 5))
+    got = [None] * len(picks)
+
+    def ask(j):
+        got[j] = engine.submit(deck[picks[j]]).wait(timeout=300)
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(picks))]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        engine.close()
+    for j, i in enumerate(picks):
+        if got[j] is None:
+            raise AssertionError(f"submit from thread {j} did not answer")
+        same(f"submit deck[{i}]", got[j].edge_ids, want[i])
+    out["engine_phase_s"] = time.perf_counter() - t
+
+    # c. warmup, then the request phase of b again
+    t = time.perf_counter()
+    lanes.clear_solver_cache()
+    mark = BUS.mark()
+    misses = counter("compile.miss")
+    plan = warmup.WarmupPlan(buckets=tuple(sorted({lanes.bucket_key(g) for g in deck[:-1]})),
+                             lanes=16)
+    report = warmup.run_warmup(plan)
+    builds = {f"{ev[6]['n_pad']}x{ev[6]['m_pad']}": ev[4] / 1e6 for ev in BUS.events_since(mark)
+              if ev[1] == "compile.bucket"}
+    hits = counter("compile.hit")
+    t1 = time.perf_counter()
+    check_deck(minimum_spanning_forest_batch(deck), "warm batch API")
+    out["batch_api_warm_s"] = time.perf_counter() - t1
+    if counter("compile.miss") != misses or counter("compile.hit") - hits != 3:
+        raise AssertionError(f"after warmup: compile.miss {counter('compile.miss') - misses}, "
+                             f"compile.hit {counter('compile.hit') - hits}")
+    out["warmup"] = {"report": report, "build_ms": builds, "compile_miss_after": 0}
+    out["warmup_phase_s"] = time.perf_counter() - t
+
+    # d. scheduler and store
+    t = time.perf_counter()
+    engine = BatchEngine()
+    try:
+        sched = SolveScheduler(batch_engine=engine)
+        first = sched.solve_batch(deck)
+        check_deck([r for r, _ in first], "scheduler")
+        before = k12()
+        second = sched.solve_batch(deck)
+        relaunched = [a - b for a, b in zip(k12(), before)]
+        second_sources = sorted({s for _, s in second})
+        if second_sources != ["cache"] or relaunched != [0, 0]:
+            raise AssertionError(
+                f"second pass: sources {second_sources}, K1/K2 launches {relaunched}")
+    finally:
+        engine.close()
+    one = gnm_random_graph(128, 500, seed=99)
+    one_oracle = rank_oracle_edge_ids(one)
+    opened = threading.Event()
+
+    class GatedEngine(BatchEngine):
+        """Holds the leader's submit until every other caller has joined
+        its flight, so that all of them must coalesce."""
+
+        def submit(self, graph):
+            if not opened.wait(timeout=120):
+                raise TimeoutError("the callers never joined the flight")
+            return super().submit(graph)
+
+    gated = GatedEngine()
+    joins, fresh = counter("serve.scheduler.coalesced"), counter("serve.scheduler.fresh_solve")
+    answers = []
+    try:
+        sched = SolveScheduler(batch_engine=gated)
+        threads = [threading.Thread(target=lambda: answers.append(sched.solve(one)))
+                   for _ in range(8)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 120
+        while counter("serve.scheduler.coalesced") - joins < 7 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        opened.set()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        gated.close()
+    sources = sorted(s for _, s in answers)
+    if sources != ["coalesced"] * 7 + ["solved"] or counter("serve.scheduler.fresh_solve") - fresh != 1:
+        raise AssertionError(f"8 callers of one graph: {sources}")
+    for r, _ in answers:
+        same("single flight", r.edge_ids, one_oracle)
+    store_dir = str(scratch / "store")
+    key = solve_cache_key(one)
+    ResultStore(disk_dir=store_dir).put(key, answers[0][0])
+    disk_hits = counter("serve.store.disk_hit")
+    cold = ResultStore(disk_dir=store_dir).get(key, graph=one)
+    if cold is None or counter("serve.store.disk_hit") - disk_hits != 1:
+        raise AssertionError("the disk store did not serve its own entry")
+    same("disk store", cold.edge_ids, one_oracle)
+    out["scheduler"] = {"first_sources": sorted({s for _, s in first}),
+                        "second_sources": second_sources, "second_pass_launches": relaunched,
+                        "single_flight": "1 solved, 7 joins", "disk_round_trip": key}
+    out["scheduler_phase_s"] = time.perf_counter() - t
+
+    # e. dynamic maintenance on RMAT-13
+    t = time.perf_counter()
+    g = sets["rmat13"][0]
+    dyn = DynamicMST(msf(g), resolve_threshold=10**9)
+    rng = np.random.default_rng(5)
+    wmax = int(g.w.max())
+    steps, dyn_k = [], [0, 0]
+    for kind in ("insert", "delete", "reweight") * 4:
+        tree = np.nonzero(dyn._in_tree)[0]
+        if kind == "insert":
+            a, b = sorted(int(x) for x in rng.choice(g.num_nodes, 2, replace=False))
+            while dyn._find(a, b) >= 0:
+                a, b = sorted(int(x) for x in rng.choice(g.num_nodes, 2, replace=False))
+            upd = Update("insert", a, b, int(rng.integers(1, wmax + 1)))
+        else:
+            i = int(rng.choice(tree))
+            a, b = int(dyn._u[i]), int(dyn._v[i])
+            upd = (Update("delete", a, b) if kind == "delete"
+                   else Update("reweight", a, b, wmax + int(rng.integers(1, 100))))
+        before = k12()
+        r = dyn.apply([upd])
+        d = [x - y for x, y in zip(k12(), before)]
+        dyn_k = [dyn_k[0] + d[0], dyn_k[1] + d[1]]
+        if dyn.last_mode != "incremental":
+            raise AssertionError(f"dynamic {upd}: {dyn.last_mode}")
+        same(f"dynamic {upd}", r.edge_ids, rank_oracle_edge_ids(r.graph))
+        if not np.array_equal(r.edge_ids, msf(r.graph).edge_ids):
+            raise AssertionError(f"dynamic {upd}: forest differs from a fresh solve")
+        steps.append({"update": [upd.kind, a, b], "hook_compress": d[0], "gather_key": d[1]})
+    if min(dyn_k) < 1:
+        raise AssertionError(f"dynamic: K1 x{dyn_k[0]}, K2 x{dyn_k[1]} on the incremental path")
+    out["dynamic"] = {"graph": "rmat13 seed 1", "updates": len(steps),
+                      "hook_compress": dyn_k[0], "gather_key": dyn_k[1], "steps": steps}
+    out["dynamic_phase_s"] = time.perf_counter() - t
+
+    # f. times on the card
+    t = time.perf_counter()
+    times = {}
+    for name, gs in sets.items():
+        gs16 = gs[:16]
+        fs = cuda_time_in_turns_ms(lambda: lanes.solve_lanes(gs16, lanes=16),
+                                   lambda: [msf(x) for x in gs16], reps=TURNS, iters=1)
+        vf = cuda_time_in_turns_ms(lambda: lanes.solve_lanes(gs16, lanes=16, mode="vmap"),
+                                   lambda: lanes.solve_lanes(gs16, lanes=16), reps=TURNS, iters=1)
+        stacked = lanes.stack_lanes(gs16, lanes=16)
+        split = {"stack_ms": cuda_time_ms(lambda: lanes.stack_lanes(gs16, lanes=16), 5, 1),
+                 "execute_ms": cuda_time_ms(lambda: lanes.execute_stacked(stacked), 5, 1)}
+        times[name] = {
+            **split,
+            "fused_ms": fs["a_ms"], "fused_spread_ms": fs["a_spread_ms"],
+            "serial_ms": fs["b_ms"], "serial_spread_ms": fs["b_spread_ms"],
+            "vmap_ms": vf["a_ms"], "vmap_spread_ms": vf["a_spread_ms"],
+            "fused_again_ms": vf["b_ms"], "fused_again_spread_ms": vf["b_spread_ms"],
+            "fused_graphs_per_s": 16e3 / fs["a_ms"], "serial_graphs_per_s": 16e3 / fs["b_ms"],
+            "vmap_graphs_per_s": 16e3 / vf["a_ms"],
+        }
+        print(f"time batch {name} (16 lanes, n={16 * lanes.bucket_key(gs16[0])[0]}), {TURNS} "
+              f"turns: fused {fs['a_ms']:.3f} ms (spread {fs['a_spread_ms']:.3f}), 16 serial "
+              f"{fs['b_ms']:.3f} ms (spread {fs['b_spread_ms']:.3f}); vmap {vf['a_ms']:.3f} ms "
+              f"(spread {vf['a_spread_ms']:.3f}) against fused {vf['b_ms']:.3f} ms (spread "
+              f"{vf['b_spread_ms']:.3f}); of a fused batch, the host stack "
+              f"{split['stack_ms']:.3f} ms and the rest {split['execute_ms']:.3f} ms (median of 5)")
+    lane_deck = deck[:-1]
+    piped = BatchEngine(policy=BatchPolicy(pipeline_depth=2))
+    synced = BatchEngine(policy=BatchPolicy(pipeline_depth=1))
+    pipelined = counter("batch.pipeline.batches")
+    ps = cuda_time_in_turns_ms(lambda: piped.solve_many(lane_deck),
+                               lambda: synced.solve_many(lane_deck), reps=TURNS, iters=1)
+    if counter("batch.pipeline.batches") - pipelined != 3 * (TURNS + 1):
+        raise AssertionError("solve_many with pipeline_depth=2 did not pipeline")
+    times["solve_many"] = {"graphs": len(lane_deck), "batches": 3,
+                           "pipelined_ms": ps["a_ms"], "pipelined_spread_ms": ps["a_spread_ms"],
+                           "synchronous_ms": ps["b_ms"], "synchronous_spread_ms": ps["b_spread_ms"]}
+    print(f"time solve_many ({len(lane_deck)} graphs, 3 batches), {TURNS} turns: pipelined "
+          f"{ps['a_ms']:.3f} ms (spread {ps['a_spread_ms']:.3f}), synchronous {ps['b_ms']:.3f} ms "
+          f"(spread {ps['b_spread_ms']:.3f}); bucket builds at warmup (ms): {json.dumps(builds)}")
+    out["times"] = times
+    out["times_phase_s"] = time.perf_counter() - t
+    return out, k1_inputs
+
+
 def main() -> int:
     import torch
 
@@ -609,6 +961,7 @@ def main() -> int:
         minimum_spanning_forest,
         minimum_spanning_tree,
     )
+    from distributed_ghs_implementation_tpu_torch.batch.lanes import bucket_key
     from distributed_ghs_implementation_tpu_torch.profile_solve import _observed, rank_route
     from distributed_ghs_implementation_tpu_torch.device import (
         card_description,
@@ -655,6 +1008,17 @@ def main() -> int:
     graphs = {**deck, "rmat13": rmat13, "rmat18": rmat18, "grid2048": grid2048,
               "road1024": road1024, "rmat20": rmat20, "rmat21": rmat21}
     oracle = {name: rank_oracle_edge_ids(g) for name, g in graphs.items()}
+    # Phase 2f's lane sets: 16 RMAT-13 graphs of one bucket, 21 128-vertex
+    # graphs of one bucket (16 lanes and a partial batch of 5), and 16
+    # graphs of the policy's ceiling bucket, 2^16 vertices and 2^17 ranks.
+    lane_sets = {"rmat13": [rmat13] + [gen.rmat_graph(13, 16, seed=s) for s in range(2, 17)],
+                 "small128": [gen.gnm_random_graph(128, 500, seed=s) for s in range(1, 22)],
+                 "ceiling": [gen.gnm_random_graph(60000, 120000, seed=s) for s in range(1, 17)]}
+    lane_oracle = {name: [rank_oracle_edge_ids(g) for g in gs] for name, gs in lane_sets.items()}
+    for name, gs in lane_sets.items():
+        buckets = {bucket_key(g) for g in gs}
+        if len(buckets) != 1:
+            raise AssertionError(f"{name}: the lane set spans buckets {buckets}")
     oracle_w = {name: scipy_mst_weight(g) for name, g in graphs.items()}
     if rmat13.num_edges >= boruvka.ELL_AUTO_EDGE_THRESHOLD:
         raise AssertionError(f"RMAT-13 has {rmat13.num_edges} edges: auto would not run fused")
@@ -811,8 +1175,23 @@ def main() -> int:
     sup_counts = read_counts("supervision", ("hook_compress",))
     print(f"main path, supervision: {time.perf_counter() - t_sup:.2f} s, all forests equal the "
           f"rank oracle; {json.dumps({**supervision, 'launches': sup_counts})}")
+
+    # 2f. batch lanes, the engine, warmup, the scheduler and store, dynamic
+    zero_counts()
+    t_batch = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        batch_serve, batch_k1_inputs = _batch_serve_path(
+            torch, kernels, boruvka, minimum_spanning_forest, lane_sets, lane_oracle, graphs,
+            oracle, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    batch_counts = read_counts("batch and serve", ("gather_key", "hook_compress"))
+    print(f"main path, batch and serve: {time.perf_counter() - t_batch:.2f} s, all forests equal "
+          f"the rank oracle; {json.dumps({**batch_serve, 'launches': batch_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
-                + rank_counts[name] + sup_counts[name] for name in flat_counts}
+                + rank_counts[name] + sup_counts[name] + batch_counts[name]
+                for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -974,6 +1353,41 @@ def main() -> int:
             raise AssertionError(f"K1 and its plain version disagree on {name}'s inputs at n={n}")
     print("K1 vs plain on the rank path's own inputs, element-exact at (graph, n): "
           + ", ".join(f"{name} {n}" for name, n in rank_k1_inputs))
+    # K1 on the lane batches' own inputs, every level, at the stacked n (16
+    # lanes) and at one lane: the same graphs on both sides of the block
+    # form's threshold. Tolerance 0.
+    k1_batch = []
+    for (name, count, n), levels in batch_k1_inputs.items():
+        gap = max(_max_abs_err(kernels.hook_compress(*inputs),
+                               kernels.hook_compress_torch(*inputs)) for inputs in levels)
+        err["hook_compress"] = max(err["hook_compress"], gap)
+        if gap:
+            raise AssertionError(f"K1 and its plain version disagree on {name} x{count} at n={n}")
+        inputs = levels[1]  # level 1: the first partition that is not the identity
+        kernels.hook_compress(*inputs)
+        jumps, form = kernels.hook_compress_readout()
+        k1_batch.append({
+            "set": name, "lanes": count, "n": n, "levels_checked": len(levels), "form": form,
+            "jumps": jumps, "max_abs_err": gap,
+            "ms": cuda_time_ms(lambda: kernels.hook_compress(*inputs)),
+            "plain_ms": cuda_time_ms(lambda: kernels.hook_compress_torch(*inputs)),
+            "bound_ms": 17 * n / HBM_BYTES_PER_S * 1e3})
+    print("K1 vs plain on the lane batches' own inputs, element-exact at (set, lanes, n, form): "
+          + ", ".join(f"{r['set']} x{r['lanes']} n={r['n']} {r['form']}" for r in k1_batch))
+    # K2 on the 16-lane stacks' slots with their level-1 partition.
+    from distributed_ghs_implementation_tpu_torch.batch.lanes import stack_lanes
+
+    for name, gs in lane_sets.items():
+        stacked = stack_lanes(gs[:16], lanes=16)
+        src_b, dst_b, rank_b = (put(a) for a in stacked.arrays[:3])
+        frag_b = batch_k1_inputs[(name, 16, 16 * stacked.n_pad)][1][2]
+        gap = _max_abs_err(kernels.gather_key(frag_b, src_b, dst_b, rank_b),
+                           kernels.gather_key_torch(frag_b, src_b, dst_b, rank_b))
+        err["gather_key"] = max(err["gather_key"], gap)
+        if gap:
+            raise AssertionError(f"K2 and its plain version disagree on the {name} stack")
+    print("K2 vs plain on the 16-lane stacks (level-1 partition), element-exact: "
+          + ", ".join(lane_sets))
     print("K1 on the fused RMAT-18 solve, (form, jumps taken of num_jumps) a level: " + ", ".join(
         f"{form} {jumps}/{kernels.num_jumps(frag1.numel())}" for jumps, form in k1_levels))
     n, e = frag1.numel(), src.numel()
@@ -1069,6 +1483,7 @@ def main() -> int:
             "source": f"{PORT}/csrc/{name}.cu",
             "replaces": replaces,
             "launches": launches[name],
+            "launches_batch_serve": batch_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1113,6 +1528,11 @@ def main() -> int:
           f"{k22['device_ms']:.4f} ms, plain {k22['plain_ms']:.4f} ms, bound "
           f"{k22['bound_ms']:.5f} ms; grid form, {k22['jumps']} jumps")
     k1["rank_path"] = {name: rec["k1"] for name, rec in rank_solves.items()}
+    k1["batch_lanes"] = k1_batch
+    for rec in k1_batch:
+        print(f"time hook_compress ({rec['set']} x{rec['lanes']} lanes, level-1 inputs at "
+              f"n={rec['n']}): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms; {rec['form']} form, {rec['jumps']} jumps")
     # K1 at the filter route's own n: each traced input of RMAT-20 and
     # RMAT-21, the vertex space and any census space.
     k1["filter_route"] = []

@@ -21,6 +21,7 @@ from distributed_ghs_implementation_tpu_torch.api import (
     GHSAlgorithm,
     MSTResult,
     minimum_spanning_forest,
+    minimum_spanning_forest_batch,
     minimum_spanning_tree,
 )
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
@@ -32,6 +33,7 @@ __all__ = [
     "Graph",
     "MSTResult",
     "minimum_spanning_forest",
+    "minimum_spanning_forest_batch",
     "minimum_spanning_tree",
     "__version__",
 ]

@@ -1,8 +1,9 @@
 """Public API: the reference implementation's entry surface, on PyTorch and CUDA.
 
 ``GHSAlgorithm(num_nodes, edges).run() -> [(u, v), ...]`` and the functional
-``minimum_spanning_forest`` / ``minimum_spanning_tree``, as in the JAX
-package. ``backend`` selects the path:
+``minimum_spanning_forest`` / ``minimum_spanning_tree`` /
+``minimum_spanning_forest_batch``, as in the JAX package. ``backend``
+selects the path:
 
   * ``"device"`` (default): the Borůvka solve on one card (``device=None``
     means CUDA; ``device="cpu"`` runs the kernels' plain PyTorch versions);
@@ -144,6 +145,35 @@ def minimum_spanning_forest(
         num_components=num_components,
         incidents=incidents,
     )
+
+
+def minimum_spanning_forest_batch(
+    graphs,
+    *,
+    backend: str = "device",
+    policy=None,
+    engine=None,
+    device=None,
+) -> List[MSTResult]:
+    """Solve many independent graphs on ``device`` (``None`` = CUDA),
+    stacking same-bucket ones into lanes of one level loop (``batch/``).
+
+    Results are in input order and edge for edge those of per-graph
+    :func:`minimum_spanning_forest`: a lane stack is a disjoint union, and
+    the rank order makes each graph's forest unique. Graphs too large to
+    batch (``policy.admits`` is false) bypass to supervised single-graph
+    solves, as do all graphs on backends other than ``"device"``. Pass a
+    ``batch.BatchPolicy`` to set lane counts and ceilings, or a built
+    ``batch.BatchEngine`` to share its queue (it runs on its own device).
+    """
+    graphs = list(graphs)
+    if backend != "device":
+        return [minimum_spanning_forest(g, backend=backend, device=device) for g in graphs]
+    if engine is None:
+        from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine
+
+        engine = BatchEngine(policy=policy, device=device)
+    return engine.solve_many(graphs)
 
 
 def minimum_spanning_tree(graph: Graph, *, backend: str = "device", device=None) -> MSTResult:

@@ -29,6 +29,7 @@ the device only where it is not already current.
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -38,6 +39,9 @@ from distributed_ghs_implementation_tpu_torch.ops import _build
 INT32_MAX = 2**31 - 1
 
 _LIB = None
+#: Held by the one thread that builds, loads and self-checks the library;
+#: threads that come at the same time wait for it and reuse ``_LIB``.
+_LIB_LOCK = threading.Lock()
 #: ``torch._C._cuda_getCurrentRawStream``: the raw handle of a device's
 #: current stream, read without building a ``torch.cuda.Stream`` object.
 #: Bound by ``_lib()``; CPU builds of torch do not have it.
@@ -46,25 +50,34 @@ _current_stream = None
 
 def _lib():
     """The loaded kernel library; the first call builds, loads and runs the
-    probe self-check."""
+    probe self-check, under a lock, so that of several threads calling at
+    once one does it and the others reuse its library."""
     global _LIB, _current_stream
-    if _LIB is None:
-        raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        if raw_stream is None:
-            raise RuntimeError(
-                "this build of torch has no torch._C._cuda_getCurrentRawStream; "
-                "the kernels need a CUDA build of torch"
-            )
-        _current_stream = raw_stream
-        lib = _build.load_library()
-        table = torch.arange(256, dtype=torch.int32, device="cuda")
-        idx = torch.full((2, 128), 3, dtype=torch.int32, device="cuda")
-        out = torch.empty_like(idx)
-        _launch_probe(lib, table.get_device(), table, idx, out, idx.numel())
-        if not bool((out == 3).all()):
-            raise RuntimeError(f"kernel self-check read {out.unique().tolist()}, not [3]")
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+            if raw_stream is None:
+                raise RuntimeError(
+                    "this build of torch has no torch._C._cuda_getCurrentRawStream; "
+                    "the kernels need a CUDA build of torch"
+                )
+            _current_stream = raw_stream
+            lib = _build.load_library()
+            _self_check(lib)
+            _LIB = lib
     return _LIB
+
+
+def _self_check(lib) -> None:
+    """The K4 probe on the card; the load fails unless it reads 3."""
+    table = torch.arange(256, dtype=torch.int32, device="cuda")
+    idx = torch.full((2, 128), 3, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(idx)
+    _launch_probe(lib, table.get_device(), table, idx, out, idx.numel())
+    if not bool((out == 3).all()):
+        raise RuntimeError(f"kernel self-check read {out.unique().tolist()}, not [3]")
 
 
 def _fail(name: str, lib, code: int):

@@ -124,7 +124,8 @@ def test_backends_not_ported_raise():
 
 
 def test_public_names_are_the_jax_packages_minus_the_batch_api():
-    assert set(port.__all__) == set(jax_pkg.__all__) - {"minimum_spanning_forest_batch"}
+    """The batch API is ported too now: the names are the JAX package's."""
+    assert set(port.__all__) == set(jax_pkg.__all__)
     for name in port.__all__:
         assert hasattr(port, name)
 
@@ -159,6 +160,20 @@ def test_port_imports_and_solves_without_jax():
         "    export.write_chrome_trace(obs.BUS, d + '/t.json')\n"
         "(m, _, _), lm = metrics.solve_graph_instrumented(g, strategy='rank', device='cpu')\n"
         "assert m.tolist() == r.edge_ids.tolist() and lm.levels\n"
+        "from distributed_ghs_implementation_tpu_torch import batch, serve\n"
+        "from distributed_ghs_implementation_tpu_torch import minimum_spanning_forest_batch\n"
+        "from distributed_ghs_implementation_tpu_torch.batch import engine, lanes, policy, warmup\n"
+        "from distributed_ghs_implementation_tpu_torch.serve import dynamic, scheduler, store\n"
+        "rs = minimum_spanning_forest_batch([g, g], device='cpu')\n"
+        "assert [x.edge_ids.tolist() for x in rs] == [r.edge_ids.tolist()] * 2, rs\n"
+        "assert lanes.solve_lanes([g], mode='vmap', device='cpu')[0][0].tolist() == "
+        "r.edge_ids.tolist()\n"
+        "assert warmup.run_warmup(warmup.WarmupPlan(buckets=((8, 16),), lanes=2), "
+        "device='cpu')['compiled'] == 1\n"
+        "sched = serve.SolveScheduler(device='cpu')\n"
+        "assert sched.solve(g)[0].total_weight == 20 and sched.solve(g)[1] == 'cache'\n"
+        "dyn = serve.DynamicMST(r, device='cpu')\n"
+        "assert dyn.apply([serve.Update('insert', 0, 5, 1)]).total_weight <= 20\n"
         "bad = [m for m in sys.modules if m == 'distributed_ghs_implementation_tpu' "
         "or m.startswith('distributed_ghs_implementation_tpu.')]\n"
         "assert not bad, bad\n"

@@ -697,3 +697,149 @@ def test_profiler_trace_names_the_kernels_on_card(cuda, rmat18, tmp_path):
     with open(path) as f:
         names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
     assert any("hook_compress" in name for name in names)
+
+
+# ---------------------------------------------------------------------------
+# Batch lanes, the engine, warmup and the serve stack (the small-graph path)
+# ---------------------------------------------------------------------------
+
+
+def _lane_set(form):
+    """Graphs whose 16-lane stack takes K1's ``form``: 16 graphs of 128
+    vertices (n = 2,048, the block form), or 4 RMAT-13 graphs in 16 lanes
+    (n = 2^17, the grid form; 8,192 at one lane, the block form)."""
+    if form == "block":
+        return [generators.gnm_random_graph(128, 500, seed=s) for s in range(1, 17)]
+    return [generators.rmat_graph(13, 16, seed=s) for s in range(1, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fused", "vmap"])
+@pytest.mark.parametrize("form", ["block", "grid"])
+def test_lanes_on_card_equal_per_graph_solves(cuda, mode, form):
+    """Edge ids, fragments and levels equal each graph's own solve on the
+    card and the lanes' CPU run; K1's last launch ran the expected form."""
+    from distributed_ghs_implementation_tpu_torch.batch import lanes
+
+    graphs = _lane_set(form)
+    got = lanes.solve_lanes(graphs, lanes=16, mode=mode, device=cuda)
+    assert kernels.hook_compress_readout()[1] == form
+    cpu = lanes.solve_lanes(graphs, lanes=16, mode=mode, device="cpu")
+    alone = [boruvka.solve_graph(g, strategy="fused", device=cuda) for g in graphs]
+    for g, (ids, frag, levels), want, (oids, ofrag, olevels) in zip(graphs, got, cpu, alone):
+        np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
+        np.testing.assert_array_equal(ids, oids)
+        np.testing.assert_array_equal(frag, ofrag)
+        np.testing.assert_array_equal(frag, want[1])
+        assert levels == want[2]
+        assert levels == (olevels if mode == "vmap" else max(a[2] for a in alone))
+
+
+@pytest.mark.gpu
+def test_engine_batch_on_card_equals_solve_lanes(cuda):
+    from distributed_ghs_implementation_tpu_torch.batch import lanes
+    from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine
+
+    small, big = _lane_set("block")[:5], _lane_set("grid")[:2]
+    results = BatchEngine(device=cuda).solve_many(small + big)
+    direct = (lanes.solve_lanes(small, lanes=16, device=cuda)
+              + lanes.solve_lanes(big, lanes=16, device=cuda))
+    for r, (ids, _, levels) in zip(results, direct):
+        assert r.backend == "batch/fused"
+        np.testing.assert_array_equal(r.edge_ids, ids)
+        assert r.num_levels == levels
+
+
+@pytest.mark.gpu
+def test_warmed_bucket_adds_no_compile_miss_on_card(cuda):
+    from distributed_ghs_implementation_tpu_torch.batch import lanes, warmup
+    from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+
+    lanes.clear_solver_cache()
+    BUS.enable()
+    graphs = _lane_set("block")[:3]
+    report = warmup.run_warmup(warmup.WarmupPlan(buckets=((128, 512),), lanes=16), device=cuda)
+    assert report["compiled"] == 1 and report["kernel"] == "cuda"
+    misses, hits = (BUS.counters().get(k, 0) for k in ("compile.miss", "compile.hit"))
+    results = BatchEngine(device=cuda).solve_many(graphs)
+    assert BUS.counters().get("compile.miss", 0) == misses
+    assert BUS.counters()["compile.hit"] == hits + 1
+    for g, r in zip(graphs, results):
+        np.testing.assert_array_equal(r.edge_ids, rank_oracle_edge_ids(g))
+
+
+@pytest.mark.gpu
+def test_first_use_from_eight_engine_threads_loads_once_on_card(cuda):
+    """The library's first load from 8 engine threads at once, each the
+    leader of its own bucket's build, in a fresh interpreter: one build,
+    load and self-check; every batch equals its CPU run."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    code = (
+        "import sys, threading\n"
+        f"sys.path.insert(0, {str(repo)!r})\n"
+        "import numpy as np\n"
+        "from distributed_ghs_implementation_tpu_torch.ops import _build, kernels\n"
+        "from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine\n"
+        "from distributed_ghs_implementation_tpu_torch.batch.policy import BatchPolicy\n"
+        "from distributed_ghs_implementation_tpu_torch.graphs.generators import "
+        "gnm_random_graph\n"
+        "loads = []\n"
+        "real = _build.load_library\n"
+        "_build.load_library = lambda: loads.append(1) or real()\n"
+        "decks = [[gnm_random_graph(8 << i, 24 << i, seed=s) for s in range(3)] "
+        "for i in range(8)]\n"
+        "barrier, got = threading.Barrier(8), [None] * 8\n"
+        "def run(i):\n"
+        "    engine = BatchEngine(policy=BatchPolicy(max_lanes=4), device='cuda')\n"
+        "    barrier.wait()\n"
+        "    got[i] = engine.solve_many(decks[i])\n"
+        "threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]\n"
+        "[t.start() for t in threads]\n"
+        "[t.join(timeout=300) for t in threads]\n"
+        "assert kernels._LIB is not None and loads == [1], loads\n"
+        "for deck, results in zip(decks, got):\n"
+        "    cpu = BatchEngine(policy=BatchPolicy(max_lanes=4), device='cpu').solve_many(deck)\n"
+        "    for a, b in zip(results, cpu):\n"
+        "        assert a.edge_ids.tolist() == b.edge_ids.tolist()\n"
+        "print('ok', len(loads))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=repo)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 1"
+
+
+@pytest.mark.gpu
+def test_scheduler_and_dynamic_on_card_equal_cpu(cuda):
+    from distributed_ghs_implementation_tpu_torch.api import minimum_spanning_forest
+    from distributed_ghs_implementation_tpu_torch.batch.engine import BatchEngine
+    from distributed_ghs_implementation_tpu_torch.serve import DynamicMST, SolveScheduler, Update
+
+    graphs = _lane_set("block")[:4]
+    engine = BatchEngine(device=cuda)
+    try:
+        sched = SolveScheduler(batch_engine=engine, device=cuda)
+        first = sched.solve_batch(graphs + graphs[:1])
+        assert [s for _, s in first] == ["solved"] * 4 + ["coalesced"]
+        assert {s for _, s in sched.solve_batch(graphs)} == {"cache"}
+    finally:
+        engine.close()
+    for g, (r, _) in zip(graphs, first):
+        np.testing.assert_array_equal(r.edge_ids, rank_oracle_edge_ids(g))
+    g = graphs[0]
+    dyns = [DynamicMST(minimum_spanning_forest(g, device=d), device=d) for d in (cuda, "cpu")]
+    tree = np.nonzero(dyns[1]._in_tree)[0]
+    steps = [[Update("delete", int(g.u[tree[0]]), int(g.v[tree[0]]))],
+             [Update("reweight", int(g.u[tree[1]]), int(g.v[tree[1]]), 10**6)],
+             [Update("insert", 0, 127, 1)]]
+    for step in steps:
+        card, cpu = (d.apply(step) for d in dyns)
+        assert card.graph.digest() == cpu.graph.digest()
+        np.testing.assert_array_equal(card.edge_ids, cpu.edge_ids)
+        np.testing.assert_array_equal(card.edge_ids, rank_oracle_edge_ids(card.graph))
+        assert dyns[0].last_mode == dyns[1].last_mode == "incremental"

@@ -11,6 +11,8 @@ versions on a card.
 import re
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -267,6 +269,42 @@ def test_lib_needs_the_raw_stream_getter_before_it_builds(monkeypatch):
     with pytest.raises(RuntimeError, match="_cuda_getCurrentRawStream"):
         kernels._lib()
     assert kernels._LIB is None
+
+
+def test_lib_loads_once_for_threads_that_come_together(monkeypatch):
+    """Eight threads reach the first load at once: one builds, loads and
+    self-checks the library, the others wait and reuse it."""
+    loads, checks, gate = [], [], threading.Barrier(8)
+
+    def slow_load():
+        loads.append(threading.get_ident())
+        time.sleep(0.05)  # wide enough for the others to arrive
+        return SimpleNamespace(name="lib")
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda d: 0, raising=False)
+    monkeypatch.setattr(_build, "load_library", slow_load)
+    monkeypatch.setattr(kernels, "_self_check", checks.append)
+    monkeypatch.setattr(kernels, "_LIB", None)
+    got = []
+
+    def first_use():
+        gate.wait(timeout=30)
+        got.append(kernels._lib())
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert len(loads) == 1 and len(checks) == 1
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert checks[0] is got[0] is kernels._LIB
 
 
 def test_importing_kernels_touches_no_cuda_only_binding():
