@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, five paths, each with every kernel launch count set to 0 just
+2. main path, seven paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -64,6 +64,26 @@ Phases, each printing a line:
       ``DynamicMST``; and times in turns: graphs/s of a fused batch, of
       vmap and of 16 serial solves, ``solve_many`` pipelined against
       synchronous, the build of a bucket.
+   g. the service (``_service_path``): a request deck through the port's
+      ``serve_loop`` (16 batch lanes, ``verify="bulk=full"``, the RMAT-18
+      stream buckets warmed): the README sample, RMAT-13 and 16
+      ``gnm_random_graph(128, 500)`` graphs as JSON edges, RMAT-18 by
+      ``graph_path`` (certified inline), a repeat of each from the cache,
+      a ``cached_only`` hit and miss, the kinds ``components``, ``k_msf``,
+      ``bottleneck`` and ``path_max`` at RMAT-13 and RMAT-18, 12 updates on
+      RMAT-13, a stream on RMAT-18 with windows of 256 and 4,096 updates
+      from ``random_update_stream``, a window that coalesces to a no-op, a
+      publish on a stale head and a poll, the RMAT-18 answer certified with
+      ``engine="torch"`` on the card and with ``np``, and a corrupted answer
+      refused and corrected; then the same deck through ``serve_frames`` on
+      a fresh service (RMAT-13 and RMAT-18 as B-frame sections), every
+      answer equal to ``serve_loop``'s; then a restart over the stream root,
+      which must replay every window with no fresh solve. Every window's cut
+      pass runs K2 over e = 2^23 slots and K1 at n = 2^18, one launch each a
+      round. Prints the latency of each request by op and source, a
+      window's split (host apply, cut pass, cycle pass, log append), the
+      certify engines' times, JSON against B-frame ingest at RMAT-13 and
+      RMAT-18, and ``warm_window_kernels``' time a bucket.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -86,7 +106,8 @@ Phases, each printing a line:
    first card level taken in its vertex space, n = 2^22, with the form run
    and the jumps taken at every RMAT-18 level, at every n the filter
    route's traced run gave it, and at every level of the lane batches at
-   the stacked n and at one lane; K2 also on the 16-lane stacks), 2^24 and
+   the stacked n and at one lane; K2 also on the 16-lane stacks; K2 and K1
+   on the first round of a stream window's cut pass), 2^24 and
    2^26 indices for
    K5, and K1 and K3 by the profiler's device time too. A kernel and its library call (K4 and
    ``torch.take``, K5 and ``torch.index_select``) are timed in turns, and
@@ -216,24 +237,33 @@ def _in_turns(timer, kern, library, iters: int = 10) -> dict:
             "library_ms": t["b_ms"], "library_ms_spread": t["b_spread_ms"]}
 
 
-def _device_kernels(torch, fn, calls: int) -> list:
+def _device_kernels(torch, fn, calls: int, attempts: int = 3) -> list:
     """``(name, us)`` of every device kernel that ``calls`` calls of ``fn``
     ran, by the profiler. The profiler's schedule takes a warm-up step of
     the same calls first and keeps only the second step (the tracer can
     miss the first kernels after it starts), and the step's own range on
-    the device track is not a kernel."""
-    torch.cuda.synchronize()
+    the device track is not a kernel. A session that recorded no device
+    kernel at all is run again, up to ``attempts`` sessions: the tracer now
+    and then records nothing in a session while the kernels run (their
+    results and CUDA-event times are checked beside it); the callers check
+    what the last session returns."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return [(evt.name, evt.time_range.end - evt.time_range.start) for evt in prof.events()
-            if evt.device_type == torch.autograd.DeviceType.CUDA
-            and not evt.name.startswith("ProfilerStep")]  # the step's own range
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kerns = [(evt.name, evt.time_range.end - evt.time_range.start)
+                 for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA
+                 and not evt.name.startswith("ProfilerStep")]  # the step's own range
+        if kerns:
+            return kerns
+    return kerns
 
 
 def _host_us(torch, fn) -> float:
@@ -949,6 +979,542 @@ def _batch_serve_path(torch, kernels, boruvka, msf, sets, set_oracle, graphs, or
     return out, k1_inputs
 
 
+def _canon_labels(labels) -> np.ndarray:
+    """Component labels renumbered by first appearance: equal arrays for
+    equal partitions."""
+    _, first, inv = np.unique(np.asarray(labels), return_index=True, return_inverse=True)
+    return np.argsort(np.argsort(first))[inv]
+
+
+def _pairs(u, v) -> np.ndarray:
+    """Edge pairs as rows, sorted: an edge set compared as a whole."""
+    rows = np.stack([np.asarray(u, dtype=np.int64), np.asarray(v, dtype=np.int64)], axis=1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))] if rows.size else rows.reshape(0, 2)
+
+
+def _feed(make, out, answers, requests):
+    """Request lines for ``serve_loop``, each made after the answer to the
+    one before it is on ``out`` (stream heads and update digests follow
+    from the answers)."""
+    pos = 0
+    steps = make(answers)
+    while True:
+        text = out.getvalue()
+        answers.extend(json.loads(line) for line in text[pos:].splitlines())
+        pos = len(text)
+        try:
+            req = next(steps)
+        except StopIteration:
+            return
+        requests.append(req)
+        yield json.dumps(req) + "\n"
+
+
+class _Timed:
+    """A service whose ``handle`` is timed, request by request."""
+
+    def __init__(self, service, times):
+        self.service, self.times = service, times
+
+    def handle(self, request):
+        t = time.perf_counter()
+        resp = self.service.handle(request)
+        self.times.append((request.get("op"), request.get("kind", "mst"),
+                           resp.get("source") or resp.get("mode") or
+                           ("ok" if resp.get("ok") else "error"), time.perf_counter() - t))
+        return resp
+
+
+def _service_path(torch, kernels, msf, graphs, oracle, small, small_oracle, scratch, npz18,
+                  dev) -> tuple:
+    """The service on the card (phase 2g): the port's ``serve_loop`` over a
+    request deck (``io.StringIO`` out, lines made from the answers so far),
+    then the same deck through ``serve_frames`` on a fresh service (RMAT-13
+    and RMAT-18 as B-frame sections), then a restart over the stream root.
+
+    The service runs 16 batch lanes, ``verify="bulk=full"`` and warms the
+    RMAT-18 stream buckets. The deck: the README sample and RMAT-13 as JSON
+    edges, 16 ``gnm_random_graph(128, 500)`` graphs, RMAT-18 by
+    ``graph_path`` (class ``bulk``: certified inline), a repeat of each
+    (``cache``), a ``cached_only`` hit and miss; the kinds ``components``
+    (labels), ``k_msf`` (k = 3), ``bottleneck`` and ``path_max`` at RMAT-13
+    and RMAT-18; 12 updates on RMAT-13; a stream on RMAT-18 with windows of
+    256 and 4,096 updates from ``random_update_stream``, a window that
+    coalesces to a no-op and a publish on a stale head, then a poll; the
+    RMAT-18 answer certified with ``engine="torch"`` on the card and with
+    ``np``, and a corrupted answer (a tree edge swapped for a heavier
+    non-tree edge) refused and corrected; ``stats`` and ``shutdown``. Every
+    forest, kind answer and window head must equal its SciPy oracle; every
+    window's cut pass must run at e = 2^23 directed slots and n = 2^18, with
+    one K2 and one K1 launch a round. The restart must replay every window
+    with no fresh solve.
+
+    Returns the record and the traced inputs of the first round of the first
+    window's cut pass ``(fragment, src, dst, rank, ra, rb)``.
+    """
+    import dataclasses
+    import io
+
+    from distributed_ghs_implementation_tpu_torch.analytics import solvers as asolvers
+    from distributed_ghs_implementation_tpu_torch.batch.warmup import WarmupPlan
+    from distributed_ghs_implementation_tpu_torch.fleet import framing
+    from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph, component_labels
+    from distributed_ghs_implementation_tpu_torch.models.boruvka import _next_pow2
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.serve.service import (
+        MSTService,
+        serve_frames,
+        serve_loop,
+    )
+    from distributed_ghs_implementation_tpu_torch.serve.store import solve_cache_key
+    from distributed_ghs_implementation_tpu_torch.stream import window
+    from distributed_ghs_implementation_tpu_torch.stream.log import UpdateLog
+    from distributed_ghs_implementation_tpu_torch.stream.session import poll_gap_check
+    from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+    from distributed_ghs_implementation_tpu_torch.verify import certify
+
+    out = {}
+    BUS.enable()
+    readme, rmat13, rmat18 = graphs["readme"], graphs["rmat13"], graphs["rmat18"]
+
+    # SciPy oracles, each forest computed once by digest (the kinds' oracles
+    # all start from the exact forest).
+    forests = {graphs[name].digest(): oracle[name] for name in ("readme", "rmat13", "rmat18")}
+
+    def oracle_ids(g):
+        key = g.digest()
+        if key not in forests:
+            forests[key] = rank_oracle_edge_ids(g)
+        return forests[key]
+
+    real_oracle_msf = asolvers._oracle_msf
+    asolvers._oracle_msf = oracle_ids
+
+    def edges_of(g):
+        return [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]
+
+    edges13 = edges_of(rmat13)
+
+    def forest_of(resp):
+        if "mst_edges" in resp:
+            pairs = np.asarray(resp["mst_edges"], dtype=np.int64).reshape(-1, 2)
+            return _pairs(pairs[:, 0], pairs[:, 1])
+        secs = resp[framing.SECTIONS_KEY]
+        return _pairs(secs.array("mst_u"), secs.array("mst_v"))
+
+    def check_forest(what, resp, g):
+        ids = oracle_ids(g)
+        if resp.get("digest") != g.digest():
+            raise AssertionError(f"service {what}: digest {resp.get('digest')} != the graph's")
+        if not np.array_equal(forest_of(resp), _pairs(g.u[ids], g.v[ids])):
+            raise AssertionError(f"service {what}: forest differs from the rank oracle")
+        if resp["total_weight"] != int(g.w[ids].sum()):
+            raise AssertionError(f"service {what}: weight {resp['total_weight']}")
+
+    # Instruments of the window path: the rounds (one K2 and one K1 each),
+    # the two passes, the log append, the whole apply.
+    rounds = {"calls": 0, "shapes": [], "first": None, "armed": False}
+    split = []
+    real_round, real_seeded = window._moe_round, window._seeded_boruvka
+    real_append, real_apply = UpdateLog.append, window.WindowedMST.apply_window
+
+    def counted_round(fragment, src, dst, rank, ra, rb):
+        rounds["calls"] += 1
+        rounds["shapes"].append((int(fragment.numel()), int(src.numel())))
+        if rounds["armed"]:  # the first round of the first cut pass
+            rounds["first"] = tuple(x.clone() for x in (fragment, src, dst, rank, ra, rb))
+            rounds["armed"] = False
+        return real_round(fragment, src, dst, rank, ra, rb)
+
+    def timed_seeded(num_nodes, fragment0, eu, ev, ew, **kw):
+        cycle = np.array_equal(fragment0, np.arange(num_nodes))
+        rounds["armed"] = rounds["first"] is None and not cycle
+        k1 = kernels.hook_compress.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = real_seeded(num_nodes, fragment0, eu, ev, ew, **kw)
+        split[-1]["cycle_s" if cycle else "cut_s"] = time.perf_counter() - t
+        split[-1]["cycle_rounds" if cycle else "cut_rounds"] = (
+            kernels.hook_compress.launches - k1)
+        return got
+
+    def timed_append(self, **kw):
+        t = time.perf_counter()
+        real_append(self, **kw)
+        split[-1]["log_append_s"] = time.perf_counter() - t
+
+    def timed_apply(self, updates):
+        split.append({"updates": len(updates)})
+        t = time.perf_counter()
+        got = real_apply(self, updates)
+        split[-1]["apply_window_s"] = time.perf_counter() - t
+        return got
+
+    window._moe_round, window._seeded_boruvka = counted_round, timed_seeded
+    UpdateLog.append, window.WindowedMST.apply_window = timed_append, timed_apply
+
+    def make_service(root):
+        return MSTService(batch_lanes=16, verify="bulk=full", stream_dir=str(root),
+                          warmup=WarmupPlan(stream_buckets=((rmat18.num_nodes,
+                                                              rmat18.num_edges),)))
+
+    rng = np.random.default_rng(7)
+    windows = [window.random_update_stream(rng, rmat18, 256),
+               window.random_update_stream(rng, rmat18, 4096)]
+    a, b = 0, 1
+    while _has_edge(rmat18, a, b):
+        b += 1
+    noop = [{"kind": "insert", "u": a, "v": b, "w": 5}, {"kind": "delete", "u": a, "v": b}]
+    small16 = small[:16]
+    kinds_at = {}
+    for name, g in (("rmat13", rmat13), ("rmat18", rmat18)):
+        labels = component_labels(g.num_nodes, g.u, g.v)
+        far = int(np.nonzero(labels == labels[0])[0][-1])  # connected to 0, far in id
+        kinds_at[name] = (g, (0, far))
+    cut_shape = (rmat18.num_nodes, 2 * _next_pow2(rmat18.num_edges))
+    state = {}
+    window_checks, update_checks, kind_checks = [], [], []
+    certs = {}
+    svc = make_service(scratch / "streams")
+    warm_report = dict(svc.warmup_report)
+
+    def deck(answers):
+        def last():
+            return answers[-1]
+
+        yield {"op": "solve", "num_nodes": 6, "edges": edges_of(readme), "edges_out": True}
+        check_forest("readme", last(), readme)
+        for rep in ("solved", "cache"):
+            yield {"op": "solve", "num_nodes": rmat13.num_nodes, "edges": edges13,
+                   "edges_out": True}
+            check_forest(f"rmat13 {rep}", last(), rmat13)
+            state["tree13"] = forest_of(last())
+            if last()["source"] != rep:
+                raise AssertionError(f"service rmat13: source {last()['source']}, not {rep}")
+        for i, g in enumerate(small16 + small16[:1]):
+            yield {"op": "solve", "num_nodes": g.num_nodes, "edges": edges_of(g),
+                   "edges_out": True}
+            if not np.array_equal(forest_of(last()), _pairs(g.u[small_oracle[i % 16]],
+                                                            g.v[small_oracle[i % 16]])):
+                raise AssertionError(f"service small128[{i}]: forest differs from the oracle")
+        if last()["source"] != "cache":
+            raise AssertionError("service small128 repeat: not from the cache")
+        for rep in ("solved", "cache"):
+            yield {"op": "solve", "graph_path": npz18, "edges_out": True, "slo_class": "bulk"}
+            check_forest(f"rmat18 {rep}", last(), rmat18)
+            if last()["source"] != rep or last().get("verified") != "full":
+                raise AssertionError(f"service rmat18: {last()['source']}, "
+                                     f"verified {last().get('verified')}")
+        yield {"op": "solve", "cached_only": True, "digest": rmat18.digest()}
+        if not last()["ok"] or last()["source"] != "cache":
+            raise AssertionError("service cached_only: no hit for RMAT-18")
+        yield {"op": "solve", "cached_only": True, "digest": "0" * 64}
+        if last()["ok"] or not last().get("cache_miss"):
+            raise AssertionError("service cached_only: a miss was not a miss")
+        for name, (g, (pu, pv)) in kinds_at.items():
+            base = ({"graph_path": npz18} if name == "rmat18" else
+                    {"num_nodes": g.num_nodes, "edges": edges13})
+            yield {"op": "solve", "kind": "components", "labels_out": True, **base}
+            labels = np.asarray(last()["labels"])
+            want = component_labels(g.num_nodes, g.u, g.v)
+            if not np.array_equal(_canon_labels(labels), _canon_labels(want)) or (
+                    last()["num_components"] != int(np.unique(want).size)):
+                raise AssertionError(f"service {name} components differ from SciPy's")
+            yield {"op": "solve", "kind": "k_msf", "k": 3, **base}
+            if last()["total_weight"] != asolvers.oracle_k_msf_weight(g, 3):
+                raise AssertionError(f"service {name} k_msf differs from the oracle")
+            yield {"op": "solve", "kind": "bottleneck", **base}
+            if last()["bottleneck_weight"] != asolvers.oracle_bottleneck(g):
+                raise AssertionError(f"service {name} bottleneck differs from the oracle")
+            yield {"op": "solve", "kind": "path_max", "u": pu, "v": pv, **base}
+            want_pm = asolvers.oracle_path_max(g, pu, pv)
+            if (last()["connected"], last()["path_max_weight"]) != (
+                    want_pm["connected"], want_pm["weight"]):
+                raise AssertionError(f"service {name} path_max differs from the oracle")
+            kind_checks.append({"graph": name, "components": last()["num_components"],
+                                "path_max": [pu, pv, want_pm["weight"]]})
+        # 12 updates on RMAT-13: inserts, tree-edge deletes, heavier
+        # reweights, each applied to a mirror of the graph here too.
+        n13 = rmat13.num_nodes
+        mu, mv, mw = rmat13.u.copy(), rmat13.v.copy(), rmat13.w.copy()
+
+        def find(x, y):
+            keys = mu * n13 + mv
+            pos = int(np.searchsorted(keys, x * n13 + y))
+            return pos, pos < keys.size and keys[pos] == x * n13 + y
+
+        digest, tree = rmat13.digest(), state["tree13"]
+        wmax = int(rmat13.w.max())
+        for kind in ("insert", "delete", "reweight") * 4:
+            if kind == "insert":
+                x, y = sorted(int(q) for q in rng.choice(n13, 2, replace=False))
+                while find(x, y)[1]:
+                    x, y = sorted(int(q) for q in rng.choice(n13, 2, replace=False))
+                upd = {"kind": "insert", "u": x, "v": y, "w": int(rng.integers(1, wmax + 1))}
+                pos, _ = find(x, y)
+                mu, mv, mw = np.insert(mu, pos, x), np.insert(mv, pos, y), np.insert(mw, pos,
+                                                                                     upd["w"])
+            else:
+                x, y = (int(q) for q in tree[int(rng.integers(0, len(tree)))])
+                pos, _ = find(x, y)
+                if kind == "delete":
+                    upd = {"kind": "delete", "u": x, "v": y}
+                    mu, mv, mw = np.delete(mu, pos), np.delete(mv, pos), np.delete(mw, pos)
+                else:
+                    upd = {"kind": "reweight", "u": x, "v": y,
+                           "w": wmax + int(rng.integers(1, 100))}
+                    mw = mw.copy()
+                    mw[pos] = upd["w"]
+            k12 = (kernels.hook_compress.launches, kernels.gather_key.launches)
+            yield {"op": "update", "digest": digest, "updates": [upd], "edges_out": True}
+            resp = last()
+            check_forest(f"update {upd}", resp, Graph(n13, mu, mv, mw))
+            if resp["mode"] != "incremental" or resp["prev_digest"] != digest:
+                raise AssertionError(f"service update {upd}: mode {resp['mode']}")
+            digest, tree = resp["digest"], forest_of(resp)
+            update_checks.append({"update": [upd["kind"], upd["u"], upd["v"]],
+                                  "hook_compress": kernels.hook_compress.launches - k12[0],
+                                  "gather_key": kernels.gather_key.launches - k12[1]})
+        # The stream on RMAT-18.
+        yield {"op": "subscribe", "digest": rmat18.digest()}
+        sid, head0 = last()["stream"], last()["digest"]
+        head = head0
+        for i, ups in enumerate(windows + [noop]):
+            calls, k12 = rounds["calls"], (kernels.hook_compress.launches,
+                                           kernels.gather_key.launches)
+            shapes_at = len(rounds["shapes"])
+            yield {"op": "publish", "stream": sid, "digest": head, "edges_out": True,
+                   "updates": [u if isinstance(u, dict) else
+                               {k: v for k, v in u.__dict__.items() if v is not None}
+                               for u in ups]}
+            resp = last()
+            d1 = kernels.hook_compress.launches - k12[0]
+            d2 = kernels.gather_key.launches - k12[1]
+            n_rounds = rounds["calls"] - calls
+            shapes = rounds["shapes"][shapes_at:]
+            g = svc.streams._streams[sid].mst.result().graph
+            check_forest(f"stream window {i + 1}", resp, g)
+            fresh = msf(g)
+            if not np.array_equal(forest_of(resp), _pairs(g.u[fresh.edge_ids],
+                                                          g.v[fresh.edge_ids])):
+                raise AssertionError(f"stream window {i + 1}: head differs from a fresh solve")
+            if resp["seq"] != i + 1 or resp["prev_digest"] != head:
+                raise AssertionError(f"stream window {i + 1}: seq {resp['seq']}")
+            if (d1, d2) != (n_rounds, n_rounds) or (n_rounds < 1 and i < 2):
+                raise AssertionError(f"stream window {i + 1}: {n_rounds} rounds but K1 x{d1}, "
+                                     f"K2 x{d2}")
+            if i < 2 and shapes[0] != cut_shape:
+                raise AssertionError(f"stream window {i + 1}: cut pass at (n, e) = {shapes[0]}")
+            if i == 2 and (resp["digest"] != head or resp["notification"]["entered"]
+                           or resp["notification"]["left"]):
+                raise AssertionError("stream no-op window moved the head")
+            window_checks.append({"updates": len(ups), "net": resp["applied"],
+                                  "mode": resp["mode"], "rounds": n_rounds,
+                                  "hook_compress": d1, "gather_key": d2,
+                                  "cut_pass_n_e": list(shapes[0]) if shapes else None,
+                                  "entered": len(resp["notification"]["entered"]),
+                                  "left": len(resp["notification"]["left"]),
+                                  "weight_delta": resp["notification"]["weight_delta"],
+                                  **{k: v for k, v in split[-1].items() if k != "updates"}})
+            head = resp["digest"]
+        yield {"op": "publish", "stream": sid, "digest": head0, "updates": noop}
+        if last()["ok"] or not last().get("stale") or last()["digest"] != head:
+            raise AssertionError("stream publish on a stale head was not refused")
+        yield {"op": "poll", "stream": sid, "after_seq": 0}
+        state["head"], state["notes"] = head, last()["notifications"]
+        seqs = [n["seq"] for n in last()["notifications"]]
+        if poll_gap_check(seqs, last()["seq"]) != {"gaps": 0, "dups": 0} or seqs != [1, 2, 3]:
+            raise AssertionError(f"stream poll: {seqs}")
+        # Certificates of the RMAT-18 answer, then a corrupted one.
+        res, _ = svc.scheduler.solve(rmat18)
+        t = time.perf_counter()
+        on_card = certify.certify_result(res, engine="torch", device=dev)
+        certs["torch_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        on_host = certify.certify_result(res, engine="np")
+        certs["np_s"] = time.perf_counter() - t
+        strip = ("engine", "check_s")
+        if not on_card.ok or {k: v for k, v in dataclasses.asdict(on_card).items()
+                              if k not in strip} != {
+                k: v for k, v in dataclasses.asdict(on_host).items() if k not in strip}:
+            raise AssertionError(f"certificates differ: {on_card} {on_host}")
+        bad = dataclasses.replace(res, edge_ids=_heavier_swap(rmat18, res.edge_ids,
+                                                              component_labels))
+        before = dict(BUS.counters())
+        fixed, verified = svc.verifier.check(bad, cls="bulk",
+                                             key=solve_cache_key(rmat18, backend="device"),
+                                             backend="device")
+        after = BUS.counters()
+        if verified != "full" or not np.array_equal(np.sort(fixed.edge_ids), oracle["rmat18"]):
+            raise AssertionError("the corrupted RMAT-18 answer was not corrected")
+        delta = {k: after.get(k, 0) - before.get(k, 0) for k in ("verify.failed",
+                                                                 "verify.corrected")}
+        if delta != {"verify.failed": 1, "verify.corrected": 1}:
+            raise AssertionError(f"verifier counters {delta}")
+        certs.update(reason=certify.certify_result(bad, engine="torch", device=dev).reason,
+                     counters=delta)
+        yield {"op": "stats"}
+        if not last()["ok"] or last()["streams"] != 1:
+            raise AssertionError(f"service stats: {last()}")
+        yield {"op": "shutdown"}
+
+    try:
+        # a. JSONL
+        t = time.perf_counter()
+        answers, requests, times = [], [], []
+        text_out = io.StringIO()
+        serve_loop(_feed(deck, text_out, answers, requests), text_out, _Timed(svc, times))
+        answers.extend(json.loads(x) for x in text_out.getvalue().splitlines()[len(answers):])
+        if len(answers) != len(requests) or not answers[-1].get("ok"):
+            raise AssertionError("service: the JSONL loop did not answer every request")
+        out["jsonl_s"] = time.perf_counter() - t
+        out["requests"] = len(requests)
+        stats = answers[-2]
+        # b. the same deck over frames, on a fresh service, RMAT-13 and RMAT-18
+        # as B-frame sections
+        t = time.perf_counter()
+        frames = io.BytesIO()
+        wire13 = rmat13.to_wire()
+        wire18 = rmat18.to_wire()
+        for req in requests[:-2]:
+            if req.get("edges") is not None and req["num_nodes"] == rmat13.num_nodes:
+                req = {k: v for k, v in req.items() if k not in ("edges", "num_nodes")}
+                req = {**req, **wire13}
+            elif req.get("graph_path") == npz18:
+                req = {**{k: v for k, v in req.items() if k != "graph_path"}, **wire18}
+            frames.write(framing.encode_bframe(req) if framing.SECTIONS_KEY in req
+                         else framing.encode_frame(req, crc=True))
+        frames.write(framing.encode_frame({"op": "shutdown"}, crc=True))
+        fsvc = make_service(scratch / "streams_frames")
+        frame_times = []
+        bin_out = io.BytesIO()
+        if serve_frames(io.BytesIO(frames.getvalue()), bin_out, _Timed(fsvc, frame_times)) != 0:
+            raise AssertionError("serve_frames did not end cleanly")
+        bin_out.seek(0)
+        got = []
+        while (resp := framing.read_frame(bin_out)) is not None:
+            got.append(framing.fold_sections(resp))
+        want = answers[:-2] + answers[-1:]
+        if len(got) != len(want):
+            raise AssertionError(f"serve_frames answered {len(got)} of {len(want)}")
+        for i, (f, j) in enumerate(zip(got, want)):
+            for d in (f, j):
+                for key in ("wall_time_s", "wall_s"):
+                    d.pop(key, None)
+            if f != j:
+                raise AssertionError(f"serve_frames answer {i} ({requests[i].get('op')}) "
+                                     f"differs from serve_loop's")
+        out["frames_s"] = time.perf_counter() - t
+        # c. a restart over the stream root replays every window, no solve
+        t = time.perf_counter()
+        before = dict(BUS.counters())
+        again = MSTService(stream_dir=str(scratch / "streams"))
+        sid = rmat18.digest()[:16]
+        sub = again.handle({"op": "subscribe", "stream": sid})
+        poll = again.handle({"op": "poll", "stream": sid, "after_seq": 0})
+        after = BUS.counters()
+
+        def moved(name):
+            return after.get(name, 0) - before.get(name, 0)
+
+        replay = {name: moved(name) for name in (
+            "stream.replay.streams", "stream.replay.windows", "stream.replay.fresh_solve",
+            "serve.scheduler.fresh_solve")}
+        if (replay["stream.replay.windows"] != 3 or replay["stream.replay.fresh_solve"]
+                or replay["serve.scheduler.fresh_solve"] or sub["digest"] != state["head"]
+                or sub["seq"] != 3):
+            raise AssertionError(f"restart: {replay}, head {sub['digest']} seq {sub['seq']}")
+        if poll["notifications"] != state["notes"]:
+            raise AssertionError("restart: the notifications differ from the live ones")
+        out["restart"] = {**replay, "seq": sub["seq"], "s": time.perf_counter() - t}
+    finally:
+        window._moe_round, window._seeded_boruvka = real_round, real_seeded
+        UpdateLog.append, window.WindowedMST.apply_window = real_append, real_apply
+        asolvers._oracle_msf = real_oracle_msf
+
+    by_op = {}
+    for op, kind, source, s in times:
+        by_op.setdefault(f"{op}/{kind}/{source}", []).append(s * 1e3)
+    out.update(
+        latency_ms={k: {"count": len(v), "median": statistics.median(v), "max": max(v)}
+                    for k, v in sorted(by_op.items())},
+        frames_latency_ms_total=sum(s for *_, s in frame_times) * 1e3,
+        windows=window_checks, updates=update_checks, kinds=kind_checks,
+        certify={**certs, "n": rmat18.num_nodes, "m": rmat18.num_edges},
+        warmup=warm_report,
+        stats_counters={k: v for k, v in stats["counters"].items()
+                        if k.startswith(("stream.", "verify.", "serve.scheduler", "compile."))})
+    if sum(u["hook_compress"] for u in update_checks) < 1:
+        raise AssertionError("service updates: no K1 launch on the incremental path")
+    return out, rounds["first"]
+
+
+def _ingest_times(graphs, json18: str) -> dict:
+    """JSON lines against B-frames: the seconds from request bytes to a
+    ``Graph`` (``json.loads`` and ``Graph.from_edges``, against
+    ``read_frame`` and ``Graph.from_wire``), at RMAT-13 and RMAT-18;
+    ``json18`` is RMAT-18's JSON request, made in the set-up."""
+    import io
+
+    from distributed_ghs_implementation_tpu_torch.fleet import framing
+    from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+
+    ingest = {}
+    for name in ("rmat13", "rmat18"):
+        g = graphs[name]
+        line = json18 if name == "rmat18" else json.dumps(
+            {"op": "solve", "num_nodes": g.num_nodes,
+             "edges": np.stack([g.u, g.v, g.w], axis=1).tolist()})
+        data = framing.encode_bframe({"op": "solve", **g.to_wire()})
+        t = time.perf_counter()
+        req = json.loads(line)
+        from_json = Graph.from_edges(int(req["num_nodes"]), req["edges"])
+        json_s = time.perf_counter() - t
+        del req
+        t = time.perf_counter()
+        req = framing.read_frame(io.BytesIO(data))
+        from_wire = Graph.from_wire(req)
+        frame_s = time.perf_counter() - t
+        if not from_json.digest() == from_wire.digest() == g.digest():
+            raise AssertionError(f"ingest {name}: the graphs differ")
+        ingest[name] = {"json_bytes": len(line), "json_s": json_s,
+                        "bframe_bytes": len(data), "bframe_s": frame_s}
+    return ingest
+
+
+def _json_request(g) -> str:
+    """``{"op": "solve", "num_nodes": n, "edges": [[u, v, w], ...]}`` for an
+    integer-weighted graph, formatted by NumPy in one pass."""
+    import io
+
+    body = io.StringIO()
+    np.savetxt(body, np.stack([g.u, g.v, g.w], axis=1), fmt="[%d,%d,%d]", newline=",")
+    return f'{{"op":"solve","num_nodes":{g.num_nodes},"edges":[{body.getvalue()[:-1]}]}}'
+
+
+def _has_edge(g, a, b) -> bool:
+    """Is ``(a, b)`` an edge of ``g`` (canonical arrays, sorted by (u, v))?"""
+    key = g.u * g.num_nodes + g.v
+    want = min(a, b) * g.num_nodes + max(a, b)
+    pos = int(np.searchsorted(key, want))
+    return pos < key.size and key[pos] == want
+
+
+def _heavier_swap(g, ids, component_labels) -> np.ndarray:
+    """One tree edge swapped for a heavier non-tree edge that reconnects
+    its two sides: a spanning forest that is not the minimum one."""
+    ids = np.sort(np.asarray(ids))
+    tree = np.zeros(g.num_edges, dtype=bool)
+    tree[ids] = True
+    for drop in ids[np.argsort(g.w[ids], kind="stable")]:
+        keep = ids[ids != drop]
+        labels = component_labels(g.num_nodes, g.u[keep], g.v[keep])
+        cross = np.nonzero(~tree & (labels[g.u] != labels[g.v]) & (g.w > g.w[drop]))[0]
+        if cross.size:
+            return np.sort(np.append(keep, cross[0]))
+    raise AssertionError("no heavier replacement edge")
+
+
 def main() -> int:
     import torch
 
@@ -1020,6 +1586,16 @@ def main() -> int:
         if len(buckets) != 1:
             raise AssertionError(f"{name}: the lane set spans buckets {buckets}")
     oracle_w = {name: scipy_mst_weight(g) for name, g in graphs.items()}
+    # Phase 2g's inputs: RMAT-18 as an .npz for ``graph_path``, and as one
+    # JSON request for the ingest timing.
+    from distributed_ghs_implementation_tpu_torch.graphs import io as graph_io
+
+    inputs = ROOT / "build" / "smoke_inputs"
+    shutil.rmtree(inputs, ignore_errors=True)
+    inputs.mkdir(parents=True)
+    npz18 = str(inputs / "rmat18.npz")
+    graph_io.write_npz(rmat18, npz18)
+    json18 = _json_request(rmat18)
     if rmat13.num_edges >= boruvka.ELL_AUTO_EDGE_THRESHOLD:
         raise AssertionError(f"RMAT-13 has {rmat13.num_edges} edges: auto would not run fused")
     if oracle_w["rmat20"] != RMAT20_ORACLE_WEIGHT:
@@ -1189,9 +1765,25 @@ def main() -> int:
     batch_counts = read_counts("batch and serve", ("gather_key", "hook_compress"))
     print(f"main path, batch and serve: {time.perf_counter() - t_batch:.2f} s, all forests equal "
           f"the rank oracle; {json.dumps({**batch_serve, 'launches': batch_counts})}")
+
+    # 2g. the service: serve_loop and serve_frames, streams, certificates, kinds
+    zero_counts()
+    t_service = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        service, window_inputs = _service_path(
+            torch, kernels, minimum_spanning_forest, graphs, oracle, lane_sets["small128"],
+            lane_oracle["small128"], scratch, npz18, torch.device("cuda"))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+        shutil.rmtree(inputs, ignore_errors=True)
+    service_counts = read_counts("service", ("gather_key", "hook_compress"))
+    service["phase_s"] = time.perf_counter() - t_service
+    print(f"main path, service: {service['phase_s']:.2f} s, every forest, kind answer and window "
+          f"head equals its oracle; {json.dumps({**service, 'launches': service_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
-                for name in flat_counts}
+                + service_counts[name] for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -1388,6 +1980,49 @@ def main() -> int:
             raise AssertionError(f"K2 and its plain version disagree on the {name} stack")
     print("K2 vs plain on the 16-lane stacks (level-1 partition), element-exact: "
           + ", ".join(lane_sets))
+    # K2 and K1 on the stream window's own inputs: the first round of the
+    # first cut pass (n = 2^18, e = 2^23, fragments seeded from the tree).
+    wf, ws, wd, wr, wa, wb = window_inputs
+    gap = _max_abs_err(kernels.gather_key(wf, ws, wd, wr), kernels.gather_key_torch(wf, ws, wd, wr))
+    err["gather_key"] = max(err["gather_key"], gap)
+    if gap:
+        raise AssertionError("K2 and its plain version disagree on the window's cut pass")
+    w_has, _, w_dst = fragment_moe(wf, ws, wd, wr, wa, wb)
+    w_hook = (w_has, w_dst, wf)
+    gap = _max_abs_err(kernels.hook_compress(*w_hook), kernels.hook_compress_torch(*w_hook))
+    err["hook_compress"] = max(err["hook_compress"], gap)
+    if gap:
+        raise AssertionError("K1 and its plain version disagree on the window's cut pass")
+    wn, we = wf.numel(), ws.numel()
+    kernels.hook_compress(*w_hook)
+    w_jumps, w_form = kernels.hook_compress_readout()
+    window_k = {
+        "gather_key": {
+            "shape": f"n={wn} e={we}, a stream window's cut pass (seeded fragments)",
+            "ms": cuda_time_ms(lambda: kernels.gather_key(wf, ws, wd, wr)),
+            "plain_ms": cuda_time_ms(lambda: kernels.gather_key_torch(wf, ws, wd, wr)),
+            "bound_ms": (4 * wn + 20 * we) / HBM_BYTES_PER_S * 1e3},
+        "hook_compress": {
+            "shape": f"n={wn}, a stream window's cut pass, round 1", "form": w_form,
+            "jumps": w_jumps,
+            "ms": cuda_time_ms(lambda: kernels.hook_compress(*w_hook)),
+            "plain_ms": cuda_time_ms(lambda: kernels.hook_compress_torch(*w_hook)),
+            "bound_ms": 17 * wn / HBM_BYTES_PER_S * 1e3},
+    }
+    for name, rec in window_k.items():
+        print(f"time {name} ({rec['shape']}): kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; element-exact")
+    # The service's ingest, JSON against B-frames, and the stream window's
+    # warm a bucket.
+    from distributed_ghs_implementation_tpu_torch.stream.window import warm_window_kernels
+
+    ingest = _ingest_times(graphs, json18)
+    del json18
+    t = time.perf_counter()
+    shapes = warm_window_kernels(rmat18.num_nodes, rmat18.num_edges)
+    warm_ms = (time.perf_counter() - t) * 1e3 / shapes
+    print("time service ingest, request bytes to a Graph (s): " + json.dumps(ingest)
+          + f"; warm_window_kernels at RMAT-18: {shapes} buckets, {warm_ms:.4f} ms a bucket")
     print("K1 on the fused RMAT-18 solve, (form, jumps taken of num_jumps) a level: " + ", ".join(
         f"{form} {jumps}/{kernels.num_jumps(frag1.numel())}" for jumps, form in k1_levels))
     n, e = frag1.numel(), src.numel()
@@ -1484,6 +2119,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "launches_batch_serve": batch_counts[name],
+            "launches_service": service_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1499,6 +2135,8 @@ def main() -> int:
         print(f"time {name} ({shape}): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms")
     k1, k3 = out[1], out[3]
+    out[0]["stream_window"] = window_k["gather_key"]
+    k1["stream_window"] = window_k["hook_compress"]
     k1.update(device_ms=device_ms["hook_compress n=2^18"], levels_rmat18=[
         {"form": form, "jumps": jumps} for jumps, form in k1_levels])
     kernels.hook_compress(has1, d1, frag1)

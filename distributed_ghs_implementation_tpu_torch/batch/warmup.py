@@ -26,12 +26,15 @@ builds as ``compile.miss``, so "zero builds at request time" is a property
 a run can assert: after a warmup that covers the traffic's buckets, the
 query phase adds no ``compile.miss``.
 
-Three inputs wait for other parts of the port and raise
+``stream_buckets`` warm the windowed stream's Borůvka round
+(``stream/window.warm_window_kernels``) at the padded buckets a stream of
+that size dispatches, counted ``stream_warmed`` as in the JAX package.
+
+Two inputs wait for other parts of the port and raise
 ``NotImplementedError`` naming what they wait for; nothing is skipped in
-silence: ``tuning`` (a ``ghs-tuning-v1`` record, ``tune/``),
-``stream_buckets`` (``stream/``) and a ``lane`` for ``mesh_buckets``
-(``parallel/``). Without a lane, mesh buckets are counted
-``mesh_skipped``, as in the JAX package.
+silence: ``tuning`` (a ``ghs-tuning-v1`` record, ``tune/``) and a ``lane``
+for ``mesh_buckets`` (``parallel/``). Without a lane, mesh buckets are
+counted ``mesh_skipped``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,10 +105,11 @@ class WarmupPlan:
     path's sharded lane, warmed only when :func:`run_warmup` is handed a
     lane; the port has none yet, so without one they are counted
     ``mesh_skipped`` and with one :func:`run_warmup` raises.
-    ``stream_buckets`` (raw sizes of subscribed graphs) and ``tuning`` (a
-    ``ghs-tuning-v1`` record) are kept for the record format and the flag
-    surface; :func:`run_warmup` raises on either until the stream layer
-    and the tuner are ported.
+    ``stream_buckets`` are raw ``(nodes, edges)`` sizes of subscribed
+    graphs: each warms the windowed stream's Borůvka round at the padded
+    edge buckets a stream of that size dispatches. ``tuning`` (a
+    ``ghs-tuning-v1`` record) is kept for the record format and the flag
+    surface; :func:`run_warmup` raises on it until the tuner is ported.
 
     ``kernel`` is ``None`` or the label of the device warmup runs on
     (``cuda``, ``torch``): the port has one kernel a device, so there is
@@ -433,9 +437,9 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
 
     Idempotent: buckets already built are skipped (reported ``cached``).
     The whole phase is one ``compile.warmup_phase`` span. Raises
-    ``NotImplementedError`` for a ``tuning`` record, ``stream_buckets`` and
-    a ``lane``, which wait for other parts of the port, and ``ValueError``
-    for a ``kernel`` the device does not run.
+    ``NotImplementedError`` for a ``tuning`` record and a ``lane``, which
+    wait for other parts of the port, and ``ValueError`` for a ``kernel``
+    the device does not run.
     """
     device = resolve_device(device)
     kernel = kernel_label(device)
@@ -447,10 +451,6 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
     if plan.tuning:
         raise NotImplementedError(
             "warmup tuning records wait for the port of tune/ (ROADMAP queue 1 item 10)"
-        )
-    if plan.stream_buckets:
-        raise NotImplementedError(
-            "stream buckets wait for the port of stream/ (ROADMAP queue 1 item 8)"
         )
     if lane is not None:
         raise NotImplementedError(
@@ -507,6 +507,13 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
                 _warm_single_graph_kernel(n_pad, m_pad, device)
                 report["single_warmed"] += 1
         report["mesh_skipped"] += len(plan.mesh_buckets)
+        if plan.stream_buckets:
+            from distributed_ghs_implementation_tpu_torch.stream.window import (
+                warm_window_kernels,
+            )
+
+            for nodes, edges in plan.stream_buckets:
+                report["stream_warmed"] += warm_window_kernels(nodes, edges, device=device)
         span.set(compiled=report["compiled"], cached=report["cached"])
     report["wall_s"] = time.perf_counter() - t0
     return report

@@ -148,6 +148,68 @@ class Graph:
         fingerprint embeds."""
         return np.frombuffer(bytes.fromhex(self._digest), dtype=np.int64).copy()
 
+    # ------------------------------------------------------------------
+    # Binary wire codec (fleet/framing.py B-frames)
+    # ------------------------------------------------------------------
+    def to_wire(self) -> dict:
+        """This graph as a binary request fragment: ``num_nodes``,
+        ``num_edges`` and ``digest`` as JSON fields plus ``u``/``v``/``w``
+        as raw little-endian sections. The canonical arrays go onto the
+        wire as they are, so the receiver's :meth:`from_wire` digest equals
+        this one."""
+        from distributed_ghs_implementation_tpu_torch.fleet.framing import (
+            SECTIONS_KEY,
+            WireSections,
+        )
+
+        return {
+            "num_nodes": self.num_nodes,
+            "num_edges": self.num_edges,
+            "digest": self.digest(),
+            SECTIONS_KEY: WireSections().add("u", self.u).add("v", self.v).add("w", self.w),
+        }
+
+    @staticmethod
+    def from_wire(payload: dict) -> "Graph":
+        """Rebuild from a binary request fragment: ``np.frombuffer`` views
+        over the received frame buffer, no copies.
+
+        The arrays are taken as canonical only after a vectorized check
+        (in range, ``u < v``, strictly lexsorted: what :meth:`from_arrays`
+        would produce); a non-canonical sender goes through
+        :meth:`from_arrays`, so the digest always names the canonical form,
+        as on the JSON ``edges`` path. The arrays of the canonical case are
+        read-only views; nothing writes to a ``Graph``'s arrays."""
+        from distributed_ghs_implementation_tpu_torch.fleet.framing import SECTIONS_KEY
+
+        secs = payload.get(SECTIONS_KEY)
+        if secs is None or not all(n in secs for n in ("u", "v", "w")):
+            raise ValueError(
+                "binary graph payload needs u/v/w sections "
+                f"(got {getattr(secs, 'names', None)})"
+            )
+        num_nodes = int(payload["num_nodes"])
+        u, v, w = secs.array("u"), secs.array("v"), secs.array("w")
+        if u.dtype != np.int64 or v.dtype != np.int64:
+            raise ValueError(f"endpoint sections must be int64, got {u.dtype}/{v.dtype}")
+        if w.dtype not in (np.dtype(np.int64), np.dtype(np.float64)):
+            raise ValueError(f"weight section must be i8/f8, got {w.dtype}")
+        if not (u.shape == v.shape == w.shape):
+            raise ValueError(f"section lengths disagree: {u.size}/{v.size}/{w.size}")
+        m = u.size
+        canonical = m == 0 or (
+            int(u.min()) >= 0
+            and int(v.max()) < num_nodes
+            and bool(np.all(u < v))
+            and bool(np.all((u[1:] > u[:-1]) | ((u[1:] == u[:-1]) & (v[1:] > v[:-1]))))
+        )
+        if canonical:
+            if m == 0:
+                e = np.zeros(0, dtype=np.int64)
+                return Graph(num_nodes, e, e.copy(), w.astype(w.dtype))
+            return Graph(num_nodes, u, v, w)
+        return Graph.from_arrays(num_nodes, u, v, w)
+
     def rank_arrays(
         self, *, pad_edges_to: int | None = None, pad_ranks_to: int | None = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:

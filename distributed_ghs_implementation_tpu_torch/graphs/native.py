@@ -175,6 +175,21 @@ def rmat_edges(
     return u[:kept].copy(), v[:kept].copy(), w[:kept].copy(), n
 
 
+def dimacs_parse(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """A DIMACS ``.gr`` file's arcs as they stand (1-indexed ids made
+    0-indexed, both directions kept): ``(u, v, w, n)``. Two passes of the C
+    parser, one to count the arcs and one to fill arrays of that size."""
+    lib = get_lib()
+    n_out = np.zeros(1, dtype=np.int64)
+    count = int(lib.dimacs_parse(os.fsencode(path), _p64(n_out), None, None, None, 0))
+    if count < 0:
+        raise FileNotFoundError(path)
+    u, v, w = (np.empty(count, dtype=np.int64) for _ in range(3))
+    wrote = int(lib.dimacs_parse(os.fsencode(path), _p64(n_out), _p64(u), _p64(v), _p64(w),
+                                 count))
+    return u[:wrote], v[:wrote], w[:wrote], int(n_out[0])
+
+
 def rank_order_counting(w: np.ndarray) -> Optional[np.ndarray]:
     """Edge ids by ``(weight, edge id)`` from a stable counting sort of
     integer weights; ``None`` when their range exceeds 2^22 values."""

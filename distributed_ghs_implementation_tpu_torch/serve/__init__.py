@@ -1,5 +1,4 @@
-"""The serve stack's solve half, on one card: the port of the JAX package's
-``serve/store``, ``serve/scheduler`` and ``serve/dynamic``.
+"""The serve stack on one card: the port of the JAX package's ``serve/``.
 
 * ``store``: content-addressed result cache (graph digest + solver config
   -> ``MSTResult``), an in-memory LRU and an optional crash-consistent disk
@@ -8,9 +7,10 @@
   every cache miss solves supervised, or through the batch engine.
 * ``dynamic``: incremental forest maintenance for edge insert, delete and
   reweight against a cached result, with a supervised re-solve fallback.
-
-The JSONL loop (the JAX package's ``serve/service.py``: ``MSTService``,
-``serve_loop``) is not ported yet.
+* ``service``: ``MSTService``, the request handler over all of it (solves
+  of every analytics kind, updates, streams, verification, stats), and the
+  loops that speak its protocol: ``serve_loop`` over JSONL and
+  ``serve_frames`` over length-prefixed frames and B-frames.
 """
 
 from distributed_ghs_implementation_tpu_torch.serve.dynamic import (
@@ -20,14 +20,22 @@ from distributed_ghs_implementation_tpu_torch.serve.dynamic import (
     tree_path_max,
 )
 from distributed_ghs_implementation_tpu_torch.serve.scheduler import SolveScheduler
+from distributed_ghs_implementation_tpu_torch.serve.service import (
+    MSTService,
+    serve_frames,
+    serve_loop,
+)
 from distributed_ghs_implementation_tpu_torch.serve.store import ResultStore, solve_cache_key
 
 __all__ = [
     "DynamicMST",
+    "MSTService",
     "ResultStore",
     "SolveScheduler",
     "Update",
     "components_via_unionfind",
+    "serve_frames",
+    "serve_loop",
     "solve_cache_key",
     "tree_path_max",
 ]

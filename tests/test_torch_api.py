@@ -134,6 +134,7 @@ def test_port_imports_and_solves_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['networkx'] = None\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         "from distributed_ghs_implementation_tpu_torch import minimum_spanning_tree\n"
         "from distributed_ghs_implementation_tpu_torch.graphs.generators import "
@@ -174,6 +175,25 @@ def test_port_imports_and_solves_without_jax():
         "assert sched.solve(g)[0].total_weight == 20 and sched.solve(g)[1] == 'cache'\n"
         "dyn = serve.DynamicMST(r, device='cpu')\n"
         "assert dyn.apply([serve.Update('insert', 0, 5, 1)]).total_weight <= 20\n"
+        "import io, json\n"
+        "from distributed_ghs_implementation_tpu_torch import analytics, fleet, stream, verify\n"
+        "from distributed_ghs_implementation_tpu_torch.fleet import framing\n"
+        "from distributed_ghs_implementation_tpu_torch.graphs import io as gio\n"
+        "from distributed_ghs_implementation_tpu_torch.stream import log, session, window\n"
+        "from distributed_ghs_implementation_tpu_torch.utils import wal\n"
+        "from distributed_ghs_implementation_tpu_torch.verify import certify, policy\n"
+        "for spec in analytics.KINDS.values():\n"
+        "    spec.solver, spec.oracle, spec.certify\n"
+        "edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]\n"
+        "reqs = [{'op': 'solve', 'num_nodes': 6, 'edges': edges, 'kind': k} for k in\n"
+        "        ('mst', 'components', 'bottleneck')]\n"
+        "reqs += [{'op': 'subscribe', 'digest': g.digest()}, {'op': 'stats'}]\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    svc = serve.MSTService(device='cpu', verify='full', stream_dir=d)\n"
+        "    out = io.StringIO()\n"
+        "    serve.serve_loop(io.StringIO('\\n'.join(map(json.dumps, reqs))), out, svc)\n"
+        "answers = [json.loads(x) for x in out.getvalue().splitlines()]\n"
+        "assert all(a['ok'] for a in answers) and answers[0]['total_weight'] == 20, answers\n"
         "bad = [m for m in sys.modules if m == 'distributed_ghs_implementation_tpu' "
         "or m.startswith('distributed_ghs_implementation_tpu.')]\n"
         "assert not bad, bad\n"
@@ -186,7 +206,8 @@ def test_port_imports_and_solves_without_jax():
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
-    jax_import = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    """Nor NetworkX, which the card's machine does not have."""
+    jax_import = re.compile(r"^\s*(import jax|from jax|import networkx|from networkx)\b", re.M)
     files = sorted(PORT_DIR.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
         REPO / "tests" / "torch_inputs.py",

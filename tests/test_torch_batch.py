@@ -8,8 +8,8 @@ level counts in both lane modes, policy forms, batch API results, incident
 trails and ``compile.*`` counter sequences must be equal element for
 element. Where the port differs on purpose it is pinned: a kernel fault or
 a failed build raises out of the engine with no fallback, the solver
-cache's kernel label is ``torch`` on the CPU, and three warmup inputs raise
-``NotImplementedError``.
+cache's kernel label is ``torch`` on the CPU, and two warmup inputs raise
+``NotImplementedError`` (``stream_buckets`` warm, as in the JAX package).
 """
 
 import contextlib
@@ -545,10 +545,21 @@ def test_warmup_skips_and_counts_as_jax():
     assert twarmup.summarize_report(tr) == jwarmup.summarize_report(jr)
 
 
+def test_warmup_stream_buckets_warm_as_jax():
+    """Stream buckets warm the window round at the same padded buckets as
+    the JAX package: equal reports, ``stream_warmed`` counting them."""
+    for plan in (dict(stream_buckets=((100, 300),)),
+                 dict(stream_buckets=((100, 300), (5000, 200)), buckets=((64, 256),))):
+        jr = jwarmup.run_warmup(jwarmup.WarmupPlan(**plan))
+        tr = twarmup.run_warmup(twarmup.WarmupPlan(**plan), device=CPU)
+        jr.update(kernel="torch", wall_s=0.0)
+        tr["wall_s"] = 0.0
+        assert tr == jr and tr["stream_warmed"] > 0
+
+
 def test_warmup_inputs_that_wait_for_other_items_raise():
     cases = [
         (twarmup.WarmupPlan(buckets=((64, 256),), tuning="/tmp/t.json"), {}, "item 10"),
-        (twarmup.WarmupPlan(stream_buckets=((100, 300),)), {}, "item 8"),
         (twarmup.WarmupPlan(mesh_buckets=((70000, 140000),)), {"lane": object()}, "item 9"),
     ]
     for plan, kw, item in cases:

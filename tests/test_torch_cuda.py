@@ -108,14 +108,28 @@ def test_hook_compress_refused_launches_raise_on_card(cuda):
         kernels.hook_compress(*args, form="warp")
 
 
-def _device_kernels(fn):
-    """The device kernels one call of ``fn`` runs, by the profiler."""
-    torch.cuda.synchronize()
+def _device_kernels(fn, attempts=3):
+    """The device kernels one call of ``fn`` runs, by the profiler: a
+    warm-up step of one call first (the tracer can miss the first kernels
+    after it starts), then the step kept, without the step's own range. A
+    session that recorded no device kernel at all is run again, up to
+    ``attempts`` sessions (the tracer now and then records nothing in a
+    session); the caller checks what the last one returns."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.gpu
@@ -843,3 +857,141 @@ def test_scheduler_and_dynamic_on_card_equal_cpu(cuda):
         np.testing.assert_array_equal(card.edge_ids, cpu.edge_ids)
         np.testing.assert_array_equal(card.edge_ids, rank_oracle_edge_ids(card.graph))
         assert dyns[0].last_mode == dyns[1].last_mode == "incremental"
+
+
+# ---------------------------------------------------------------------------
+# Streams, certificates and the service (RMAT-18)
+# ---------------------------------------------------------------------------
+
+
+def _cut_pass_inputs(g, rng, deletions, device):
+    """A window's cut-pass inputs on ``g``: the forest less ``deletions``
+    random tree edges seeds the fragments, over every edge of the graph."""
+    from distributed_ghs_implementation_tpu_torch.stream import window
+
+    ids = rank_oracle_edge_ids(g)
+    keep = np.delete(ids, rng.choice(ids.size, deletions, replace=False))
+    frag0 = edgelist.component_labels(g.num_nodes, g.u[keep], g.v[keep])
+    return window._round_inputs(frag0, g.u, g.v, g.w, device)
+
+
+@pytest.mark.gpu
+def test_window_rounds_on_card_equal_plain(cuda, rmat18):
+    """Every round of a window's cut pass at RMAT-18's shapes (e = 2^23
+    directed slots, n = 2^18, a seeded partition): K2 and K1 equal their
+    plain versions, one launch each a round."""
+    from distributed_ghs_implementation_tpu_torch.ops.segment_ops import segment_min
+
+    g, _ = rmat18
+    _, frag, src, dst, rank, ra, rb = _cut_pass_inputs(g, np.random.default_rng(1), 4096, cuda)
+    assert src.numel() == 1 << 23 and frag.numel() == 1 << 18
+    rounds = 0
+    while True:
+        k2 = kernels.gather_key.launches
+        got = kernels.gather_key(frag, src, dst, rank)
+        for a, b in zip(got, kernels.gather_key_torch(frag, src, dst, rank)):
+            assert torch.equal(a, b)
+        assert kernels.gather_key.launches == k2 + 1
+        f_src, key = got
+        moe = segment_min(key, f_src, frag.numel())
+        has = moe < kernels.INT32_MAX
+        if not bool(has.any()):
+            break
+        safe = torch.where(has, moe, 0).long()
+        fa, fb = frag[ra[safe].long()], frag[rb[safe].long()]
+        ids = torch.arange(frag.numel(), dtype=torch.int32, device=cuda)
+        dstf = torch.where(has, torch.where(fa == ids, fb, fa), ids)
+        new = kernels.hook_compress(has, dstf, frag)
+        for a, b in zip(new, kernels.hook_compress_torch(has, dstf, frag)):
+            assert torch.equal(a, b)
+        frag = new[0]
+        rounds += 1
+    assert rounds >= 1
+
+
+@pytest.mark.gpu
+def test_windows_on_card_equal_cpu_and_fresh_solves(cuda):
+    from distributed_ghs_implementation_tpu_torch.api import minimum_spanning_forest
+    from distributed_ghs_implementation_tpu_torch.stream.window import (
+        WindowedMST,
+        random_update_stream,
+    )
+
+    g = generators.rmat_graph(13, 16, seed=1)
+    wins = [WindowedMST(minimum_spanning_forest(g, device=d), device=d) for d in (cuda, "cpu")]
+    rng = np.random.default_rng(3)
+    for size in (64, 512, 2):
+        window = random_update_stream(rng, g, size)
+        (card, ci), (cpu, pi) = (w.apply_window(window) for w in wins)
+        assert card.graph.digest() == cpu.graph.digest() and ci == pi
+        np.testing.assert_array_equal(card.edge_ids, cpu.edge_ids)
+        np.testing.assert_array_equal(card.edge_ids, rank_oracle_edge_ids(card.graph))
+
+
+@pytest.mark.gpu
+def test_certify_torch_engine_on_card_equals_np(cuda, rmat18):
+    import dataclasses
+
+    from distributed_ghs_implementation_tpu_torch.verify import certify
+
+    g, oracle = rmat18
+
+    def verdict(cert):
+        return {k: v for k, v in dataclasses.asdict(cert).items()
+                if k not in ("engine", "check_s")}
+
+    tree = np.zeros(g.num_edges, dtype=bool)
+    tree[oracle] = True
+    labels = None
+    bad = None
+    for drop in oracle[np.argsort(g.w[oracle])][:64]:
+        keep = oracle[oracle != drop]
+        labels = edgelist.component_labels(g.num_nodes, g.u[keep], g.v[keep])
+        cross = np.nonzero(~tree & (labels[g.u] != labels[g.v]) & (g.w > g.w[drop]))[0]
+        if cross.size:
+            bad = np.sort(np.append(keep, cross[0]))
+            break
+    assert bad is not None
+    for claim, ok in ((oracle, True), (bad, False)):
+        on_card = certify.certify_edge_ids(g, claim, engine="torch", device=cuda)
+        on_host = certify.certify_edge_ids(g, claim, engine="np")
+        assert on_card.engine == "torch" and on_card.ok is ok
+        assert verdict(on_card) == verdict(on_host)
+
+
+@pytest.mark.gpu
+def test_service_deck_on_card_equals_cpu(cuda, tmp_path):
+    import io
+    import json
+
+    from distributed_ghs_implementation_tpu_torch.serve.service import MSTService, serve_loop
+    from distributed_ghs_implementation_tpu_torch.stream.window import random_update_stream
+
+    g = generators.rmat_graph(12, 16, seed=2)
+    edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]
+    sid = g.digest()[:16]
+    ups = [{k: v for k, v in u.__dict__.items() if v is not None}
+           for u in random_update_stream(np.random.default_rng(4), g, 100)]
+    deck = [{"op": "solve", "num_nodes": g.num_nodes, "edges": edges, "edges_out": True},
+            {"op": "solve", "num_nodes": g.num_nodes, "edges": edges, "kind": "components"},
+            {"op": "solve", "num_nodes": g.num_nodes, "edges": edges, "kind": "path_max",
+             "u": 0, "v": 9},
+            {"op": "subscribe", "digest": g.digest()},
+            {"op": "publish", "stream": sid, "digest": g.digest(), "updates": ups},
+            {"op": "poll", "stream": sid, "after_seq": 0},
+            {"op": "shutdown"}]
+    got = []
+    for name, device in (("card", cuda), ("cpu", "cpu")):
+        out = io.StringIO()
+        svc = MSTService(device=device, verify="full", stream_dir=str(tmp_path / name))
+        serve_loop(io.StringIO("\n".join(map(json.dumps, deck)) + "\n"), out, svc)
+        answers = [json.loads(x) for x in out.getvalue().splitlines()]
+        for a in answers:
+            a.pop("wall_time_s", None)
+            a.pop("wall_s", None)
+        got.append(answers)
+    assert got[0] == got[1]
+    assert all(a["ok"] for a in got[0]) and got[0][0]["verified"] == "full"
+    np.testing.assert_array_equal(
+        np.asarray(got[0][0]["mst_edges"]),
+        np.stack([g.u, g.v], axis=1)[rank_oracle_edge_ids(g)])

@@ -311,3 +311,60 @@ def test_the_wrappers_refuse_sizes_the_loops_would_overrun():
                  lambda: native.first_cross_rank(4, a, a, a[:3])):
         with pytest.raises(ValueError, match="native host library"):
             call()
+
+
+# ----------------------------------------------------------------------
+# graphs/io: DIMACS through the native parser, and every file format
+# ----------------------------------------------------------------------
+def test_dimacs_native_equals_plain_and_jax(tmp_path, monkeypatch):
+    """``read_dimacs`` parses natively (``dimacs_parse``), and
+    ``native=False`` runs the plain parser: both give the JAX package's
+    graph from a file either package wrote, comments and a header first."""
+    from distributed_ghs_implementation_tpu.graphs import io as jio
+    from distributed_ghs_implementation_tpu_torch.graphs import io as tio
+
+    jg = jgen.random_road_network(20, 20, seed=4)
+    tg = tedge.Graph(jg.num_nodes, jg.u, jg.v, jg.w)
+    jpath, tpath = str(tmp_path / "j.gr"), str(tmp_path / "t.gr")
+    jio.write_dimacs(jg, jpath, comment="from the JAX package")
+    tio.write_dimacs(tg, tpath, comment="from the JAX package")
+    assert Path(tpath).read_bytes() == Path(jpath).read_bytes()
+    want = jio.read_dimacs(jpath).digest()
+    assert want == jg.digest()
+    for path in (jpath, tpath):
+        assert tio.read_dimacs(path).digest() == want
+        assert tio.read_dimacs(path, native=False).digest() == want
+    u, v, w, n = native.dimacs_parse(jpath)
+    assert n == jg.num_nodes and u.size == 2 * jg.num_edges
+    with pytest.raises(FileNotFoundError):
+        native.dimacs_parse(str(tmp_path / "missing.gr"))
+    with pytest.raises(ValueError, match="integer-weighted"):
+        tio.write_dimacs(tedge.Graph.from_arrays(3, [0], [1], [0.5]), str(tmp_path / "f.gr"))
+
+
+    def unavailable():
+        raise RuntimeError("no library")
+
+    monkeypatch.setattr(native, "get_lib", unavailable)
+    with pytest.raises(RuntimeError, match="no library"):  # no fallback on its own
+        tio.read_dimacs(jpath)
+    assert tio.read_dimacs(jpath, native=False).digest() == want
+
+
+def test_npz_and_partition_dirs_read_across_packages(tmp_path):
+    from distributed_ghs_implementation_tpu.graphs import io as jio
+    from distributed_ghs_implementation_tpu_torch.graphs import io as tio
+
+    jg = jgen.gnm_random_graph(25, 60, seed=2)
+    tg = tedge.Graph(jg.num_nodes, jg.u, jg.v, jg.w)
+    jio.write_npz(jg, str(tmp_path / "j.npz"))
+    tio.write_npz(tg, str(tmp_path / "t.npz"))
+    assert tio.read_npz(str(tmp_path / "j.npz")).digest() == jg.digest()
+    assert jio.read_npz(str(tmp_path / "t.npz")).digest() == jg.digest()
+    jio.write_partition_dir(jg, str(tmp_path / "jdir"))
+    tio.write_partition_dir(tg, str(tmp_path / "tdir"))
+    for name in sorted(os.listdir(tmp_path / "jdir")):
+        assert (tmp_path / "tdir" / name).read_bytes() == (tmp_path / "jdir" / name).read_bytes()
+    assert tio.read_partition_dir(str(tmp_path / "jdir")).digest() == jg.digest()
+    os.remove(tmp_path / "tdir" / "graph_metadata.json")  # the node files alone
+    assert tio.read_partition_dir(str(tmp_path / "tdir")).digest() == jg.digest()
