@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, seven paths, each with every kernel launch count set to 0 just
+2. main path, eight paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -84,6 +84,23 @@ Phases, each printing a line:
       window's split (host apply, cut pass, cycle pass, log append), the
       certify engines' times, JSON against B-frame ingest at RMAT-13 and
       RMAT-18, and ``warm_window_kernels``' time a bucket.
+   h. the sharded solvers (``_sharded_path``), 4 shards on the card: the
+      fixture deck (but the README sample) through ``flat``, ``ell``,
+      ``rank``, filtered and ``rank64``, each equal to the single-card solve;
+      ``solve_graph_sharded(strategy="auto")`` on RMAT-18, the road grid
+      (with the gather budget lowered so that the capacity guard runs),
+      RMAT-20 (the sharded filter; weight 35,737,768) and RMAT-21, and
+      ``rank64=True`` on RMAT-18, cold, warm, in turns beside the
+      single-card ``auto`` solve and once under the profiler; a gloo group
+      of 2 processes of 2 shards each on ``cuda:0`` (RMAT-12 and RMAT-18,
+      ``rank`` and ``ell``, after checking gloo's collectives on CUDA
+      tensors) and an NCCL group of one process (RMAT-12), each in its own
+      processes (``chip_smoke.py --group-child``); ``MSTService(
+      sharded_lane=4)``: RMAT-18 routed ``sharded_lane``, a resident repeat,
+      12 updates written in place and a wide one restaged, no
+      ``compile.miss`` after ``precompile``, a sharded stream of two windows
+      and a restart that re-stages before it replays; the supervisor's
+      sharded rung and a sharded checkpoint resumed from the head.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -124,6 +141,7 @@ import json
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -1515,6 +1533,390 @@ def _heavier_swap(g, ids, component_labels) -> np.ndarray:
     raise AssertionError("no heavier replacement edge")
 
 
+SHARDS = 4  # phase 2h's mesh: four shards on the card
+SHARDED_MODES = ("flat", "ell", "rank", "filtered", "rank64")
+# The road grid's solve lowers the finish's gather budget to this many
+# slots, so that the capacity guard's in-place levels run at full width.
+GUARD_BUDGET = 1 << 21
+GROUP_TIMEOUT_S = 240
+
+
+def _sharded_solve(mode, graph, mesh):
+    from distributed_ghs_implementation_tpu_torch.parallel import rank_sharded, sharded
+
+    if mode == "filtered":
+        return rank_sharded.solve_graph_rank_sharded(graph, mesh=mesh, filtered=True)
+    if mode == "rank64":
+        return rank_sharded.solve_graph_rank_sharded(graph, mesh=mesh, rank64=True)
+    return sharded.solve_graph_sharded(graph, mesh=mesh, strategy=mode)
+
+
+def _group_child(argv) -> int:
+    """One process of phase 2h's process groups, run by the phase itself:
+    ``chip_smoke.py --group-child gloo|nccl <rank> <world> <init_method>
+    <out.npz>``. A gloo process first checks the collectives the mesh uses
+    on CUDA int32 tensors, values included; then each solves RMAT-12 (and
+    under gloo RMAT-18) through ``rank`` and ``ell`` on a mesh of 2 shards a
+    process on the card, and writes the results to ``out.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    kind, rank, world, init_method, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    sys.path.insert(0, str(ROOT))
+    from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
+    from distributed_ghs_implementation_tpu_torch.parallel import multihost
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    multihost.initialize(init_method=init_method, num_processes=world, process_id=rank,
+                         backend=kind)
+    record = {}
+    if kind == "gloo":
+        dev = torch.device("cuda", 0)
+        probe = {}
+        for name, op, want in (("all_reduce_min", dist.ReduceOp.MIN, lambda a: a),
+                               ("all_reduce_sum", dist.ReduceOp.SUM, lambda a: 2 * a + 1),
+                               ("all_reduce_max", dist.ReduceOp.MAX, lambda a: a + 1)):
+            t = torch.arange(8, dtype=torch.int32, device=dev) + rank
+            dist.all_reduce(t, op)
+            probe[name] = t.tolist() == want(np.arange(8)).tolist()
+        t = torch.full((4,), rank, dtype=torch.int32, device=dev)
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        probe["all_gather"] = torch.cat(parts).tolist() == [0] * 4 + [1] * 4
+        t = torch.full((4,), 7 + rank, dtype=torch.int32, device=dev)
+        dist.broadcast(t, 0)
+        probe["broadcast"] = t.tolist() == [7] * 4
+        record["probe"] = np.array(json.dumps(probe))
+    mesh = edge_mesh(num_shards=2, device="cuda")
+    record["layout"] = np.array([mesh.size, mesh.first_shard, len(mesh.rep_devices)])
+    graphs = {"rmat12": gen.rmat_graph(12, 8, seed=11)}
+    if kind == "gloo":
+        graphs["rmat18"] = gen.rmat_graph(18, 16, seed=1)
+    for name, g in graphs.items():
+        for strategy in ("rank", "ell"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, frag, levels = _sharded_solve(strategy, g, mesh)
+            record[f"{name}_{strategy}_ids"] = ids
+            record[f"{name}_{strategy}_levels"] = np.array(levels)
+            record[f"{name}_{strategy}_s"] = np.array(time.perf_counter() - t)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        np.savez(out, **record)
+    return 0
+
+
+def _run_groups(scratch, torch, oracle) -> dict:
+    """Phase 2h's process groups, each in processes of its own so that this
+    process holds no default group: 2 gloo processes of 2 shards each, both
+    on ``cuda:0``, and an NCCL group of one process (2 shards). An NCCL
+    group across processes needs one card a process."""
+    runs = {"gloo": 2, "nccl": 1}
+    procs = []
+    t0 = time.perf_counter()
+    for kind, world in runs.items():
+        init = f"file://{scratch / (kind + '-store')}"
+        out = scratch / f"{kind}.npz"
+        for rank in range(world):
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--group-child", kind,
+                   str(rank), str(world), init, str(out)]
+            procs.append((kind, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for kind, p in procs:
+        try:
+            _, err = p.communicate(timeout=GROUP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+                q.communicate()
+            raise AssertionError(f"a {kind} group process timed out")
+        if p.returncode:
+            failed.append(f"{kind}: rc {p.returncode}: {err[-2000:]}")
+    if failed:
+        raise AssertionError("group processes failed:\n" + "\n".join(failed))
+    out = {"wall_s": time.perf_counter() - t0}
+    for kind in runs:
+        with np.load(scratch / f"{kind}.npz") as data:
+            rec = {"layout": data["layout"].tolist()}
+            if "probe" in data.files:
+                rec["gloo_cuda_collectives"] = json.loads(str(data["probe"]))
+                if not all(rec["gloo_cuda_collectives"].values()):
+                    raise AssertionError(f"gloo on CUDA tensors: {rec['gloo_cuda_collectives']}")
+            for key in data.files:
+                if key.endswith("_ids"):
+                    name = key.split("_")[0]
+                    if not np.array_equal(data[key], oracle[name]):
+                        raise AssertionError(f"{kind} group: {key} differs from the oracle")
+                    stem = key[:-4]
+                    rec[stem] = {"levels": int(data[stem + "_levels"]),
+                                 "s": float(data[stem + "_s"])}
+            out[kind] = rec
+    if out["gloo"]["layout"] != [4, 0, 1] or out["nccl"]["layout"] != [2, 0, 1]:
+        raise AssertionError(f"group layouts: {out['gloo']['layout']}, {out['nccl']['layout']}")
+    cards = torch.cuda.device_count()
+    out["nccl_across_processes"] = (
+        "not run: an NCCL group across processes needs a card a process (NCCL refuses two "
+        f"ranks on one card), and this machine has {cards}")
+    return out
+
+
+def _profiled_launches(torch, fn) -> dict:
+    """Device kernels of one call of ``fn`` by name, from the profiler: K1
+    (``hook_compress``) and K2 (``gather_key``) launches."""
+    kerns = _device_kernels(torch, fn, 1)
+    return {"hook_compress": sum("hook_compress" in name for name, _ in kerns),
+            "gather_key": sum("gather_key" in name for name, _ in kerns),
+            "device_kernels": len(kerns)}
+
+
+def _sharded_path(torch, kernels, boruvka, deck, graphs, oracle, check, scratch,
+                  card: str) -> dict:
+    """The sharded solvers on the card (phase 2h), 4 shards on the card.
+
+    a. The dryrun fixtures (ER(48), RMAT-12, road 40x40, the 23-component
+       forest) through ``flat``, ``ell``, ``rank``, filtered and ``rank64``:
+       each equal to the single-card solve and the oracle; a flat solve of L
+       levels launches K1 L times (one device) and K2 4 (L - 1) times (one a
+       shard, past the identity level); every other form launches K1.
+    b. ``solve_graph_sharded(strategy="auto")`` at full width: RMAT-18 (the
+       plain head and finish), the road grid 2048 x 2048 (with the gather
+       budget lowered to ``GUARD_BUDGET``: the capacity guard's levels),
+       RMAT-20 seed 24 (the sharded filter; its weight the recorded
+       35,737,768) and RMAT-21, and ``rank64=True`` at RMAT-18: cold, warm,
+       in turns beside the single-card ``auto`` solve, and once under the
+       profiler, which counts its K1 and K2 launches.
+    c. The process groups (:func:`_run_groups`).
+    d. The service with a ``ShardedLane`` of 4 shards: RMAT-18 routed
+       ``sharded_lane``, a dispatch-only repeat, 12 updates written in
+       place and one past ``max_update_frac`` restaged, no ``compile.miss``
+       after ``precompile``, a sharded stream with two windows and a restart
+       that re-stages the head before it replays.
+    e. The supervisor's sharded rung, and a sharded checkpoint saved at the
+       head and resumed, at RMAT-18.
+    """
+    from distributed_ghs_implementation_tpu_torch.graphs import io as graph_io
+    from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.parallel import lane as plane
+    from distributed_ghs_implementation_tpu_torch.parallel import rank_sharded
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+    from distributed_ghs_implementation_tpu_torch.serve.service import MSTService
+    from distributed_ghs_implementation_tpu_torch.stream.window import random_update_stream
+    from distributed_ghs_implementation_tpu_torch.utils import checkpoint, resilience
+
+    mesh = edge_mesh(num_shards=SHARDS)
+    if mesh.size != SHARDS or len(mesh.rep_devices) != min(SHARDS, torch.cuda.device_count()):
+        raise AssertionError(f"mesh {mesh}")
+    out = {"shards": SHARDS, "devices": [str(d) for d in mesh.devices]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    # a. the fixtures
+    t_a = time.perf_counter()
+    fixtures = {}
+    for name in ("er48", "rmat12", "road40", "forest23"):
+        g = deck[name]
+        single = boruvka.solve_graph(g, strategy="rank")[0]
+        for mode in SHARDED_MODES:
+            k1, k2 = kernels.hook_compress.launches, kernels.gather_key.launches
+            ids, frag, levels = _sharded_solve(mode, g, mesh)
+            d1, d2 = kernels.hook_compress.launches - k1, kernels.gather_key.launches - k2
+            if not (np.array_equal(ids, oracle[name]) and np.array_equal(ids, single)):
+                raise AssertionError(f"sharded {mode} on {name}: forest differs")
+            if name == "forest23" and np.unique(frag).size != 23:
+                raise AssertionError(f"sharded {mode} on forest23: {np.unique(frag).size} parts")
+            if mode == "flat" and (d1, d2) != (levels, SHARDS * (levels - 1)):
+                raise AssertionError(f"flat on {name}: {levels} levels, K1 x{d1}, K2 x{d2}")
+            if d1 < 1:
+                raise AssertionError(f"{mode} on {name}: K1 never launched")
+            fixtures[f"{name}/{mode}"] = {"levels": levels, "hook_compress": d1,
+                                          "gather_key": d2}
+    out["fixtures"] = fixtures
+    out["fixtures_s"] = time.perf_counter() - t_a
+
+    # b. full width through auto, and rank64
+    full = {}
+    cases = [("rmat18", "rmat18", {}), ("grid2048", "grid2048", {"guard": True}),
+             ("rmat20", "rmat20", {}), ("rmat21", "rmat21", {}),
+             ("rmat18_rank64", "rmat18", {"rank64": True})]
+    for label, name, opts in cases:
+        g = graphs[name]
+        guard_levels = [0]
+        saved_budget = rank_sharded._FINISH_GATHER_MAX_SLOTS
+        real_level = rank_sharded._sharded_level
+
+        def level(*args, **kw):
+            guard_levels[0] += 1
+            return real_level(*args, **kw)
+
+        def solve():
+            if opts.get("rank64"):
+                return _sharded_solve("rank64", g, mesh)
+            from distributed_ghs_implementation_tpu_torch.parallel.sharded import (
+                solve_graph_sharded,
+            )
+
+            return solve_graph_sharded(g, mesh=mesh, strategy="auto")
+
+        if opts.get("guard"):
+            rank_sharded._FINISH_GATHER_MAX_SLOTS = GUARD_BUDGET
+        rank_sharded._sharded_level = level
+        try:
+            k1, k2 = kernels.hook_compress.launches, kernels.gather_key.launches
+            (ids, _, levels), cold = timed(solve)
+            d1, d2 = kernels.hook_compress.launches - k1, kernels.gather_key.launches - k2
+            check(name, ids, float(g.w[ids].sum()))
+            if name == "rmat20" and int(g.w[ids].sum()) != RMAT20_ORACLE_WEIGHT:
+                raise AssertionError(f"RMAT-20 sharded weight {int(g.w[ids].sum())}")
+            if d1 < levels - 2:  # levels 1 and 2 may run on the host
+                raise AssertionError(f"sharded {label}: {levels} levels but K1 x{d1}")
+            if opts.get("guard") and guard_levels[0] < 1:
+                raise AssertionError("the road grid ran no capacity-guard level")
+            guards = guard_levels[0]
+            _, warm = timed(solve)
+            single = lambda: boruvka.solve_graph(g)  # noqa: E731 -- auto: the rank solver
+            boruvka.solve_graph(g)
+            turns = {"sharded": [], "single": []}
+            for which in ("sharded", "single", "single", "sharded"):
+                turns[which].append(timed(solve if which == "sharded" else single)[1])
+            profiled = _profiled_launches(torch, solve)
+        finally:
+            rank_sharded._FINISH_GATHER_MAX_SLOTS = saved_budget
+            rank_sharded._sharded_level = real_level
+        full[label] = {"levels": levels, "cold_s": cold, "warm_s": warm,
+                       "turns_sharded_s": turns["sharded"], "turns_single_s": turns["single"],
+                       "hook_compress": d1, "gather_key": d2, "guard_levels": guards,
+                       "profiler": profiled}
+        print(f"  sharded {label} ({card}): {levels} levels, cold {cold:.3f} s, warm {warm:.3f} s; in "
+              f"turns sharded {statistics.median(turns['sharded']):.3f} s, single-card "
+              f"{statistics.median(turns['single']):.3f} s; K1 x{d1}, K2 x{d2} (wrappers), "
+              f"profiler {profiled}; guard levels {guards}")
+    out["full_width"] = full
+
+    # c. process groups
+    t_c = time.perf_counter()
+    out["groups"] = _run_groups(scratch, torch, oracle)
+    out["groups_s"] = time.perf_counter() - t_c
+
+    # d. the service and streams over a lane of 4 shards
+    t_d = time.perf_counter()
+    rmat18 = graphs["rmat18"]
+    BUS.enable()
+    BUS.clear()
+    npz = str(scratch / "rmat18.npz")
+    graph_io.write_npz(rmat18, npz)
+    svc = MSTService(sharded_lane=SHARDS, stream_dir=str(scratch / "streams"))
+    lane = svc.sharded_lane
+    first = svc.handle({"op": "solve", "graph_path": npz})
+    if first.get("backend") != "sharded_lane" or BUS.counters().get("serve.route.sharded_lane") != 1:
+        raise AssertionError(f"RMAT-18 was not routed to the lane: {first.get('backend')}")
+    want_w = int(rmat18.w[oracle["rmat18"]].sum())
+    if (first["total_weight"], first["num_edges_in_mst"]) != (want_w, len(oracle["rmat18"])):
+        raise AssertionError(f"the service's RMAT-18 answer differs from the oracle: {first}")
+    repeat = svc.handle({"op": "solve", "graph_path": npz})
+    skipped0 = BUS.counters().get("lane.reshard.skipped", 0)
+    (ids, _, _), dispatch_s = timed(lambda: lane.solve(rmat18))
+    if repeat.get("source") != "cache" or BUS.counters().get("lane.reshard.skipped", 0) != skipped0 + 1:
+        raise AssertionError("the repeat was not a cache hit and a dispatch-only lane solve")
+    check("rmat18", ids, float(rmat18.w[ids].sum()))
+    # 12 inserts heavier than every edge: each lands past every rank, so
+    # the lane writes one slot in place.
+    pairs = np.random.default_rng(12).integers(0, rmat18.num_nodes, (12, 2))
+    top = int(rmat18.w.max())
+    g, update_s = rmat18, []
+    for i, (a, b) in enumerate(pairs):
+        b = b if b != a else (a + 1) % rmat18.num_nodes
+        g2 = Graph.from_arrays(g.num_nodes, np.append(g.u, a), np.append(g.v, b),
+                               np.append(g.w, top + 1 + i))
+        (ids, _, _), dt = timed(lambda: lane.update(g.digest(), g2))
+        update_s.append(dt)
+        if not np.array_equal(ids, boruvka.solve_graph(g2, strategy="rank")[0]):
+            raise AssertionError(f"update {i}: the lane's forest differs from the single card's")
+        g = g2
+    counters = BUS.counters()
+    if counters.get("lane.update.donated", 0) != 12 or counters.get("lane.restage", 0):
+        raise AssertionError(f"updates: {counters}")
+    flipped = Graph.from_arrays(g.num_nodes, g.u, g.v, int(g.w.max()) + 1 - g.w)
+    (ids, _, _), restage_s = timed(lambda: lane.update(g.digest(), flipped))
+    if BUS.counters().get("lane.restage", 0) != 1 or not np.array_equal(
+            ids, boruvka.solve_graph(flipped, strategy="rank")[0]):
+        raise AssertionError("the wide update did not restage to the right forest")
+    plane._reset_shape_ledger()  # a fresh process's first dispatches
+    warm_lane = plane.ShardedLane(mesh)
+    warm_lane.precompile(rmat18.num_nodes, rmat18.num_edges)
+    miss0 = BUS.counters().get("compile.miss", 0)
+    ids = warm_lane.solve(rmat18)[0]
+    if BUS.counters().get("compile.miss", 0) != miss0:
+        raise AssertionError("a request after precompile counted compile.miss")
+    check("rmat18", ids, float(rmat18.w[ids].sum()))
+    sub = svc.handle({"op": "subscribe", "digest": rmat18.digest()})
+    sid, head = sub["stream"], sub["digest"]
+    rng = np.random.default_rng(18)
+    windows = []
+    for size in (64, 512):
+        ups = [{k: v for k, v in u.__dict__.items() if v is not None}
+               for u in random_update_stream(rng, rmat18, size)]
+        pub, dt = timed(lambda: svc.handle({"op": "publish", "stream": sid, "digest": head,
+                                             "updates": ups}))
+        if not pub.get("ok"):
+            raise AssertionError(f"publish: {pub}")
+        head = pub["digest"]
+        windows.append({"updates": size, "mode": pub["mode"], "s": dt})
+    if svc.streams.stats()["sharded"] != 1 or lane.resident_digests()[-1] != head:
+        raise AssertionError("the stream's head is not resident on the lane")
+    fresh0 = BUS.counters().get("serve.scheduler.fresh_solve", 0)
+    restored0 = BUS.counters().get("stream.replay.residency_restored", 0)
+    svc2 = MSTService(sharded_lane=SHARDS, stream_dir=str(scratch / "streams"))
+    back, replay_s = timed(lambda: svc2.handle({"op": "subscribe", "stream": sid}))
+    counters = BUS.counters()
+    if (back.get("digest") != head or counters.get("serve.scheduler.fresh_solve", 0) != fresh0
+            or counters.get("stream.replay.residency_restored", 0) != restored0 + 1
+            or svc2.sharded_lane.resident_digests() != [head]):
+        raise AssertionError(f"the restart did not re-stage and replay: {back}")
+    out["service"] = {"dispatch_only_s": dispatch_s, "update_s": update_s,
+                      "restage_s": restage_s, "windows": windows, "replay_s": replay_s,
+                      "lane_counters": {k: v for k, v in counters.items()
+                                        if k.startswith(("lane.", "stream.lane",
+                                                         "stream.replay", "serve.route"))}}
+    out["service_s"] = time.perf_counter() - t_d
+
+    # e. the supervisor's sharded rung and a sharded checkpoint
+    t_e = time.perf_counter()
+    ids, _, levels, log = resilience.Supervisor().solve(rmat18, entry="sharded")
+    trail = [(r.rung, r.attempt, r.outcome) for r in log.records]
+    if trail != [("sharded", 1, "ok")]:
+        raise AssertionError(f"supervised trail {trail}")
+    check("rmat18", ids, float(rmat18.w[ids].sum()))
+    path = str(scratch / "sharded.npz")
+    fp = checkpoint.graph_fingerprint(rmat18)
+    seen = []
+
+    def save_head(level, fragment, mask_fn, count):
+        seen.append(level)
+        if len(seen) == 1:
+            checkpoint.save_checkpoint(path, fragment, mask_fn(), level, fingerprint=fp)
+
+    rank_sharded.solve_graph_rank_sharded(rmat18, mesh=mesh, on_chunk=save_head)
+    saved_level = checkpoint.load_checkpoint(path)[2]
+    (ids, _, levels2), resume_s = timed(
+        lambda: checkpoint.solve_graph_checkpointed_sharded(rmat18, path, mesh=mesh))
+    check("rmat18", ids, float(rmat18.w[ids].sum()))
+    if not 0 < saved_level < levels2 or checkpoint.load_checkpoint(path)[2] != levels2:
+        raise AssertionError(f"resume from level {saved_level} ended at {levels2}")
+    out["supervised"] = {"trail": trail, "levels": levels}
+    out["checkpoint"] = {"saved_level": int(saved_level), "levels": levels2,
+                         "resume_s": resume_s}
+    out["supervised_checkpoint_s"] = time.perf_counter() - t_e
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1781,9 +2183,22 @@ def main() -> int:
     service["phase_s"] = time.perf_counter() - t_service
     print(f"main path, service: {service['phase_s']:.2f} s, every forest, kind answer and window "
           f"head equals its oracle; {json.dumps({**service, 'launches': service_counts})}")
+    # 2h. the sharded solvers, the lane, process groups, rung and checkpoint
+    zero_counts()
+    t_sharded = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        sharded = _sharded_path(torch, kernels, boruvka, deck, graphs, oracle, check, scratch,
+                                card_description())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    sharded_counts = read_counts("sharded", ("gather_key", "hook_compress"))
+    sharded["phase_s"] = time.perf_counter() - t_sharded
+    print(f"main path, sharded ({card_description()}): {sharded['phase_s']:.2f} s, every "
+          f"forest equals its oracle; {json.dumps({**sharded, 'launches': sharded_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
-                + service_counts[name] for name in flat_counts}
+                + service_counts[name] + sharded_counts[name] for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -2120,6 +2535,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_batch_serve": batch_counts[name],
             "launches_service": service_counts[name],
+            "launches_sharded": sharded_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2220,4 +2636,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--group-child"]:
+        sys.exit(_group_child(sys.argv[2:]))
     sys.exit(main())

@@ -7,11 +7,12 @@ selects the path:
 
   * ``"device"`` (default): the Borůvka solve on one card (``device=None``
     means CUDA; ``device="cpu"`` runs the kernels' plain PyTorch versions);
+  * ``"sharded"``: the sharded solve over a mesh of the visible cards
+    (``parallel/``; on the CPU one shard), ``solve_graph_sharded``;
   * ``"host"``: native single-core Kruskal over the rank order, on no card
     (integer weights);
-  * ``"sharded"`` and ``"protocol"``: not ported yet; they raise unless the
-    solve is supervised, which enters the ladder at ``"device"`` for
-    ``"protocol"`` and records ``"sharded"`` as unavailable.
+  * ``"protocol"``: not ported yet; it raises unless the solve is
+    supervised, which enters the ladder at ``"device"``.
 
 ``supervised=True`` (or a ``supervisor``) runs the solve under
 ``utils.resilience.Supervisor``.
@@ -31,7 +32,7 @@ from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
 if TYPE_CHECKING:  # deferred: the supervisor stays off the plain path
     from distributed_ghs_implementation_tpu_torch.utils.resilience import IncidentLog
 
-_NOT_PORTED_BACKENDS = ("sharded", "protocol")
+_NOT_PORTED_BACKENDS = ("protocol",)
 
 
 @dataclasses.dataclass
@@ -88,6 +89,12 @@ def _solve(graph: Graph, backend: str, device) -> Tuple[np.ndarray, np.ndarray, 
         from distributed_ghs_implementation_tpu_torch.models.boruvka import solve_graph
 
         return solve_graph(graph, device=device)
+    if backend == "sharded":
+        from distributed_ghs_implementation_tpu_torch.parallel.sharded import (
+            solve_graph_sharded,
+        )
+
+        return solve_graph_sharded(graph, device=device)
     if backend == "host":
         from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
             solve_graph_kruskal_host,

@@ -436,10 +436,13 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
     report dict.
 
     Idempotent: buckets already built are skipped (reported ``cached``).
-    The whole phase is one ``compile.warmup_phase`` span. Raises
-    ``NotImplementedError`` for a ``tuning`` record and a ``lane``, which
-    wait for other parts of the port, and ``ValueError`` for a ``kernel``
-    the device does not run.
+    The whole phase is one ``compile.warmup_phase`` span. ``lane`` (a
+    ``parallel.lane.ShardedLane``) receives the plan's ``mesh_buckets``:
+    each warms the oversize path's mesh programs, and the stream window's
+    kernels at that size; without a lane they are counted
+    ``mesh_skipped``. Raises ``NotImplementedError`` for a ``tuning``
+    record, which waits for the port of ``tune/``, and ``ValueError`` for
+    a ``kernel`` the device does not run.
     """
     device = resolve_device(device)
     kernel = kernel_label(device)
@@ -451,10 +454,6 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
     if plan.tuning:
         raise NotImplementedError(
             "warmup tuning records wait for the port of tune/ (ROADMAP queue 1 item 10)"
-        )
-    if lane is not None:
-        raise NotImplementedError(
-            "the sharded lane waits for the port of parallel/ (ROADMAP queue 1 item 9)"
         )
     report = {
         "buckets": 0,
@@ -506,14 +505,26 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
                     continue  # routed to the rank solver, never this solve
                 _warm_single_graph_kernel(n_pad, m_pad, device)
                 report["single_warmed"] += 1
-        report["mesh_skipped"] += len(plan.mesh_buckets)
-        if plan.stream_buckets:
+        for nodes, edges in plan.mesh_buckets:
+            if lane is None:
+                report["mesh_skipped"] += 1
+                continue
+            lane.precompile(nodes, edges)
+            report["mesh_warmed"] += 1
+        if plan.stream_buckets or (lane is not None and plan.mesh_buckets):
             from distributed_ghs_implementation_tpu_torch.stream.window import (
                 warm_window_kernels,
             )
 
             for nodes, edges in plan.stream_buckets:
                 report["stream_warmed"] += warm_window_kernels(nodes, edges, device=device)
+            if lane is not None:
+                # A lane worker's declared oversize sizes are also the sizes
+                # its sharded streams publish windows at: warm the window's
+                # kernels for them too.
+                for nodes, edges in plan.mesh_buckets:
+                    report["stream_sharded_warmed"] += warm_window_kernels(
+                        nodes, edges, device=device)
         span.set(compiled=report["compiled"], cached=report["cached"])
     report["wall_s"] = time.perf_counter() - t0
     return report

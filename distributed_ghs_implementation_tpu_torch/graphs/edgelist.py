@@ -275,6 +275,13 @@ class Graph:
         return first_ranks_of(self.num_nodes, *self.rank_endpoints())
 
     @functools.cached_property
+    def first_ranks64(self) -> np.ndarray:
+        """:attr:`first_ranks` with int64 ranks and an INT64_MAX isolated
+        sentinel, for the sharded ``rank64`` path, whose rank space can pass
+        2^31 (ranks outgrow int32 long before vertex ids do)."""
+        return first_ranks64_of(self.num_nodes, *self.rank_endpoints())
+
+    @functools.cached_property
     def ell_buckets(self):
         """Degree-bucketed ELL layout of the directed adjacency.
 
@@ -357,6 +364,21 @@ def first_ranks_of(num_nodes: int, ra: np.ndarray, rb: np.ndarray, *,
     verts, first_pos = np.unique(arr, return_index=True)
     out = np.full(num_nodes, INT32_MAX, dtype=np.int32)
     out[verts] = (first_pos // 2).astype(np.int32)
+    return out
+
+
+def first_ranks64_of(num_nodes: int, ra: np.ndarray, rb: np.ndarray, *,
+                     native: bool = True) -> np.ndarray:
+    """:attr:`Graph.first_ranks64` from the unpadded int32 rank endpoints:
+    one native pass, or with ``native=False`` its NumPy form."""
+    if native:
+        return native_lib.first_rank_i32_out64(num_nodes, ra, rb)
+    arr = np.empty(2 * ra.size, dtype=np.int64)
+    arr[0::2] = ra
+    arr[1::2] = rb
+    verts, first_pos = np.unique(arr, return_index=True)
+    out = np.full(num_nodes, np.iinfo(np.int64).max, dtype=np.int64)
+    out[verts] = first_pos // 2
     return out
 
 

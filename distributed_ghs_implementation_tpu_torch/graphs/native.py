@@ -226,6 +226,17 @@ def first_rank_i32(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.ndarray
     return out
 
 
+def first_rank_i32_out64(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
+    """:func:`first_rank_i32` with int64 ranks and an INT64_MAX sentinel for
+    an isolated vertex (the sharded ``rank64`` path's rank space)."""
+    lib = get_lib()
+    ra, rb = _i32(ra), _i32(rb)
+    _check(ra.shape == rb.shape, "first_rank_i32_out64 needs len(ra) == len(rb)")
+    out = np.empty(num_nodes, dtype=np.int64)
+    lib.first_rank_i32e64(num_nodes, ra.shape[0], _p32(ra), _p32(rb), _p64(out))
+    return out
+
+
 def first_cross_rank(num_nodes: int, ra: np.ndarray, rb: np.ndarray,
                      parent1: np.ndarray) -> np.ndarray:
     """Each level-1 fragment's minimum rank among the edges that leave it,

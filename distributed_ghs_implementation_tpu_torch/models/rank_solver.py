@@ -1254,6 +1254,36 @@ def _observed_solver(inner, family: str):
     return solve
 
 
+# A forest mask wider than this packs to bits in slices, so that the packing's
+# temporaries stay bounded; every width above it is a bucket size, a multiple
+# of a large power of two, so each slice stays byte-aligned.
+_PACKBITS_CHUNK = 1 << 27
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits(mask: torch.Tensor) -> torch.Tensor:
+    """``np.packbits`` of a 0/1 mask whose width is a multiple of 8, on the
+    mask's device: big-endian bit order (the first rank is the high bit of
+    byte 0), uint8, in slices of ``_PACKBITS_CHUNK`` ranks."""
+    w = mask.shape[0]
+    if w % 8:
+        raise ValueError(f"packbits needs a width that divides by 8, got {w}")
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
+    parts = []
+    for s in range(0, w, _PACKBITS_CHUNK):
+        bits = (mask[s:s + _PACKBITS_CHUNK] != 0).to(torch.uint8).view(-1, 8)
+        parts.append((bits * weights).sum(1, dtype=torch.uint8))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def packed_to_edge_ids(graph: Graph, packed: np.ndarray, count: int) -> np.ndarray:
+    """Host decode of a bit-packed rank mask (big-endian bit order, NumPy's
+    default) to sorted edge ids: the sharded multi-process harvest."""
+    mask = np.unpackbits(np.asarray(packed, dtype=np.uint8), count=count).astype(bool)
+    return np.sort(graph.edge_id_of_rank(np.nonzero(mask)[0]))
+
+
 def solve_graph_kruskal_host(graph: Graph) -> Tuple[np.ndarray, np.ndarray, int]:
     """The ``host`` backend: Kruskal over the precomputed rank order, one
     union-find pass in the native host library, on no card. The rank order

@@ -3,8 +3,8 @@
 One Borůvka level asks each fragment for the minimum-rank edge leaving it.
 That is one ``segment_min`` over the directed slots keyed by the source
 endpoint's fragment, comparing edges by their global rank in the order
-``(weight, edge id)``. Port of the JAX package's ``ops/segment_ops.py``
-without the sharded form.
+``(weight, edge id)``. Port of the JAX package's ``ops/segment_ops.py``;
+its sharded form (``axis_name``) is ``parallel/sharded.py``.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 Port of the JAX package's ``serve/scheduler.py``. The scheduler runs its
 solves on one explicit device (``device=None`` means CUDA) through the
-port's ``minimum_spanning_forest``. The mesh-sharded lane is not ported
-yet: ``sharded_lane=`` raises ``NotImplementedError``, so oversize misses
-take the ``bypass`` route, as in the JAX package without a lane.
+port's ``minimum_spanning_forest``. With a ``sharded_lane``
+(``parallel.lane.ShardedLane``) oversize misses run on the mesh (the
+``sharded_lane`` route); without one they take the ``bypass`` route.
 
 Request handling for the serve path, in order:
 
@@ -150,14 +150,16 @@ class SolveScheduler:
     ):
         if max_concurrent < 1:
             raise ValueError(f"max_concurrent must be >= 1, got {max_concurrent}")
-        if sharded_lane is not None:
-            raise NotImplementedError(
-                "the sharded lane waits for the port of parallel/ (ROADMAP queue 1 item 9)"
-            )
         self.device = resolve_device(device)
         self.store = store if store is not None else ResultStore()
         self.backend = backend
         self.batch_engine = batch_engine
+        # sharded_lane (a parallel.lane.ShardedLane) opens the oversize
+        # route: device-backend misses past the batch policy's admission
+        # ceiling run on the mesh instead of bypassing to the semaphore
+        # path, where one such solve would hold a max_concurrent slot for
+        # seconds and starve interactive misses behind it.
+        self.sharded_lane = sharded_lane
         self.gate = PriorityGate()
         self._supervisor_config = supervisor_config
         self._sem = threading.BoundedSemaphore(max_concurrent)
@@ -313,11 +315,16 @@ class SolveScheduler:
 
     def _route(self, graph: Graph, backend: str) -> str:
         """One solve's route: ``"batch"`` (engine-admitted), ``"direct"``
-        (small graph on the semaphore path) or ``"bypass"`` (oversize; the
-        sharded lane is not ported)."""
+        (small graph on the semaphore path), ``"sharded_lane"``, or
+        ``"bypass"`` (oversize without a usable mesh lane)."""
         if backend != "device":
             return "direct"
-        route = self._route_policy.route(graph)
+        route = self._route_policy.route(
+            graph,
+            sharded_available=(
+                self.sharded_lane is not None and self.sharded_lane.admits(graph)
+            ),
+        )
         if route == "lane":
             return "batch" if self.batch_engine is not None else "direct"
         return route
@@ -333,10 +340,12 @@ class SolveScheduler:
 
     def _solve_miss(self, graph: Graph, backend: str) -> MSTResult:
         """One cache miss, routed: batch-engine submission (admitted,
-        device backend) or a semaphore-bounded supervised solve (small
-        graphs without an engine, other backends, and the oversize bypass).
-        Oversize spans carry ``route="bypass"``; interactive (not
-        oversize) solves register with the priority gate."""
+        device backend), the mesh-sharded lane (oversize with a lane
+        attached), or a semaphore-bounded supervised solve (small graphs
+        without an engine, other backends, and the oversize bypass when no
+        lane is attached). Oversize spans carry ``route`` (``sharded_lane``
+        or ``bypass``); interactive (not oversize) solves register with the
+        priority gate the bulk lane yields to."""
         # Every path below runs the solver on a graph nothing had cached.
         BUS.count("serve.scheduler.fresh_solve")
         route = self._route(graph, backend)
@@ -346,6 +355,19 @@ class SolveScheduler:
                 nodes=graph.num_nodes, edges=graph.num_edges, **_cls_args(),
             ):
                 return self.batch_engine.submit(graph).wait()
+        if route == "sharded_lane":
+            BUS.count("serve.route.sharded_lane")
+            with BUS.span(
+                "serve.solve", cat="serve", backend="sharded_lane",
+                route="sharded_lane", nodes=graph.num_nodes,
+                edges=graph.num_edges, **_cls_args(),
+            ):
+                # Bulk class: no semaphore slot held, one mesh solve in
+                # flight inside the lane, yielding to pending interactive
+                # work between its dispatches.
+                return self.sharded_lane.solve_result(
+                    graph, yield_fn=self.gate.checkpoint
+                )
         span_args = dict(
             backend=backend, nodes=graph.num_nodes, edges=graph.num_edges,
             **_cls_args(),
@@ -367,15 +389,28 @@ class SolveScheduler:
     def _solve_misses(
         self, graphs: List[Graph], backend: str
     ) -> List[MSTResult]:
-        """The distinct misses of one batch, as a group: with an engine,
-        ``solve_many`` coalesces the admitted ones into device batches and
-        bypasses the rest; without one, one supervised solve each."""
+        """The distinct misses of one batch, as a group: engine-admitted
+        misses coalesce into device batches; misses routed to the sharded
+        lane peel off to the mesh (the engine would bypass them to the
+        single-graph path otherwise); without an engine, one solve each."""
         if self.batch_engine is not None and backend == "device":
-            with BUS.span(
-                "serve.solve", cat="serve", backend="batch",
-                misses=len(graphs), **_cls_args(),
-            ):
-                return self.batch_engine.solve_many(graphs)
+            lane_set = {
+                i for i, g in enumerate(graphs)
+                if self._route(g, backend) == "sharded_lane"
+            }
+            results: List[Optional[MSTResult]] = [None] * len(graphs)
+            rest = [i for i in range(len(graphs)) if i not in lane_set]
+            if rest:
+                with BUS.span(
+                    "serve.solve", cat="serve", backend="batch",
+                    misses=len(rest), **_cls_args(),
+                ):
+                    solved = self.batch_engine.solve_many([graphs[i] for i in rest])
+                for i, result in zip(rest, solved):
+                    results[i] = result
+            for i in sorted(lane_set):
+                results[i] = self._solve_miss(graphs[i], backend)
+            return results  # type: ignore[return-value]
         return [self._solve_miss(g, backend) for g in graphs]
 
     # ------------------------------------------------------------------

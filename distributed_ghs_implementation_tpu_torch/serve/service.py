@@ -5,11 +5,12 @@ op, over JSONL (:func:`serve_loop`) and over B-frames (:func:`serve_frames`),
 answered on one explicit device (``MSTService(device=None)`` means CUDA and
 raises without it; tests pass ``device="cpu"``). Every layer under it gets
 that device: the scheduler, the batch engine, update sessions, streams,
-the verifier's ``torch`` certify engine and warmup. Where the port differs
-on purpose: ``sharded_lane=`` raises ``NotImplementedError`` until
-``parallel/`` is ported (ROADMAP queue 1 item 9); store keys carry the
-port's backend token (``serve/store.py``); ``stats`` counts the port's
-``compile.kernel.cuda|torch`` where the JAX package counts its kernels.
+the verifier's ``torch`` certify engine, warmup and the sharded lane
+(``sharded_lane=True`` or a shard count: a ``parallel.lane.ShardedLane``
+over ``edge_mesh`` on the service's device). Where the port differs on
+purpose: store keys carry the port's backend token (``serve/store.py``);
+``stats`` counts the port's ``compile.kernel.cuda|torch`` where the JAX
+package counts its kernels.
 
 One JSON object per input line, one JSON response line per request — a
 protocol a test, the chaos drill, or a thin network front-end can all drive
@@ -145,10 +146,6 @@ class MSTService:
         verify=None,
         device=None,
     ):
-        if sharded_lane:
-            raise NotImplementedError(
-                "the sharded lane waits for the port of parallel/ (ROADMAP queue 1 item 9)"
-            )
         self.device = resolve_device(device)
         self.store = store if store is not None else ResultStore(
             capacity=store_capacity, disk_dir=disk_dir
@@ -168,9 +165,22 @@ class MSTService:
             engine = BatchEngine(
                 policy=BatchPolicy(**policy_kwargs), device=self.device
             )
+        # sharded_lane opens the oversize route: device-backend misses past
+        # the batch admission ceiling run on a mesh (parallel/lane.py:
+        # resident LRU, in-place updates) instead of bypassing to the
+        # single-device path. True = one shard a visible card (one on the
+        # CPU); an int = that many shards.
+        lane = None
+        if sharded_lane:
+            from distributed_ghs_implementation_tpu_torch.parallel.lane import ShardedLane
+            from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+            num = None if sharded_lane is True else int(sharded_lane)
+            lane = ShardedLane(edge_mesh(num_shards=num, device=self.device))
+        self.sharded_lane = lane
         self.scheduler = SolveScheduler(
             self.store, backend=backend, max_concurrent=max_concurrent,
-            batch_engine=engine, device=self.device,
+            batch_engine=engine, sharded_lane=lane, device=self.device,
         )
         self.backend = backend
         self.resolve_threshold = resolve_threshold
@@ -221,6 +231,12 @@ class MSTService:
             window_mode=stream_window_mode,
             solver=lambda g: self.scheduler.solve(g, backend=backend)[0],
             interactive_gate=self.scheduler.interactive,
+            # The sharded streams: oversize streams keep their heads
+            # resident on the mesh (pinned, in-place window writes, replay
+            # re-staging) and their post-window heads audited
+            # (stream/session.py).
+            lane=lane,
+            verifier=self.verifier,
             device=self.device,
             **stream_kwargs,
         )
@@ -264,9 +280,10 @@ class MSTService:
                 warmup, buckets=shapes, keys=(), lanes=batch_lanes,
                 mode=engine.policy.mode if engine else "fused",
             )
-            # Mesh-shaped buckets are counted mesh_skipped: there is no
-            # lane to warm them on.
-            self.warmup_report = run_warmup(warmup, device=self.device)
+            # Mesh-shaped buckets warm on the sharded lane; without a lane
+            # they are skipped, as oversize shape buckets skip the fused
+            # warm.
+            self.warmup_report = run_warmup(warmup, lane=lane, device=self.device)
 
     # ------------------------------------------------------------------
     def handle(self, request: dict) -> dict:
@@ -357,12 +374,15 @@ class MSTService:
     def _invalidate_entry(self, key: Optional[str], digest: str) -> None:
         """Purge a certificate-failing result EVERYWHERE it could be
         served from again: store memory + disk (quarantined), the parked
-        update-session seed (it aliases the same arrays)."""
+        update-session seed (it aliases the same arrays), and any mesh
+        residency for the digest."""
         if key is not None:
             self.store.invalidate(key, reason="certificate failed")
         entry = self._sessions.get(digest)
         if entry is not None and not isinstance(entry, DynamicMST):
             del self._sessions[digest]
+        if self.sharded_lane is not None:
+            self.sharded_lane.evict(digest)
 
     def _fresh_resolve(self, graph: Graph, backend: str) -> MSTResult:
         """The correction re-solve: by the time this runs the poisoned
@@ -727,6 +747,12 @@ class MSTService:
         # graph, and the updated result is cached for future solve requests.
         del self._sessions[digest]
         self._sessions[new_digest] = session
+        if self.sharded_lane is not None:
+            # Move any mesh residency along the digest chain: the changed
+            # rank slots are written into the resident shards, so a later
+            # re-solve of the updated oversize graph stays resident. A
+            # no-op unless the old digest was resident.
+            self.sharded_lane.refresh_resident(digest, result.graph)
         # Cache under the backend the session's solves used (a client pinned
         # to a non-default backend must hit this entry on its next solve).
         self.store.put(

@@ -234,7 +234,10 @@ class UpdateLog:
         ``notifications`` rides along (JSON-encoded) so a recovered
         stream's ring reaches BACK past the snapshot point — a subscriber
         whose cursor predates the snapshot still drains gap-free after a
-        failover, instead of hitting ``truncated``."""
+        failover, instead of hitting ``truncated``.
+
+        Extra ``state`` keys persist as they are: the sharded-residency
+        marker (``"sharded"``, stream/session.py) rides the same npz."""
         os.makedirs(self.dir, exist_ok=True)
         arrays = dict(state)
         arrays["package"] = np.asarray(PACKAGE)
@@ -347,6 +350,13 @@ class UpdateLog:
                         "notifications": (
                             json.loads(str(data["notifications"]))
                             if "notifications" in data.files else []
+                        ),
+                        # The residency marker (stream/session.py): this
+                        # head lived on the mesh lane, so a recovering
+                        # worker re-stages it before replaying.
+                        "sharded": (
+                            bool(data["sharded"])
+                            if "sharded" in data.files else False
                         ),
                     }
             except Exception as e:  # torn/corrupt: fall to the next generation

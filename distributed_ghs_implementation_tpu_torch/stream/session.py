@@ -29,13 +29,26 @@ The protocol is pull-based, which is what survives failover cleanly:
   (``stream.replay.*`` counters + the scheduler's fresh-solve counter are
   the receipts the kill drill asserts on).
 
+**Sharded streams.** With a ``ShardedLane`` attached, a stream whose
+graph is oversize for the lane engine (the scheduler's ``sharded_lane``
+route) keeps its head resident on the mesh: the session pins the residency
+for its life (pressure from unrelated oversize traffic must not evict a
+streamed graph mid-window), every committed window moves the residency
+along the digest chain by writing the changed rank slots in place
+(``refresh_resident``; the pin re-keys with it), and a window that degrades
+to a full re-solve moves it first (``pre_resolve``), so the mesh solve runs
+on slots already written. Snapshots carry a ``sharded`` marker, and
+``recover`` re-stages the snapshot's graph (``ensure_resident``, never a
+solve) before replaying, so that each replayed window writes into the
+slots again: a restarted lane worker rebuilds its resident state with no
+fresh solve (``stream.replay.residency_restored``). Post-window sharded
+heads also ride the verifier's audit under the ``verify`` policy (class
+``stream_sharded``).
+
 **Port.** This is the JAX package's ``stream/session.py`` on one explicit
 device (``device=None`` means CUDA): every window's Borůvka rounds launch
-K2 and K1 there. The sharded residency (a ``lane=`` that keeps oversize
-heads resident on a mesh) waits for the port of ``parallel/``:
-``StreamManager(lane=...)`` raises ``NotImplementedError`` (ROADMAP queue 1
-item 9). A stream directory that holds another package's stream is
-refused (:class:`ForeignStream`, ``stream/log.py``).
+K2 and K1 there. A stream directory that holds another package's stream
+is refused (:class:`ForeignStream`, ``stream/log.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ import contextlib
 import threading
 import time
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.obs import tracing
@@ -113,7 +128,7 @@ class ForeignStream(ValueError):
 class StreamSession:
     """One live stream: the windowed session + its notification ring."""
 
-    __slots__ = ("id", "mst", "head", "seq", "notifications", "lock", "log")
+    __slots__ = ("id", "mst", "head", "seq", "notifications", "lock", "log", "sharded")
 
     def __init__(
         self,
@@ -122,6 +137,7 @@ class StreamSession:
         head: str,
         seq: int = 0,
         log: Optional[UpdateLog] = None,
+        sharded: bool = False,
     ):
         self.id = stream_id
         self.mst = mst
@@ -132,6 +148,10 @@ class StreamSession:
         )
         self.lock = threading.Lock()
         self.log = log
+        # This stream's head lives resident on the mesh lane (pinned for
+        # the session's life). Reset to False once the pin is released:
+        # the flag is also the unpin's guard against a second release.
+        self.sharded = sharded
 
 
 class StreamManager:
@@ -149,12 +169,9 @@ class StreamManager:
         interactive_gate=None,
         max_streams: int = _MAX_STREAMS,
         lane=None,
+        verifier=None,
         device=None,
     ):
-        if lane is not None:
-            raise NotImplementedError(
-                "sharded streams wait for the port of parallel/ (ROADMAP queue 1 item 9)"
-            )
         if snapshot_every < 1:
             raise ValueError(
                 f"snapshot_every must be >= 1, got {snapshot_every}"
@@ -170,6 +187,11 @@ class StreamManager:
         self.device = resolve_device(device)
         self._solver = solver
         self._gate = interactive_gate
+        # ``lane`` (parallel.lane.ShardedLane) turns oversize streams into
+        # mesh-resident sessions (module docstring); ``verifier``
+        # (verify.policy.ResultVerifier) audits their post-window heads.
+        self._lane = lane
+        self._verifier = verifier
         self._streams: "collections.OrderedDict[str, StreamSession]" = (
             collections.OrderedDict()
         )
@@ -193,6 +215,74 @@ class StreamManager:
             return WindowedMST.from_state(state, **kwargs)
         return WindowedMST(result, **kwargs)
 
+    # -- sharded residency helpers --------------------------------------
+    def _lane_wants(self, graph) -> bool:
+        """Is this stream's graph one the mesh lane serves: oversize for the
+        lane engine and inside the lane's rank envelope? The scheduler's
+        routing rule (``BatchPolicy.route``), so that residency and solve
+        routing agree on where a graph lives."""
+        if self._lane is None:
+            return False
+        from distributed_ghs_implementation_tpu_torch.batch.warmup import (
+            bucket_of,
+            warmable_single,
+        )
+
+        if warmable_single(*bucket_of(graph.num_nodes, graph.num_edges)):
+            return False
+        return self._lane.admits(graph)
+
+    def _session_state(self, session: StreamSession) -> dict:
+        state = session.mst.state_arrays()
+        if session.sharded:
+            # The snapshot records that this head lives on the mesh, so a
+            # restarted lane worker re-stages before it replays.
+            state["sharded"] = np.asarray(True)
+        return state
+
+    def _attach_lane(self, session: StreamSession) -> None:
+        """Arm the resolve escape hatch of a mesh-resident stream: when a
+        window degrades to a full re-solve, move the head's residency onto
+        the resolve graph first, so the solver's oversize route runs on
+        slots already written instead of staging cold mid-publish."""
+        lane = self._lane
+
+        def pre_resolve(graph) -> None:
+            if not lane.refresh_resident(session.head, graph):
+                lane.ensure_resident(graph)
+
+        session.mst._pre_resolve = pre_resolve
+
+    def _unpin(self, session: StreamSession) -> None:
+        """Release a sharded session's residency pin exactly once (drop,
+        eviction from the manager's LRU, or a lost registration race)."""
+        if session.sharded and self._lane is not None:
+            self._lane.unpin(session.head)
+        session.sharded = False
+
+    def _maintain_residency(self, session: StreamSession, prev: str, graph) -> None:
+        """After a commit (inside the session lock): write the window's
+        changed rank slots into the resident shards, re-keying the
+        residency and the session's pin along the digest chain. A dropped
+        residency (a padded-shape change) on a sharded session re-stages;
+        other sessions keep the best-effort move (a no-op unless the head
+        was resident)."""
+        migrated = self._lane.refresh_resident(prev, graph)
+        if migrated:
+            if session.sharded:
+                BUS.count("stream.lane.migrated")
+        elif session.sharded:
+            self._lane.ensure_resident(graph, digest=session.head)
+            BUS.count("stream.lane.restaged")
+
+    def _audit_sharded(self, session: StreamSession, result) -> None:
+        """Send a post-window (or post-replay) sharded head through the
+        verifier's audit under its policy (class ``stream_sharded``): these
+        heads never pass through the one-shot solve path that audits at
+        response time."""
+        if session.sharded and self._verifier is not None:
+            self._verifier.audit(result, cls="stream_sharded", key=None)
+
     def _register(self, session: StreamSession) -> StreamSession:
         with self._lock:
             existing = self._streams.get(session.id)
@@ -215,6 +305,9 @@ class StreamManager:
                     h for h, s in self._by_head.items() if s == _sid
                 ]:
                     del self._by_head[head]
+                # An evicted sharded stream releases its pin; recovery
+                # re-stages (without solving) if the head was lost.
+                self._unpin(_evicted)
                 BUS.count("stream.evicted")
             return session
 
@@ -224,6 +317,7 @@ class StreamManager:
                 del self._streams[session.id]
             if self._by_head.get(session.head) == session.id:
                 del self._by_head[session.head]
+        self._unpin(session)
 
     def _move_head(self, session: StreamSession, prev: str) -> None:
         with self._lock:
@@ -314,16 +408,27 @@ class StreamManager:
                     f"this package neither recovers it nor writes over it"
                 )
         mst = self._make_mst(result=result)
-        session = StreamSession(digest[:_ID_LEN], mst, digest, 0, None)
+        sharded = self._lane_wants(result.graph)
+        session = StreamSession(digest[:_ID_LEN], mst, digest, 0, None, sharded=sharded)
         if log is not None:
             session.log = log
             # The creation snapshot (seq 0) is what makes the stream
             # replayable from its very first window.
             session.log.snapshot(
-                session.mst.state_arrays(), seq=0, digest=digest
+                self._session_state(session), seq=0, digest=digest
             )
+        if sharded:
+            # The seed rode the mesh (the scheduler's oversize route), so
+            # its slots are usually resident still: pin them for the
+            # session's life. A seed that lost residency re-stages here,
+            # without solving.
+            self._lane.ensure_resident(result.graph, digest=digest, pin=True)
+            self._attach_lane(session)
         BUS.count("stream.created")
-        return self._register(session)
+        registered = self._register(session)
+        if registered is not session:
+            self._unpin(session)  # a concurrent subscribe won the race
+        return registered
 
     def publish(
         self,
@@ -419,10 +524,16 @@ class StreamManager:
             session.head = new_digest
             session.seq = seq
             self._move_head(session, prev)
+            if self._lane is not None and prev != new_digest:
+                # Mesh maintenance rides the commit point, seq-ordered
+                # under the session lock: the window's changed rank slots
+                # are written into the resident shards, and residency and
+                # pin re-key to the new head.
+                self._maintain_residency(session, prev, result.graph)
             if session.log is not None and seq % self.snapshot_every == 0:
                 try:
                     session.log.snapshot(
-                        session.mst.state_arrays(), seq=seq,
+                        self._session_state(session), seq=seq,
                         digest=new_digest,
                         notifications=list(session.notifications),
                     )
@@ -433,6 +544,7 @@ class StreamManager:
                     BUS.count("stream.log.snapshot_failed")
             if on_commit is not None:
                 on_commit(result, prev, new_digest)
+            self._audit_sharded(session, result)
             BUS.count("stream.window.committed")
             BUS.count("stream.notify")
             return {
@@ -512,6 +624,20 @@ class StreamManager:
             session = StreamSession(
                 stream_id, mst, head, state["seq"], log
             )
+            session.sharded = self._lane_wants(mst.result().graph)
+            if state.get("sharded") and not session.sharded:
+                # The snapshot says this head lived on the mesh but this
+                # process cannot re-stage it (no lane, or the graph left the
+                # lane's envelope): replay still rebuilds the forest; only
+                # the residency degrades, visibly.
+                BUS.count("stream.replay.residency_unavailable")
+            if session.sharded:
+                # Re-stage the snapshot's graph (a copy, never a solve),
+                # pinned; each replayed window below writes into the slots
+                # as a live publish does, so residency and pin re-key
+                # along the replayed chain.
+                self._lane.ensure_resident(mst.result().graph, digest=head, pin=True)
+                self._attach_lane(session)
             # Ring continuity across the snapshot point: the persisted
             # notifications preload, replayed windows append after them.
             for note in state.get("notifications", []):
@@ -548,9 +674,12 @@ class StreamManager:
                 session.notifications.append(
                     _notification(entry["seq"], entry["prev"], new_digest, info)
                 )
+                prev_head = session.head
                 chain = session.head = new_digest
                 session.seq = entry["seq"]
                 replayed += 1
+                if session.sharded:
+                    self._maintain_residency(session, prev_head, result.graph)
             # Round 19: verify the REBUILT head against the journaled
             # expectation. On a clean replay the two agree by construction
             # (every applied window's recomputed digest was checked); a
@@ -578,12 +707,25 @@ class StreamManager:
                 BUS.count("stream.replay.fresh_solve")
                 fresh = self._solver(mst.result().graph)
                 session.mst = self._make_mst(result=fresh)
+                prev_head = session.head
                 session.head = fresh.graph.digest()
+                if session.sharded:
+                    # The re-derived head supersedes the replayed one: carry
+                    # the pin over and make sure the served head is resident.
+                    self._lane.move_pins(prev_head, session.head)
+                    self._lane.ensure_resident(fresh.graph, digest=session.head)
+                    self._attach_lane(session)
+            if session.sharded:
+                BUS.count("stream.replay.residency_restored")
+                self._audit_sharded(session, session.mst.result())
             span.set(replayed=replayed, head_seq=session.seq)
             BUS.count("stream.replay.streams")
             if replayed:
                 BUS.count("stream.replay.windows", replayed)
-            return self._register(session)
+            registered = self._register(session)
+            if registered is not session:
+                self._unpin(session)  # a concurrent recover won the race
+            return registered
 
     # -- introspection ---------------------------------------------------
     def heads(self) -> Dict[str, str]:
@@ -594,7 +736,7 @@ class StreamManager:
         with self._lock:
             out = {
                 "streams": len(self._streams),
-                "sharded": 0,  # no mesh-resident streams without parallel/
+                "sharded": sum(1 for s in self._streams.values() if s.sharded),
                 "root": self.root,
                 "snapshot_every": self.snapshot_every,
                 "heads": {

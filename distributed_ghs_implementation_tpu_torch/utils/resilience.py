@@ -23,12 +23,12 @@ Where the port differs from the JAX package, on purpose:
   which means CUDA, and raises without it unless the caller passes
   ``device="cpu"``. The device and stepped rungs run there; the host rung
   is the native Kruskal and touches no card.
-* **The sharded rung is not ported yet**: it raises :class:`RungUnavailable`,
-  which the ladder records as ``unavailable`` before it moves on to
-  ``device``, as the JAX package does on a host without its sharded backend.
-  Only that class means ``unavailable`` (the sharded rung, and the host rung
-  on float weights); any other ``NotImplementedError``, such as torch's for
-  an operator with no CUDA kernel for a dtype, is fatal.
+* **The sharded rung** runs ``parallel.sharded.solve_graph_sharded`` over
+  a mesh of the visible cards on the supervisor's device (one shard on the
+  CPU), as the JAX package's runs over its devices. Only
+  :class:`RungUnavailable` means ``unavailable`` (the host rung on float
+  weights); any other ``NotImplementedError``, such as torch's for an
+  operator with no CUDA kernel for a dtype, is fatal.
 * **What is transient.** ``torch.OutOfMemoryError`` (the analog of XLA's
   RESOURCE_EXHAUSTED) is retried, beside the JAX package's own list. A CUDA
   error from a kernel is fatal: the wrappers' ``RuntimeError("... kernel
@@ -74,8 +74,8 @@ class WatchdogTimeout(RuntimeError):
 
 
 class RungUnavailable(NotImplementedError):
-    """A rung that can never run here (not ported yet, or not for this
-    graph's weights): the ladder records it and moves on at once."""
+    """A rung that can never run here (not for this graph's weights): the
+    ladder records it and moves on at once."""
 
 
 class SupervisorExhausted(RuntimeError):
@@ -308,9 +308,11 @@ class IncidentLog:
 # boundaries; the supervisor uses it for the cooperative watchdog.
 # ----------------------------------------------------------------------
 def _rung_sharded(graph: Graph, tick, device):
-    raise RungUnavailable(
-        "the sharded backend is not ported yet (ROADMAP queue 1 item 9)"
+    from distributed_ghs_implementation_tpu_torch.parallel.sharded import (
+        solve_graph_sharded,
     )
+
+    return solve_graph_sharded(graph, device=device)
 
 
 def _rung_device(graph: Graph, tick, device):

@@ -1,5 +1,5 @@
 """The PyTorch port's public API: results, the device rule, the backends
-that are not ported yet, and import hygiene (the port imports nothing of
+(``protocol`` is not ported yet), and import hygiene (the port imports nothing of
 JAX or of the JAX package)."""
 
 import re
@@ -110,14 +110,26 @@ def test_unsupported_device_type_raises():
 
 
 def test_backends_not_ported_raise():
-    """``sharded`` and ``protocol`` raise unless the solve is supervised;
-    ``host`` and supervised solves are ported."""
+    """``protocol`` raises unless the solve is supervised; ``sharded``
+    solves as the JAX package's does (edge ids, fragments and levels), and
+    so do ``host`` and supervised solves."""
+    from distributed_ghs_implementation_tpu import api as japi
+
     g = tgen.readme_sample_graph()
-    for backend in ("sharded", "protocol"):
-        with pytest.raises(NotImplementedError, match=backend):
-            minimum_spanning_forest(g, backend=backend, device=CPU)
-        supervised = minimum_spanning_forest(g, backend=backend, supervised=True, device=CPU)
-        assert supervised.backend == "supervised/device" and supervised.total_weight == 20
+    with pytest.raises(NotImplementedError, match="protocol"):
+        minimum_spanning_forest(g, backend="protocol", device=CPU)
+    supervised = minimum_spanning_forest(g, backend="protocol", supervised=True, device=CPU)
+    assert supervised.backend == "supervised/device" and supervised.total_weight == 20
+    for graph, jgraph in ((g, jgen.readme_sample_graph()),
+                          (tgen.erdos_renyi_graph(60, 0.2, seed=4),
+                           jgen.erdos_renyi_graph(60, 0.2, seed=4))):
+        got = minimum_spanning_forest(graph, backend="sharded", device=CPU)
+        want = japi.minimum_spanning_forest(jgraph, backend="sharded")
+        assert got.backend == want.backend == "sharded"
+        np.testing.assert_array_equal(got.edge_ids, want.edge_ids)
+        assert (got.num_levels, got.num_components) == (want.num_levels, want.num_components)
+    supervised = minimum_spanning_forest(g, backend="sharded", supervised=True, device=CPU)
+    assert supervised.backend == "supervised/sharded" and supervised.total_weight == 20
     assert minimum_spanning_forest(g, backend="host", device=CPU).total_weight == 20
     with pytest.raises(ValueError, match="unknown backend"):
         minimum_spanning_forest(g, backend="nope", device=CPU)
@@ -205,12 +217,49 @@ def test_port_imports_and_solves_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_parallel_imports_and_solves_without_jax():
+    """The sharded modules (``parallel/``) import and solve with JAX
+    blocked, and load no module of the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['networkx'] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from distributed_ghs_implementation_tpu_torch import minimum_spanning_forest, parallel\n"
+        "from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph\n"
+        "from distributed_ghs_implementation_tpu_torch.parallel import (\n"
+        "    lane, mesh, multihost, rank_sharded, sharded)\n"
+        "from distributed_ghs_implementation_tpu_torch.utils import checkpoint\n"
+        "g = rmat_graph(9, 8, seed=2)\n"
+        "want = minimum_spanning_forest(g, device='cpu').edge_ids.tolist()\n"
+        "m = mesh.edge_mesh(num_shards=4, device='cpu')\n"
+        "for strategy in ('flat', 'ell', 'rank'):\n"
+        "    got = sharded.solve_graph_sharded(g, mesh=m, strategy=strategy)[0].tolist()\n"
+        "    assert got == want, strategy\n"
+        "assert rank_sharded.solve_graph_rank_sharded(g, mesh=m, rank64=True)[0].tolist() == want\n"
+        "assert lane.ShardedLane(m).solve(g)[0].tolist() == want\n"
+        "assert multihost.is_primary() and multihost.broadcast_resume_state(None) is None\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    c = checkpoint.solve_graph_checkpointed_sharded(g, d + '/s.npz', mesh=m)\n"
+        "    assert c[0].tolist() == want\n"
+        "bad = [n for n in sys.modules if n == 'distributed_ghs_implementation_tpu' "
+        "or n.startswith('distributed_ghs_implementation_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     """Nor NetworkX, which the card's machine does not have."""
     jax_import = re.compile(r"^\s*(import jax|from jax|import networkx|from networkx)\b", re.M)
     files = sorted(PORT_DIR.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-        REPO / "tests" / "torch_inputs.py",
+        REPO / "tests" / "torch_inputs.py", REPO / "tests" / "torch_multihost_child.py",
     ]
     assert len(files) > 10
     for path in files:

@@ -558,13 +558,35 @@ def test_warmup_stream_buckets_warm_as_jax():
 
 
 def test_warmup_inputs_that_wait_for_other_items_raise():
-    cases = [
-        (twarmup.WarmupPlan(buckets=((64, 256),), tuning="/tmp/t.json"), {}, "item 10"),
-        (twarmup.WarmupPlan(mesh_buckets=((70000, 140000),)), {"lane": object()}, "item 9"),
-    ]
-    for plan, kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            twarmup.run_warmup(plan, device=CPU, **kw)
+    """A tuning record still waits for item 10; mesh buckets with a lane
+    warm now, as in the JAX package (report, ``compile.*`` and ``lane.*``
+    counters equal; JAX's lane on its 8 CPU devices, the port's on 8 CPU
+    shards), and a request in the bucket then counts no ``compile.miss``."""
+    from distributed_ghs_implementation_tpu.parallel import lane as jlane
+    from distributed_ghs_implementation_tpu_torch.parallel import lane as tlane
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    with pytest.raises(NotImplementedError, match="item 10"):
+        twarmup.run_warmup(twarmup.WarmupPlan(buckets=((64, 256),), tuning="/tmp/t.json"),
+                           device=CPU)
     assert tlanes.compiled_bucket_keys() == []
+    reports = {}
+    for side, warm, lane_mod, gen, bus, lane in (
+        ("jax", jwarmup, jlane, jgen, JBUS, None),
+        ("port", twarmup, tlane, tgen, TBUS, edge_mesh(num_shards=8, device=CPU)),
+    ):
+        lane_mod._reset_shape_ledger()
+        bus.clear()
+        lane = lane_mod.ShardedLane() if lane is None else lane_mod.ShardedLane(lane)
+        kw = {} if side == "jax" else {"device": CPU}
+        report = warm.run_warmup(warm.WarmupPlan(mesh_buckets=((2000, 6000), (70000, 3000))),
+                                 lane=lane, **kw)
+        report.update(kernel="torch", wall_s=0.0)
+        warm_counts = {k: v for k, v in bus.counters().items()
+                       if k.startswith(("compile.warmup", "compile.miss", "lane."))}
+        ids = lane.solve(gen.gnm_random_graph(2000, 6000, seed=11))[0].tolist()
+        reports[side] = (report, warm_counts, bus.counters().get("compile.miss", 0), ids)
+    assert reports["port"] == reports["jax"]
+    assert reports["port"][0]["mesh_warmed"] == 2 and reports["port"][2] == 0
     empty = twarmup.run_warmup(twarmup.WarmupPlan(), device=CPU)
     assert empty == {**jwarmup.run_warmup(jwarmup.WarmupPlan()), "kernel": "torch"}

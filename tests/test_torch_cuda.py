@@ -995,3 +995,98 @@ def test_service_deck_on_card_equals_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(
         np.asarray(got[0][0]["mst_edges"]),
         np.stack([g.u, g.v], axis=1)[rank_oracle_edge_ids(g)])
+
+
+# ---------------------------------------------------------------------------
+# The sharded solvers (parallel/): 4 shards on one card
+# ---------------------------------------------------------------------------
+
+
+def _sharded(mode, graph, mesh):
+    from distributed_ghs_implementation_tpu_torch.parallel import rank_sharded, sharded
+
+    if mode == "filtered":
+        return rank_sharded.solve_graph_rank_sharded(graph, mesh=mesh, filtered=True)
+    if mode == "rank64":
+        return rank_sharded.solve_graph_rank_sharded(graph, mesh=mesh, rank64=True)
+    return sharded.solve_graph_sharded(graph, mesh=mesh, strategy=mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["flat", "ell", "rank", "filtered", "rank64"])
+@pytest.mark.parametrize("name", ["er48", "rmat12", "road40", "forest23"])
+def test_sharded_fixtures_on_card_equal_cpu_and_oracle(cuda, name, mode):
+    """The dryrun fixtures on 4 shards of one card: the oracle's forest, the
+    CPU mesh's fragments and levels; K1 once a level (one device), and in
+    the flat solve K2 once a shard on every level past the first."""
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    g = forest23(edgelist.Graph, generators) if name == "forest23" else DECK[name](generators)
+    mesh = edge_mesh(num_shards=4, device="cuda")
+    assert mesh.rep_devices == (torch.device("cuda", torch.cuda.current_device()),)
+    k1, k2 = kernels.hook_compress.launches, kernels.gather_key.launches
+    ids, frag, levels = _sharded(mode, g, mesh)
+    d1, d2 = kernels.hook_compress.launches - k1, kernels.gather_key.launches - k2
+    np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
+    want = _sharded(mode, g, edge_mesh(num_shards=4, device="cpu"))
+    np.testing.assert_array_equal(frag, want[1])
+    assert levels == want[2]
+    assert d1 >= 1
+    if mode == "flat":
+        assert (d1, d2) == (levels, 4 * (levels - 1))
+
+
+@pytest.mark.gpu
+def test_k1_and_k2_at_a_shards_shapes_equal_plain(cuda, monkeypatch):
+    """K2 over each shard's slot block and K1 over the replicated state, on
+    the inputs a flat sharded solve of RMAT-12 on 4 shards gives them at
+    every level: equal to their plain versions."""
+    from distributed_ghs_implementation_tpu_torch.parallel import sharded
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    seen = {"k1": [], "k2": []}
+    real_hook, real_key = sharded.hook_and_compress, kernels.gather_key
+
+    def hook(has, dst, fragment):
+        seen["k1"].append((has.clone(), dst.clone(), fragment.clone()))
+        return real_hook(has, dst, fragment)
+
+    def key(fragment, src, dst, rank):
+        seen["k2"].append((fragment.clone(), src, dst, rank))
+        return real_key(fragment, src, dst, rank)
+
+    key.launches = real_key.launches  # the wrapper counts on the module's name
+    monkeypatch.setattr(sharded, "hook_and_compress", hook)
+    monkeypatch.setattr(sharded.kernels, "gather_key", key)
+    g = DECK["rmat12"](generators)
+    ids, _, levels = sharded.solve_graph_sharded(g, mesh=edge_mesh(num_shards=4, device="cuda"),
+                                                 strategy="flat")
+    np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
+    assert (len(seen["k1"]), len(seen["k2"])) == (levels, 4 * (levels - 1))
+    for args in seen["k2"]:
+        for a, b in zip(real_key(*args), kernels.gather_key_torch(*args)):
+            assert torch.equal(a, b)
+    for args in seen["k1"]:
+        for a, b in zip(kernels.hook_compress(*args), kernels.hook_compress_torch(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sharded_lane_on_card_equals_cpu(cuda):
+    from distributed_ghs_implementation_tpu_torch.parallel.lane import ShardedLane
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    g = generators.gnm_random_graph(70_000, 3_000, seed=21)
+    edges = [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]
+    g2 = edgelist.Graph.from_edges(g.num_nodes, edges + [[0, 1, 10 ** 6]])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lane = ShardedLane(edge_mesh(num_shards=4, device=dev))
+        first = lane.solve(g)
+        again = lane.solve(g)
+        updated = lane.update(g.digest(), g2)
+        out[dev] = [(a[0].tolist(), a[1].tolist(), a[2]) for a in (first, again, updated)]
+        assert lane.resident_digests() == [g2.digest()]
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0][0] == rank_oracle_edge_ids(g).tolist()
+    assert out["cuda"][2][0] == rank_oracle_edge_ids(g2).tolist()

@@ -198,17 +198,22 @@ def test_protocol_entry_starts_at_device_in_both():
 
 
 def test_sharded_rung_is_unavailable_in_the_port():
-    """The JAX package runs its sharded rung here (a virtual mesh); the
-    port records it as unavailable and goes on to the device rung, with
-    JAX's forest."""
-    jg, tg = pair("rmat")
-    ids, frag, levels, log = tres.Supervisor().solve(tg, entry="sharded", device=CPU)
-    assert incident_trail(log) == [("sharded", 1, "unavailable", None, 0.0),
-                                   ("device", 1, "ok", None, 0.0)]
-    assert "ROADMAP queue 1 item 9" in log.records[0].error
-    want = japi.minimum_spanning_forest(jg)
-    np.testing.assert_array_equal(ids, want.edge_ids)
-    assert levels == want.num_levels
+    """The sharded rung runs in both packages now (JAX on its 8-device CPU
+    mesh, the port on its CPU mesh): the same trail, forest, fragments,
+    levels and events, where the port used to record the rung
+    ``unavailable``."""
+    for name in ("rmat", "forest"):
+        runs = _both(name, entry="sharded")
+        _assert_same_run(runs, [("sharded", 1, "ok", None, 0.0)])
+        np.testing.assert_array_equal(runs["port"][0][0], rank_oracle_edge_ids(pair(name)[1]))
+
+
+def test_sharded_rung_degrades_like_jax():
+    runs = _both("road", entry="sharded",
+                 arm=[("resilience.attempt.sharded", 2, "raise", 0.0)])
+    _assert_same_run(runs, [("sharded", 1, "transient", "resilience.attempt.sharded", 0.5),
+                            ("sharded", 2, "transient", "resilience.attempt.sharded", 0.0),
+                            ("device", 1, "ok", None, 0.0)])
 
 
 def test_ladder_and_config_match_jax():

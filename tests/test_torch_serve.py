@@ -282,8 +282,41 @@ def test_solve_batch_lands_flights_when_publish_raises():
 
 
 def test_sharded_lane_waits_for_its_port():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsched.SolveScheduler(sharded_lane=object(), device=CPU)
+    """The lane is ported: an oversize miss routes ``sharded_lane`` in both
+    packages (JAX's lane on its 8-device CPU mesh, the port's on 8 CPU
+    shards) with the same forest, spans and counters, and its repeat is a
+    cache hit with no second lane solve; a small graph stays off the
+    lane, and a batch peels the oversize miss off to it."""
+    from distributed_ghs_implementation_tpu.parallel import lane as jlane
+    from distributed_ghs_implementation_tpu_torch.parallel import lane as tlane
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    out = {}
+    for side, gen, sched_mod, lane_mod, engine_mod, policy_mod, bus, kw in (
+        ("jax", jgen, jsched, jlane, jengine, jpolicy, JBUS, {}),
+        ("port", tgen, tsched, tlane, tengine, tpolicy, TBUS, {"device": CPU}),
+    ):
+        lane = (lane_mod.ShardedLane() if side == "jax"
+                else lane_mod.ShardedLane(edge_mesh(num_shards=8, device=CPU)))
+        sched = sched_mod.SolveScheduler(sharded_lane=lane, **kw)
+        big, small = _gnm(gen, 70_000, 3_000, 21), _gnm(gen, 60, 150, 3)
+        first, src1 = sched.solve(big)
+        again, src2 = sched.solve(big)
+        tiny, src3 = sched.solve(small)
+        engine = engine_mod.BatchEngine(policy=policy_mod.BatchPolicy(**SMALL), **kw)
+        batch_sched = sched_mod.SolveScheduler(sharded_lane=lane, batch_engine=engine, **kw)
+        batch = batch_sched.solve_batch([_gnm(gen, 40, 100, s) for s in (1, 2)]
+                                        + [_gnm(gen, 70_000, 3_000, 22)])
+        engine.close()
+        spans = [e[6].get("route") for e in bus.events() if e[1] == "serve.solve"]
+        lane_solves = sum(1 for e in bus.events() if e[1] == "lane.solve")
+        out[side] = ([_res(first), _res(again), _res(tiny), [src1, src2, src3]],
+                     [(_res(r), src) for r, src in batch], spans, lane_solves,
+                     _serve_counters(bus))
+    assert out["port"] == out["jax"]
+    assert out["port"][0][0][3] == "sharded_lane" and out["port"][0][3] == ["solved", "cache",
+                                                                            "solved"]
+    assert out["port"][3] == 2
 
 
 def test_priority_gate_yields_to_interactive_work():

@@ -20,7 +20,8 @@ package's bus once any test has installed it) is pointed at a bus of its
 own for the comparison: it reports on XLA, which the port does not have,
 and whether it is installed depends on the tests that ran before. Where the port
 differs on purpose it is pinned here too: ``MSTService()`` needs CUDA unless
-given a device, and ``sharded_lane=`` raises until ``parallel/`` is ported.
+given a device. A second deck runs through a service with a sharded lane
+(``parallel/lane.py``) in each package.
 """
 
 import io
@@ -287,16 +288,104 @@ def test_garbled_frame_stream_exits_nonzero_as_jax():
 
 
 def test_service_needs_cuda_or_a_device_and_refuses_a_sharded_lane(monkeypatch):
+    """``MSTService()`` needs CUDA unless given a device; ``sharded_lane=``
+    no longer raises: it builds a lane over the service's device (one CPU
+    shard for ``True``, as many as an int names) and hands it to the
+    scheduler and the streams."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tsvc.MSTService()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsvc.MSTService(sharded_lane=True, device=CPU)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsvc.MSTService(sharded_lane=True)
+    for spec, shards in ((True, 1), (4, 4)):
+        svc = tsvc.MSTService(sharded_lane=spec, device=CPU)
+        lane = svc.sharded_lane
+        assert lane.mesh.size == shards and {d.type for d in lane.mesh.devices} == {"cpu"}
+        assert svc.scheduler.sharded_lane is lane and svc.streams._lane is lane
     svc = tsvc.MSTService(device=CPU)
     assert svc.device.type == "cpu" and svc.streams.device.type == "cpu"
-    assert svc.scheduler.device.type == "cpu"
+    assert svc.scheduler.device.type == "cpu" and svc.sharded_lane is None
+
+
+def _lane_deck_steps(binary):
+    """A deck for a service with a sharded lane: an oversize graph solved
+    on the lane (then from the cache), updated (the residency moves along),
+    streamed (a sharded stream: windows written into the resident shards),
+    and a small graph beside it."""
+    big = jgen.gnm_random_graph(70_000, 3_000, seed=21)
+    small = jgen.gnm_random_graph(40, 120, seed=3)
+    rng = np.random.default_rng(9)
+
+    def graph(g, **extra):
+        if binary:
+            return {"op": "solve", **g.to_wire(), **extra}
+        return {"op": "solve", "num_nodes": g.num_nodes, "edges": _edges(g), **extra}
+
+    answers = yield
+    yield graph(big, slo_class="oversize")
+    yield graph(big)
+    yield graph(small, edges_out=True)
+    # A heavy insert lands past every rank: the write touches one slot.
+    yield {"op": "update", "digest": big.digest(), "updates": [
+        {"kind": "insert", "u": 0, "v": 1, "w": 10_000}]}
+    yield {"op": "subscribe", "digest": big.digest()}
+    sid, head = answers[-1]["stream"], answers[-1]["digest"]
+    yield {"op": "publish", "stream": sid, "digest": head, "updates": _updates(rng, big, 30)}
+    head = answers[-1]["digest"]
+    yield {"op": "publish", "stream": sid, "digest": head, "updates": _updates(rng, big, 5),
+           "edges_out": True}
+    yield {"op": "poll", "stream": sid, "after_seq": 0}
+    yield {"op": "stats"}
+
+
+@pytest.mark.parametrize("transport", ["jsonl", "frames"])
+def test_sharded_lane_deck_answers_equal_jax(tmp_path, transport):
+    """One deck through a service with a sharded lane in each package (JAX's
+    ``sharded_lane=True`` over its 8 CPU devices, the port's
+    ``sharded_lane=8`` over 8 CPU shards): every answer equal as JSON text
+    after the same stripped fields as the deck above."""
+    svc = jsvc.MSTService(stream_dir=str(tmp_path / "build"), sharded_lane=True)
+    answers, requests = [], []
+    steps = _lane_deck_steps(transport == "frames")
+    next(steps)
+    req = steps.send(answers)
+    while True:
+        requests.append(req)
+        answers.append(svc.handle(req))
+        try:
+            req = next(steps)
+        except StopIteration:
+            break
+    assert answers[0]["backend"] == "sharded_lane"
+    from distributed_ghs_implementation_tpu.parallel import lane as jlane
+    from distributed_ghs_implementation_tpu_torch.parallel import lane as tlane
+
+    got = {}
+    for name, mod, framing, extra in (("jax", jsvc, jframing, {"sharded_lane": True}),
+                                      ("port", tsvc, tframing,
+                                       {"sharded_lane": 8, "device": CPU})):
+        _fresh_caches()
+        for lane in (jlane, tlane):  # each run is a fresh process's first dispatch
+            lane._reset_shape_ledger()
+        root = str(tmp_path / f"{name}_streams")
+        if transport == "jsonl":
+            got[name] = _run_jsonl(mod, requests, root, **extra)
+        else:
+            got[name] = [a[1] for a in _run_frames(mod, framing, requests, root, **extra)]
+    assert len(got["port"]) == len(got["jax"])
+    for i, (j, t) in enumerate(zip(got["jax"], got["port"])):
+        assert _strip(t) == _strip(j), (i, requests[min(i, len(requests) - 1)].get("op"))
+    port = [a for a in got["port"] if a.get("op") != "error"]
+    assert port[0]["backend"] == "sharded_lane" and port[1]["source"] == "cache"
+    stats = port[-1]
+    assert stats["counters"]["serve.route.sharded_lane"] >= 1
+    # The update and the windows moved the residency along the chain (the
+    # canonical edge order of an updated graph shifts most rank slots, so
+    # the lane restages them rather than writing a few slots).
+    assert stats["counters"]["stream.lane.migrated"] == 2
+    assert stats["counters"]["lane.restage"] >= 1
 
 
 def test_serve_loop_drains_on_a_signal_after_the_response():

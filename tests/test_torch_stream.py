@@ -414,5 +414,77 @@ def test_stream_manager_needs_cuda_or_a_device_and_refuses_a_lane(monkeypatch, t
     g = tgen.gnm_random_graph(10, 20, seed=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         twindow.WindowedMST(tapi.minimum_spanning_forest(g, device=CPU))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsession.StreamManager(lane=object(), device=CPU)
+    from distributed_ghs_implementation_tpu_torch.parallel.lane import ShardedLane
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    # A lane no longer raises: an oversize stream becomes mesh-resident,
+    # a small one does not.
+    lane = ShardedLane(edge_mesh(num_shards=2, device=CPU))
+    mgr = tsession.StreamManager(lane=lane, device=CPU, root=str(tmp_path))
+    big = tgen.gnm_random_graph(70_000, 2_000, seed=2)
+    assert mgr._lane_wants(big) and not mgr._lane_wants(g)
+    session = mgr.subscribe(digest=big.digest(), result=lane.solve_result(big))
+    assert session.sharded and lane.pin_count(big.digest()) == 1
+    assert mgr.stats()["sharded"] == 1
+
+
+def _sharded_stream_run(side, root, windows):
+    """A sharded stream in package ``side``: the oversize seed solved on a
+    lane of 8 shards, two windows, then a restart (a new lane and manager
+    over the same root) that replays them. Returns what both packages must
+    agree on."""
+    from distributed_ghs_implementation_tpu.parallel import lane as jlane
+    from distributed_ghs_implementation_tpu_torch.parallel import lane as tlane
+    from distributed_ghs_implementation_tpu_torch.parallel.mesh import edge_mesh
+
+    if side == "jax":
+        make_lane, gen, session_mod, bus, kw = jlane.ShardedLane, jgen, jsession, JBUS, {}
+    else:
+        def make_lane():
+            return tlane.ShardedLane(edge_mesh(num_shards=8, device=CPU))
+
+        gen, session_mod, bus, kw = tgen, tsession, TBUS, {"device": CPU}
+    for mod in (jlane, tlane):
+        mod._reset_shape_ledger()
+    bus.clear()
+    big = gen.gnm_random_graph(70_000, 3_000, seed=21)
+    lane = make_lane()
+    mgr = session_mod.StreamManager(root=root, lane=lane, solver=lane.solve_result, **kw)
+    session = mgr.subscribe(digest=big.digest(), result=lane.solve_result(big))
+    heads = [session.head]
+    for updates in windows:
+        out = mgr.publish(session.id, session.head, updates)
+        heads.append(out["digest"])
+    first = (heads, lane.resident_digests(), lane.pin_count(heads[-1]),
+             [out["result"].edge_ids.tolist()], _counters(bus, ("stream.", "lane.")))
+    bus.clear()
+    lane2 = make_lane()
+    mgr2 = session_mod.StreamManager(root=root, lane=lane2, solver=lane2.solve_result, **kw)
+    back = mgr2.subscribe(stream=session.id)
+    polled = mgr2.poll(back.id, after_seq=0)
+    restart = (back.head, back.seq, back.sharded, lane2.resident_digests(),
+               lane2.pin_count(back.head), back.mst.result().edge_ids.tolist(),
+               polled["notifications"], _counters(bus, ("stream.", "lane.", "serve.")),
+               sum(1 for e in bus.events() if e[1] == "lane.solve"))
+    return first, restart
+
+
+def test_sharded_stream_restarts_with_its_residency(tmp_path):
+    """A sharded stream in each package (JAX's lane on its 8 CPU devices,
+    the port's on 8 CPU shards): the same heads, residency, pins and
+    counters; a restart re-stages the head before it replays, with no
+    fresh solve, and holds it pinned."""
+    big = jgen.gnm_random_graph(70_000, 3_000, seed=21)
+    rng = np.random.default_rng(4)
+    windows = [[u.__dict__ for u in jwindow.random_update_stream(rng, big, size)]
+               for size in (20, 6)]
+    windows = [[{k: v for k, v in u.items() if v is not None} for u in w] for w in windows]
+    got = {side: _sharded_stream_run(side, str(tmp_path / side), windows)
+           for side in ("jax", "port")}
+    assert got["port"] == got["jax"]
+    first, restart = got["port"]
+    assert restart[0] == first[0][-1] and restart[2] is True
+    assert restart[3] == [restart[0]] and restart[4] == 1
+    counters = restart[7]
+    assert counters["stream.replay.residency_restored"] == 1
+    assert counters.get("serve.scheduler.fresh_solve", 0) == 0 and restart[8] == 0
