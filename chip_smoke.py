@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, eight paths, each with every kernel launch count set to 0 just
+2. main path, nine paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -101,17 +101,32 @@ Phases, each printing a line:
       ``compile.miss`` after ``precompile``, a sharded stream of two windows
       and a restart that re-stages before it replays; the supervisor's
       sharded rung and a sharded checkpoint resumed from the head.
+   i. the protocol, the chaos drill, the tuner and the build cache
+      (``_protocol_tune_path``): ``backend="protocol"`` on the fixture deck
+      and ``erdos_renyi_graph(45, 0.15)`` seeds 0-7, each forest equal to
+      the card's ``backend="device"`` solve and the oracle, with its
+      seconds, levels and messages by kind; ``run_chaos_drill(fast=True)``
+      with its solver and checkpoint legs on the card, every case ok;
+      ``tune.search`` over the three lane buckets of phase f at 16 lanes
+      and RMAT-18's ``ell`` bucket (each candidate's median and spread,
+      the winner), the record installed by a fresh ``run_warmup``, then a
+      16-lane batch of each set and the RMAT-18 ELL solve under the
+      installed configs (no ``compile.miss`` after the warmup); and a
+      child process that loads both libraries from this run's ``build/``
+      through ``utils.compile_cache`` with hits only.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
    sizes: K1 in the form ``auto`` picks and in both forced forms, around
    the block form's threshold, up to 2^22, on chains (every jump needed),
+   on phase 2i's traced lane-bucket inputs in every form valid at their n,
    on nothing hooked (the first jump ends the round) and on cyclic garbage
    (no jump does); K1 on its own inputs from the rank path's traced run,
    at every n it ran there (the census spaces of the road grid and the
    road network among them); K3 per bucket and as one level over RMAT-18's
-   own buckets and random bucket sets. Then the profiler shows one device kernel for one K1
+   own buckets and random bucket sets, and at each tile the tuner searches
+   on phase 2i's traced RMAT-18 level. Then the profiler shows one device kernel for one K1
    call and one for one K3 level. Then the K4 wrapper's host time over 10^4
    calls, split into the steps of the launch path, beside ``torch.take``'s;
    then the two choices this run measures for K1 and K3 (block form
@@ -780,9 +795,9 @@ def _batch_serve_path(torch, kernels, boruvka, msf, sets, set_oracle, graphs, or
             key = (name, count, count * n_pad)
             traced = k1_inputs[key] = []
 
-            def spy(has, dst_frag, fragment, traced=traced):
+            def spy(has, dst_frag, fragment, *, form="auto", traced=traced):
                 traced.append((has.clone(), dst_frag.clone(), fragment.clone()))
-                return hook(has, dst_frag, fragment)
+                return hook(has, dst_frag, fragment, form=form)
 
             boruvka.hook_and_compress = spy
             try:
@@ -1917,6 +1932,294 @@ def _sharded_path(torch, kernels, boruvka, deck, graphs, oracle, check, scratch,
     return out
 
 
+# The build-cache child of phase 2i: loads both libraries from a cache
+# directory, as a restarted process would.
+_CACHE_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from distributed_ghs_implementation_tpu_torch.graphs import native
+from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+from distributed_ghs_implementation_tpu_torch.ops import kernels
+from distributed_ghs_implementation_tpu_torch.utils import compile_cache
+BUS.enable()
+compile_cache.enable_persistent_cache(sys.argv[2])
+torch.zeros(1, device="cuda")  # the CUDA context, outside the load times
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+kernels._lib()
+t1 = time.perf_counter()
+native.get_lib()
+t2 = time.perf_counter()
+print(json.dumps({
+    "kernels_load_s": t1 - t0, "native_load_s": t2 - t1,
+    "counters": {k: v for k, v in BUS.counters().items() if k.startswith("compile.")},
+    "stats": compile_cache.cache_stats(),
+}))
+"""
+
+
+def _protocol_tune_path(torch, kernels, boruvka, msf, deck, graphs, oracle, lane_sets,
+                        lane_oracle, scratch, build_s) -> tuple:
+    """The protocol, the chaos drill, the tuner and the build cache on the
+    card (phase 2i):
+
+    a. protocol: ``backend="protocol"`` on the fixture deck and on
+       ``erdos_renyi_graph(45, 0.15)`` seeds 0-7, each forest equal to the
+       card's ``backend="device"`` solve (K1 and K2) and the rank oracle;
+       the seconds a solve took, its levels, and the messages by kind from
+       a second run over a transport that counts them;
+    b. chaos: ``run_chaos_drill(fast=True)`` with its solver and checkpoint
+       legs on the card; every case ``ok``;
+    c. tuner: ``tune.search`` over the three lane buckets of phase 2f at the
+       batch policy's 16 lanes (128-vertex graphs, stack n = 2,048;
+       RMAT-13's, n = 2^17; the ceiling bucket, n = 2^20) and RMAT-18's
+       ``ell`` bucket (its 15 buckets, K3 at each tile); the record saved,
+       installed by a fresh ``run_warmup(WarmupPlan(tuning=...))``, then a
+       16-lane batch of each lane set and the RMAT-18 ELL solve under the
+       installed configs, every forest equal to the oracle, no
+       ``compile.miss`` after the warmup, and K1's form and K3's tile the
+       installed ones. K1's first-level inputs of each batch and K3's
+       level-1 inputs of the ELL solve are traced for phase 3;
+    d. build cache: a child process pointed at this run's ``build/`` by
+       ``enable_persistent_cache`` loads both libraries with hits only.
+
+    Returns the records and the traced inputs ``{"k1": {bucket key: (n,
+    inputs)}, "k3": (fragment, buckets, n_pad)}``.
+    """
+    from distributed_ghs_implementation_tpu_torch.batch import lanes, warmup
+    from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.protocol import SimTransport, run_protocol
+    from distributed_ghs_implementation_tpu_torch.tune import measure, record, space
+    from distributed_ghs_implementation_tpu_torch.utils.chaos import run_chaos_drill
+    from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+
+    out = {}
+    BUS.enable()
+
+    class CountingTransport(SimTransport):
+        """The simulator, counting the messages it sends by kind."""
+
+        def __init__(self):
+            super().__init__()
+            self.kinds = {}
+
+        def send(self, src, dst, msg):
+            self.kinds[msg.type.value] = self.kinds.get(msg.type.value, 0) + 1
+            super().send(src, dst, msg)
+
+    # a. protocol
+    t = time.perf_counter()
+    proto = dict(deck)
+    proto.update({f"er45-{s}": gen.erdos_renyi_graph(45, 0.15, seed=s) for s in range(8)})
+    rows = {}
+    for name, g in proto.items():
+        want = oracle[name] if name in oracle else rank_oracle_edge_ids(g)
+        t0 = time.perf_counter()
+        res = msf(g, backend="protocol")
+        seconds = time.perf_counter() - t0
+        dev = msf(g)
+        if not (np.array_equal(res.edge_ids, dev.edge_ids) and np.array_equal(res.edge_ids, want)):
+            raise AssertionError(f"protocol {name}: forest differs from the card's solve or "
+                                 "the rank oracle")
+        if res.num_components != dev.num_components or res.backend != "protocol":
+            raise AssertionError(f"protocol {name}: {res.num_components} components, "
+                                 f"the card's {dev.num_components}; backend {res.backend}")
+        transport = CountingTransport()
+        run_protocol(g, transport=transport)
+        if sum(transport.kinds.values()) != transport.messages_sent:
+            raise AssertionError(f"protocol {name}: messages by kind do not add up")
+        rows[name] = {"nodes": g.num_nodes, "edges": g.num_edges, "s": seconds,
+                      "levels": res.num_levels, "device_levels": dev.num_levels,
+                      "messages": transport.messages_sent,
+                      "deferred": transport.messages_deferred, "by_kind": transport.kinds}
+    out["protocol"] = rows
+    out["protocol_phase_s"] = time.perf_counter() - t
+    print("phase 2i, protocol (backend='protocol' = the card's solve = the rank oracle), "
+          "s / levels / messages a graph: " + "; ".join(
+              f"{name} {r['s']:.3f} s, {r['levels']} levels, {r['messages']} messages "
+              f"{json.dumps(r['by_kind'], sort_keys=True)}" for name, r in rows.items()))
+
+    # b. chaos
+    t = time.perf_counter()
+    report = run_chaos_drill(fast=True, workdir=str(scratch))
+    failed = [c.get("case", c.get("graph")) for c in report["cases"] if not c["ok"]]
+    if failed or not report["ok"]:
+        raise AssertionError(f"chaos drill: cases failed: {failed}")
+    out["chaos"] = {"cases": report["num_cases"], "channel_totals": report["channel_totals"],
+                    "wall_s": time.perf_counter() - t}
+    print(f"phase 2i, chaos drill (fast, solver and checkpoint legs on the card): "
+          f"{report['num_cases']} cases ok in {out['chaos']['wall_s']:.2f} s; channel totals "
+          f"{json.dumps(report['channel_totals'])}")
+
+    # c. tuner
+    t = time.perf_counter()
+    lane_names = ("small128", "rmat13", "ceiling")
+    lane_buckets = {name: (*lanes.bucket_key(lane_sets[name][0]), 16, "fused")
+                    for name in lane_names}
+    rmat18 = graphs["rmat18"]
+    ell_bucket = (*lanes.bucket_key(rmat18), 0, "ell")
+    rec = measure.search(list(lane_buckets.values()) + [ell_bucket], repeats=5,
+                         workloads={ell_bucket: rmat18})
+    tuned = {}
+    for key, entry in rec["entries"].items():
+        bucket = record.parse_bucket_key(key)
+        cands = space.enumerate_candidates(*bucket, kernel="cuda")
+        dead = entry["rejected"] - (space.raw_space_size(bucket[3]) - len(cands))
+        if entry["source"] != "measured" or entry["parity"] != "ok" or dead:
+            raise AssertionError(f"tuner {key}: {json.dumps(entry)}")
+        tuned[key] = entry
+        print(f"phase 2i, tuner {key} ({len(cands)} candidates, {entry['rejected']} rejected, "
+              f"parity {entry['parity']}): " + ", ".join(
+                  f"{label} {t['median_ms']:.4f} ms (spread {t['spread_ms']:.4f})"
+                  for label, t in entry["timings"].items())
+              + f"; winner {json.dumps(entry['config'])}")
+    out["tuner"] = tuned
+    out["tuner_search_s"] = time.perf_counter() - t
+    path = str(scratch / "tuning.json")
+    record.save_record(rec, path)
+
+    # The record into a fresh process state, through warmup.
+    kernels.set_tuned_configs(None)
+    lanes.clear_solver_cache()
+    plan = warmup.WarmupPlan(buckets=tuple(b[:2] for b in lane_buckets.values()), lanes=16,
+                             tuning=path)
+    report = warmup.run_warmup(plan)
+    if report["tuned_entries"] != len(rec["entries"]):
+        raise AssertionError(f"warmup installed {report['tuned_entries']} of "
+                             f"{len(rec['entries'])} entries")
+    out["warmup"] = report
+    misses = BUS.counters().get("compile.miss", 0)
+    traced_k1 = {}
+    hook = boruvka.hook_and_compress
+    for name, bucket in lane_buckets.items():
+        config = kernels.tuned_config(bucket)
+        n = 16 * bucket[0]
+        want_form = config.hook_form
+        if want_form == "auto":
+            want_form = "block" if n <= kernels.HOOK_BLOCK_FORM_THRESHOLD else "grid"
+        traced = []
+
+        def spy(has, dst_frag, fragment, *, form="auto", traced=traced):
+            if not traced:
+                traced.append((has.clone(), dst_frag.clone(), fragment.clone()))
+            return hook(has, dst_frag, fragment, form=form)
+
+        boruvka.hook_and_compress = spy
+        try:
+            res = lanes.solve_lanes(lane_sets[name][:16], lanes=16)
+        finally:
+            boruvka.hook_and_compress = hook
+        _, ran = kernels.hook_compress_readout()
+        for i, (ids, _, _) in enumerate(res):
+            if not np.array_equal(ids, lane_oracle[name][i]):
+                raise AssertionError(f"tuned batch {name}[{i}]: forest differs from the oracle")
+        if ran != want_form:
+            raise AssertionError(f"tuned batch {name}: K1 ran {ran}, installed {config}")
+        traced_k1[record.bucket_key_str(bucket)] = (n, traced[0])
+    if BUS.counters().get("compile.miss", 0) != misses:
+        raise AssertionError("a tuned batch built a solver after warmup")
+    config = kernels.tuned_config(ell_bucket)
+    plans, traced_k3 = [], []
+    real_plan, real_level = kernels.ell_plan, kernels.ell_level_min
+
+    def plan_spy(buckets, *, tile_slots=kernels.ELL_TILE_SLOTS):
+        plans.append(tile_slots)
+        return real_plan(buckets, tile_slots=tile_slots)
+
+    def level_spy(fragment, plan, vmin):
+        if not traced_k3:
+            traced_k3.append((fragment.clone(), plan.buckets))
+        return real_level(fragment, plan, vmin)
+
+    kernels.ell_plan, kernels.ell_level_min = plan_spy, level_spy
+    try:
+        ids, _, _ = boruvka.solve_graph(rmat18, strategy="ell")
+    finally:
+        kernels.ell_plan, kernels.ell_level_min = real_plan, real_level
+    same = np.array_equal(ids, oracle["rmat18"])
+    if not same or plans != [config.tile_slots]:
+        raise AssertionError(f"tuned ELL RMAT-18: forest equal {same}, plans at {plans}, "
+                             f"installed {config}")
+    out["installed"] = {record.bucket_key_str(b): kernels.tuned_config(b).to_json()
+                        for b in [*lane_buckets.values(), ell_bucket]}
+    out["tuner_phase_s"] = time.perf_counter() - t
+    print(f"phase 2i, tuned: warmup installed {report['tuned_entries']} entries; 16-lane batches "
+          f"and the RMAT-18 ELL solve under them equal the oracle, no compile.miss after warmup; "
+          f"installed {json.dumps(out['installed'])}")
+
+    # d. build cache
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CACHE_CHILD, str(ROOT), str(ROOT / "build")],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if proc.returncode:
+        raise AssertionError(f"build-cache child failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    counters = child["counters"]
+    if counters.get("compile.persistent.hit", 0) < 2 or counters.get("compile.persistent.miss", 0):
+        raise AssertionError(f"build-cache child: {counters}")
+    out["build_cache"] = {**child, "build_s": build_s, "child_s": time.perf_counter() - t}
+    print(f"phase 2i, build cache: a child process loads both libraries from build/ with "
+          f"{json.dumps(counters)}: kernels {child['kernels_load_s']:.3f} s (built in "
+          f"{build_s['kernels']:.2f} s), native {child['native_load_s']:.3f} s (built in "
+          f"{build_s['native']:.2f} s); {child['stats']['entries']} entries, "
+          f"{child['stats']['bytes']} bytes")
+    return out, {"k1": traced_k1, "k3": (*traced_k3[0], ell_bucket[0])}
+
+
+def _tuned_kernels_vs_plain(torch, kernels, cuda_time_ms, traced) -> tuple:
+    """Phase 2i's traced inputs through K1 in every form valid at their n
+    and K3 at every tile the tuner searches, each against its plain
+    version (tolerance 0), and each timed by CUDA events beside its
+    bound. Returns ``(max K1 error, max K3 error, K1 records, K3
+    records)``."""
+    from distributed_ghs_implementation_tpu_torch.tune import space
+
+    err1 = err3 = 0
+    k1 = []
+    for key, (n, inputs) in traced["k1"].items():
+        want = kernels.hook_compress_torch(*inputs)
+        rec = {"bucket": key, "n": n, "bound_ms": 17 * n / HBM_BYTES_PER_S * 1e3, "forms": {}}
+        for form in space.HOOK_FORM_CHOICES:
+            if form == "block" and n > kernels.HOOK_BLOCK_MAX_NODES:
+                continue
+            err1 = max(err1, _max_abs_err(kernels.hook_compress(*inputs, form=form), want))
+            jumps, ran = kernels.hook_compress_readout()
+            if form != "auto" and ran != form:
+                raise AssertionError(f"K1 {key} forced {form} ran {ran}")
+            rec["forms"][form] = {"ran": ran, "jumps": jumps, "ms": cuda_time_ms(
+                lambda f=form: kernels.hook_compress(*inputs, form=f))}
+        rec["plain_ms"] = cuda_time_ms(lambda: kernels.hook_compress_torch(*inputs))
+        k1.append(rec)
+        print(f"time hook_compress (tuned bucket {key}, first-level inputs at n={n}) by form: "
+              + ", ".join(f"{f} {r['ms']:.4f} ms ({r['jumps']} jumps)"
+                          for f, r in rec["forms"].items())
+              + f"; plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms")
+    fragment, buckets, n_pad = traced["k3"]
+    slots = sum(b[1].numel() for b in buckets)
+    rows = sum(b[0].numel() for b in buckets)
+    k3 = []
+    for tile in space.TILE_SLOT_CHOICES:
+        plan = kernels.ell_plan(buckets, tile_slots=tile)
+
+        def fresh():
+            return torch.full((n_pad,), kernels.INT32_MAX, dtype=torch.int32, device="cuda")
+
+        got = kernels.ell_level_min(fragment, plan, fresh())
+        want = kernels.ell_level_min_torch(fragment, plan, fresh())
+        err3 = max(err3, _max_abs_err((got,), (want,)))
+        vmin = fresh()
+        k3.append({"tile_slots": tile, "tiles": plan.tiles,
+                   "ms": cuda_time_ms(lambda p=plan: kernels.ell_level_min(fragment, p, vmin)),
+                   "bound_ms": (8 * slots + 4 * rows + 12 * n_pad) / HBM_BYTES_PER_S * 1e3})
+    print("time ell_row_min (RMAT-18's tuned ell bucket, level-1 inputs, one launch a level) by "
+          "tile slots: " + ", ".join(f"{r['tile_slots']} {r['ms']:.4f} ms ({r['tiles']} tiles)"
+                                     for r in k3)
+          + f"; bound {k3[0]['bound_ms']:.4f} ms; K1 error {err1}, K3 error {err3}")
+    return err1, err3, k1, k3
+
+
 def main() -> int:
     import torch
 
@@ -1960,6 +2263,7 @@ def main() -> int:
     native_cached = native.library_path().is_file()
     native_path = native.build_library()
     native.get_lib()
+    build_s = {"kernels": t1 - t0, "native": time.perf_counter() - t1}
     print(f"build: kernels {t1 - t0:.2f} s ({'cached' if cached else 'compiled'}) "
           f"{lib_path.relative_to(ROOT)}; native host library {time.perf_counter() - t1:.2f} s "
           f"({'cached' if native_cached else 'compiled'}) {native_path.relative_to(ROOT)}")
@@ -2196,9 +2500,25 @@ def main() -> int:
     sharded["phase_s"] = time.perf_counter() - t_sharded
     print(f"main path, sharded ({card_description()}): {sharded['phase_s']:.2f} s, every "
           f"forest equals its oracle; {json.dumps({**sharded, 'launches': sharded_counts})}")
+    # 2i. the protocol, the chaos drill, the tuner and the build cache
+    zero_counts()
+    t_tune = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        protocol_tune, tuned_inputs = _protocol_tune_path(
+            torch, kernels, boruvka, minimum_spanning_forest, deck, graphs, oracle, lane_sets,
+            lane_oracle, scratch, build_s)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    tune_counts = read_counts("protocol and tune", ("gather_key", "hook_compress", "ell_row_min"))
+    protocol_tune["phase_s"] = time.perf_counter() - t_tune
+    print(f"main path, protocol, chaos, tuner and build cache ({card_description()}): "
+          f"{protocol_tune['phase_s']:.2f} s; "
+          f"{json.dumps({**protocol_tune, 'launches': tune_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
-                + service_counts[name] + sharded_counts[name] for name in flat_counts}
+                + service_counts[name] + sharded_counts[name] + tune_counts[name]
+                for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
     rng = np.random.default_rng(0)
@@ -2239,6 +2559,11 @@ def main() -> int:
             raise AssertionError(f"K1 {kind} n={n}: ran {ran} (want {form}), {jumps} jumps")
         if kind == "none" and jumps != 1 or kind == "cycle" and n > 2 and jumps != kernels.num_jumps(n):
             raise AssertionError(f"K1 {kind} n={n}: {jumps} jumps")
+    # K1 in every form and K3 at every tile on phase 2i's tuned buckets.
+    tuned_err1, tuned_err3, k1_tuned, k3_tuned = _tuned_kernels_vs_plain(
+        torch, kernels, cuda_time_ms, tuned_inputs)
+    err["hook_compress"] = max(err["hook_compress"], tuned_err1)
+    err["ell_row_min"] = max(err["ell_row_min"], tuned_err3)
     table = torch.arange(256, dtype=torch.int32, device=dev)
     for idx in (torch.full((2, 128), 3, dtype=torch.int32, device=dev),
                 put(rng.integers(0, 256, (2, 128)).astype(np.int32))):
@@ -2536,6 +2861,7 @@ def main() -> int:
             "launches_batch_serve": batch_counts[name],
             "launches_service": service_counts[name],
             "launches_sharded": sharded_counts[name],
+            "launches_protocol_tune": tune_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2606,7 +2932,9 @@ def main() -> int:
           f"{k1['at_n8192']['ms']:.4f} ms, plain {k1['at_n8192']['plain_ms']:.4f} ms, "
           f"bound {k1['at_n8192']['bound_ms']:.6f} ms; {k1['at_n8192']['form']} form, "
           f"{k1['at_n8192']['jumps']} jumps; at n=2^18 {k1['form']} form, {k1['jumps']} jumps")
-    k3.update(device_ms=device_ms["ell_row_min one level"], tiles=plan18.tiles)
+    k1["tuned_buckets"] = k1_tuned
+    k3.update(device_ms=device_ms["ell_row_min one level"], tiles=plan18.tiles,
+              tuned_tiles=k3_tuned)
     print(f"time K3 one RMAT-18 level (one launch) by CUDA events: {k3['ms']:.4f} ms, by the "
           f"profiler {k3['device_ms']:.4f} ms of device time, bound {k3['bound_ms']:.4f} ms")
     at26 = {

@@ -11,8 +11,10 @@ selects the path:
     (``parallel/``; on the CPU one shard), ``solve_graph_sharded``;
   * ``"host"``: native single-core Kruskal over the rank order, on no card
     (integer weights);
-  * ``"protocol"``: not ported yet; it raises unless the solve is
-    supervised, which enters the ladder at ``"device"``.
+  * ``"protocol"``: the GHS message protocol (``protocol/``), one state
+    machine a vertex over a deterministic event queue, on the host; no
+    card runs it, but the device rule holds as for every backend. A
+    supervised solve enters the ladder at ``"device"``.
 
 ``supervised=True`` (or a ``supervisor``) runs the solve under
 ``utils.resilience.Supervisor``.
@@ -31,9 +33,6 @@ from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
 
 if TYPE_CHECKING:  # deferred: the supervisor stays off the plain path
     from distributed_ghs_implementation_tpu_torch.utils.resilience import IncidentLog
-
-_NOT_PORTED_BACKENDS = ("protocol",)
-
 
 @dataclasses.dataclass
 class MSTResult:
@@ -95,14 +94,18 @@ def _solve(graph: Graph, backend: str, device) -> Tuple[np.ndarray, np.ndarray, 
         )
 
         return solve_graph_sharded(graph, device=device)
+    if backend == "protocol":
+        from distributed_ghs_implementation_tpu_torch.protocol.runner import (
+            solve_graph_protocol,
+        )
+
+        return solve_graph_protocol(graph)
     if backend == "host":
         from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
             solve_graph_kruskal_host,
         )
 
         return solve_graph_kruskal_host(graph)
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(f"backend {backend!r} is not ported yet")
     raise ValueError(
         f"unknown backend {backend!r}; expected device|sharded|protocol|host"
     )

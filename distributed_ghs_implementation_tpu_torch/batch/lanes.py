@@ -30,6 +30,11 @@ package, so "a warmed bucket causes no build at request time" is a
 property a run can assert. There is no kernel choice and no fallback: a
 kernel that fails to build or launch raises out of :func:`execute_stacked`.
 
+**Tuned launches.** Each solve of a bucket reads the bucket's installed
+launch config (``kernels.tuned_config``, which ``tune.record.install_record``
+writes) for K1's form; without a record it is ``"auto"``. A cache entry does
+not depend on it, so installing a record needs no rebuild.
+
 :func:`stack_lanes` does the host work (padding, shifting, NumPy arrays)
 and :func:`execute_stacked` the device work and the per-lane unpack, so
 ``batch/engine.py`` can stack batch *k+1* on a thread while batch *k* runs.
@@ -114,13 +119,25 @@ def clear_solver_cache() -> None:
         _SOLVER_CACHE.clear()
 
 
-def _solve_fused(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int):
+def _hook_form(n_pad: int, m_pad: int, lanes: int, mode: str, hook_form: str | None) -> str:
+    """K1's launch form for a bucket's solve: ``hook_form`` where the
+    caller fixed one (the tuner does), else the installed tuning record's
+    config for the bucket (``kernels.tuned_config``), read at each solve."""
+    if hook_form is not None:
+        return hook_form
+    return kernels.tuned_config((n_pad, m_pad, lanes, mode)).hook_form
+
+
+def _solve_fused(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int,
+                 hook_form: str | None = None):
     """The block-diagonal stack through the flat solve: ``(mst_ranks,
     fragment, levels)`` with one level count for the stack."""
-    return _solve_from_iota(src, dst, rank, ra, rb, num_nodes=lanes * n_pad)
+    return _solve_from_iota(src, dst, rank, ra, rb, num_nodes=lanes * n_pad,
+                            hook_form=_hook_form(n_pad, m_pad, lanes, "fused", hook_form))
 
 
-def _solve_vmap(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int):
+def _solve_vmap(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int,
+                hook_form: str | None = None):
     """The ``(lanes, ...)`` stack as one block-diagonal level loop that
     counts each lane's levels: ``(mst_ranks, fragment, levels[lanes])``.
 
@@ -132,6 +149,7 @@ def _solve_vmap(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int):
     ``has_moe`` reductions.
     """
     dev = src.device
+    form = _hook_form(n_pad, m_pad, lanes, "vmap", hook_form)
     lane = torch.arange(lanes, dtype=torch.int32, device=dev)[:, None]
     vshift = lane * n_pad
     src = (src + vshift).reshape(-1)
@@ -148,7 +166,7 @@ def _solve_vmap(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int):
         has, moe_rank, dst_frag = fragment_moe(
             fragment, src, dst, rank, ra, rb, identity_fragment=level == 0,
         )
-        fragment, _ = hook_and_compress(has, dst_frag, fragment)
+        fragment, _ = hook_and_compress(has, dst_frag, fragment, form=form)
         _mark(mst_ranks, has, moe_rank)
         level += 1
         levels[alive] = level
@@ -171,13 +189,18 @@ def _inert_stack(n_pad: int, m_pad: int, lanes: int, mode: str, device):
     return zeros, zeros, rank, rzeros, rzeros
 
 
-def _compile_bucket(n_pad: int, m_pad: int, lanes: int, mode: str, device):
+def _compile_bucket(n_pad: int, m_pad: int, lanes: int, mode: str, device, *,
+                    hook_form: str | None = None):
     """Prepare one bucket's solver: load the kernel library (the K4
     self-check runs at its first load) and launch the solver once on an
-    inert stack, ending in a host read, so a fault shows here."""
+    inert stack, ending in a host read, so a fault shows here.
+
+    ``hook_form`` fixes K1's form; ``None`` (the cached solvers) reads the
+    bucket's installed tuning config at each solve."""
     if mode not in _SOLVERS:
         raise ValueError(f"unknown lane mode {mode!r}; expected fused|vmap")
-    solver = functools.partial(_SOLVERS[mode], n_pad=n_pad, m_pad=m_pad, lanes=lanes)
+    solver = functools.partial(_SOLVERS[mode], n_pad=n_pad, m_pad=m_pad, lanes=lanes,
+                               hook_form=hook_form)
     if device.type == "cuda":
         kernels._lib()
     _, fragment, _ = solver(*_inert_stack(n_pad, m_pad, lanes, mode, device))

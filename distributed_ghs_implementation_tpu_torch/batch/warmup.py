@@ -30,11 +30,10 @@ query phase adds no ``compile.miss``.
 (``stream/window.warm_window_kernels``) at the padded buckets a stream of
 that size dispatches, counted ``stream_warmed`` as in the JAX package.
 
-Two inputs wait for other parts of the port and raise
-``NotImplementedError`` naming what they wait for; nothing is skipped in
-silence: ``tuning`` (a ``ghs-tuning-v1`` record, ``tune/``) and a ``lane``
-for ``mesh_buckets`` (``parallel/``). Without a lane, mesh buckets are
-counted ``mesh_skipped``, as in the JAX package.
+``tuning`` (a ``ghs-tuning-v1`` record, ``tune/``) is installed before any
+bucket warms, so the warmed buckets run the tuned launch configs the
+requests will. ``mesh_buckets`` warm a ``lane`` (``parallel/lane.py``);
+without one they are counted ``mesh_skipped``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     kernel_label,
 )
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+from distributed_ghs_implementation_tpu_torch.ops import kernels
 
 RECORD_SCHEMA = "ghs-warmup-buckets-v1"
 
@@ -103,13 +103,13 @@ class WarmupPlan:
 
     ``mesh_buckets`` are raw ``(nodes, edges)`` sizes for the oversize
     path's sharded lane, warmed only when :func:`run_warmup` is handed a
-    lane; the port has none yet, so without one they are counted
-    ``mesh_skipped`` and with one :func:`run_warmup` raises.
+    lane; without one they are counted ``mesh_skipped``.
     ``stream_buckets`` are raw ``(nodes, edges)`` sizes of subscribed
     graphs: each warms the windowed stream's Borůvka round at the padded
-    edge buckets a stream of that size dispatches. ``tuning`` (a
-    ``ghs-tuning-v1`` record) is kept for the record format and the flag
-    surface; :func:`run_warmup` raises on it until the tuner is ported.
+    edge buckets a stream of that size dispatches. ``tuning`` is the path
+    of a ``ghs-tuning-v1`` record (``tune/record.py``), installed before
+    any bucket warms; a missing or stale record installs nothing (counted
+    on the bus) and warmup goes on with the default launches.
 
     ``kernel`` is ``None`` or the label of the device warmup runs on
     (``cuda``, ``torch``): the port has one kernel a device, so there is
@@ -420,14 +420,16 @@ def summarize_report(report: Optional[dict]) -> Optional[dict]:
 # ----------------------------------------------------------------------
 def _warm_single_graph_kernel(n_pad: int, m_pad: int, device) -> None:
     """Launch the single-graph fused solve once for one shape bucket on an
-    inert all-pad stack (self-edge slots, sentinel ranks): it stops after
-    one level without progress. A scalar read on the host waits for it, so
-    a fault shows here and not at a later request."""
+    inert all-pad stack (self-edge slots, sentinel ranks), with the launch
+    config of its single-graph bucket (lanes 0): it stops after one level
+    without progress. A scalar read on the host waits for it, so a fault
+    shows here and not at a later request."""
     e_pad = 2 * m_pad
     src = torch.zeros(e_pad, dtype=torch.int32, device=device)
     rank = torch.full((e_pad,), _INT32_MAX, dtype=torch.int32, device=device)
     ra = torch.zeros(m_pad, dtype=torch.int32, device=device)
-    _, fragment, _ = _solve_from_iota(src, src, rank, ra, ra, num_nodes=n_pad)
+    form = kernels.tuned_config((n_pad, m_pad, 0, "fused")).hook_form
+    _, fragment, _ = _solve_from_iota(src, src, rank, ra, ra, num_nodes=n_pad, hook_form=form)
     int(fragment[-1])
 
 
@@ -440,9 +442,9 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
     ``parallel.lane.ShardedLane``) receives the plan's ``mesh_buckets``:
     each warms the oversize path's mesh programs, and the stream window's
     kernels at that size; without a lane they are counted
-    ``mesh_skipped``. Raises ``NotImplementedError`` for a ``tuning``
-    record, which waits for the port of ``tune/``, and ``ValueError`` for
-    a ``kernel`` the device does not run.
+    ``mesh_skipped``. A ``tuning`` record is installed first (its
+    entries counted in ``tuned_entries``). Raises ``ValueError`` for a
+    ``kernel`` the device does not run.
     """
     device = resolve_device(device)
     kernel = kernel_label(device)
@@ -451,10 +453,15 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
             f"kernel {plan.kernel!r} does not run on {device}; the port runs {kernel!r} "
             "there and has no other kernel to choose"
         )
+    tuned_entries = 0
     if plan.tuning:
-        raise NotImplementedError(
-            "warmup tuning records wait for the port of tune/ (ROADMAP queue 1 item 10)"
-        )
+        # Install the record FIRST: every bucket below then warms with the
+        # launch config its requests will read. A missing or stale record
+        # installs nothing (tune.record.miss/stale on the bus) and boot
+        # goes on with the default launches.
+        from distributed_ghs_implementation_tpu_torch.tune.record import load_and_install
+
+        tuned_entries = load_and_install(plan.tuning, device=device)
     report = {
         "buckets": 0,
         "compiled": 0,
@@ -466,7 +473,7 @@ def run_warmup(plan: WarmupPlan, *, lane=None, device=None) -> dict:
         "stream_warmed": 0,
         "stream_sharded_warmed": 0,
         "kernel": kernel,
-        "tuned_entries": 0,
+        "tuned_entries": tuned_entries,
         "wall_s": 0.0,
     }
     if plan.is_empty():

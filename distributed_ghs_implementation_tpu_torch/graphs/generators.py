@@ -249,6 +249,37 @@ def random_road_network(
     return Graph.from_arrays(n, u, v, w)
 
 
+def reference_random_graph(
+    num_nodes: int = 6, edge_probability: float = 0.5, seed: int = 42
+) -> Graph:
+    """The reference generator's sampling, step for step: NetworkX
+    Erdős–Rényi seeded with ``seed``, resampled with ``random.randint``
+    seeds until connected, then ``random.randint(1, 10)`` weights in edge
+    order; the same graph as the JAX package's for the same arguments.
+
+    NetworkX is imported here and nowhere else in the port, so the package
+    loads without it; a machine without NetworkX cannot call this.
+    """
+    import importlib
+    import random
+
+    nx = importlib.import_module("networkx")
+    random.seed(seed)
+    g = nx.erdos_renyi_graph(num_nodes, edge_probability, seed=seed)
+    attempts = 0
+    while not nx.is_connected(g) and attempts < 100:
+        g = nx.erdos_renyi_graph(num_nodes, edge_probability, seed=random.randint(0, 10000))
+        attempts += 1
+    if not nx.is_connected(g):
+        comps = list(nx.connected_components(g))
+        for i in range(len(comps) - 1):
+            g.add_edge(list(comps[i])[0], list(comps[i + 1])[0])
+    for a, b in g.edges():
+        g[a][b]["weight"] = random.randint(1, 10)
+    edges = [(a, b, d.get("weight", 1)) for a, b, d in g.edges(data=True)]
+    return Graph.from_edges(g.number_of_nodes(), edges)
+
+
 def line_graph(num_nodes: int, *, weight: int = 1) -> Graph:
     """Path 0-1-...-(n-1): the high-diameter worst case for level count."""
     n = int(num_nodes)

@@ -7,6 +7,9 @@ the CPU that ``-march=native`` resolves to, so a changed source, compiler or
 host builds anew and an unchanged one loads what is there. The build writes
 to a temporary name in the key's directory and moves it into place with
 ``os.replace``: processes that build at once each load a whole library.
+An entry is loaded only if its manifest vouches for it
+(``utils/compile_cache.py``, which can also move the cache out of the
+checkout); any other entry is rebuilt.
 
 A build or load that fails raises, with the compiler's output. Nothing here
 falls back to NumPy: the callers keep their NumPy form of each pass, and a
@@ -26,12 +29,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 from distributed_ghs_implementation_tpu_torch.ops._build import KernelBuildError
+from distributed_ghs_implementation_tpu_torch.utils import compile_cache
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE = _PACKAGE / "native" / "graph_native.cpp"
@@ -98,10 +103,12 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile the library unless this key's build exists; return its path."""
+    """Compile the library unless a verified build of this key exists;
+    return its path."""
     out = library_path()
-    if out.is_file():
+    if compile_cache.lookup("native", out.parent.name, out):
         return out
+    t0 = time.perf_counter()
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=out.parent, prefix=".build-", suffix=".so")
     os.close(fd)
@@ -110,7 +117,8 @@ def build_library() -> Path:
                               capture_output=True, text=True, timeout=300)
         if proc.returncode:
             raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
-        os.replace(tmp, out)
+        compile_cache.commit("native", out.parent.name, Path(tmp), out,
+                             time.perf_counter() - t0)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

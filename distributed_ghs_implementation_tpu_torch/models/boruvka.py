@@ -69,13 +69,14 @@ def boruvka_level(
     rb: torch.Tensor,
     *,
     identity_fragment: bool = False,
+    hook_form: str = "auto",
 ) -> BoruvkaState:
     """One Borůvka level over the directed edge slots. Updates
-    ``state.mst_ranks`` in place."""
+    ``state.mst_ranks`` in place. ``hook_form`` is K1's launch form."""
     has_moe, moe_rank, moe_dst_frag = fragment_moe(
         state.fragment, src, dst, rank, ra, rb, identity_fragment=identity_fragment,
     )
-    new_fragment, _ = hook_and_compress(has_moe, moe_dst_frag, state.fragment)
+    new_fragment, _ = hook_and_compress(has_moe, moe_dst_frag, state.fragment, form=hook_form)
     return BoruvkaState(
         fragment=new_fragment,
         mst_ranks=_mark(state.mst_ranks, has_moe, moe_rank),
@@ -93,10 +94,11 @@ def _max_levels(num_nodes: int) -> int:
 ELL_AUTO_EDGE_THRESHOLD = 1 << 17
 
 
-def _run_levels(state: BoruvkaState, src, dst, rank, ra, rb) -> BoruvkaState:
+def _run_levels(state: BoruvkaState, src, dst, rank, ra, rb, *,
+                hook_form: str = "auto") -> BoruvkaState:
     max_levels = _max_levels(state.fragment.shape[0])
     while state.level < max_levels and bool(state.progress):
-        state = boruvka_level(state, src, dst, rank, ra, rb)
+        state = boruvka_level(state, src, dst, rank, ra, rb, hook_form=hook_form)
     return state
 
 
@@ -122,17 +124,19 @@ def boruvka_solve(
     return final.mst_ranks, final.fragment, final.level
 
 
-def _solve_from_iota(src, dst, rank, ra, rb, *, num_nodes: int):
+def _solve_from_iota(src, dst, rank, ra, rb, *, num_nodes: int, hook_form: str = "auto"):
     """Solve from the identity partition; level 0 skips the fragment gathers
-    because the partition really is the identity there."""
+    because the partition really is the identity there. ``hook_form`` is
+    K1's launch form (``kernels.HOOK_FORMS``)."""
     state = BoruvkaState(
         fragment=torch.arange(num_nodes, dtype=torch.int32, device=src.device),
         mst_ranks=torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device),
         level=0,
         progress=torch.ones((), dtype=torch.bool, device=src.device),
     )
-    state = boruvka_level(state, src, dst, rank, ra, rb, identity_fragment=True)
-    final = _run_levels(state, src, dst, rank, ra, rb)
+    state = boruvka_level(state, src, dst, rank, ra, rb, identity_fragment=True,
+                          hook_form=hook_form)
+    final = _run_levels(state, src, dst, rank, ra, rb, hook_form=hook_form)
     return final.mst_ranks, final.fragment, final.level
 
 
@@ -148,7 +152,7 @@ def _solve_from_iota(src, dst, rank, ra, rb, *, num_nodes: int):
 # ---------------------------------------------------------------------------
 
 
-def _ell_level(fragment, mst_ranks, plan, ra, rb, *, identity_fragment=False):
+def _ell_level(fragment, mst_ranks, plan, ra, rb, *, identity_fragment=False, hook_form="auto"):
     """One level over the ELL buckets of ``plan`` (``kernels.ell_plan``);
     returns ``(fragment2, mst_ranks, has_any)`` and updates ``mst_ranks`` in
     place.
@@ -174,23 +178,26 @@ def _ell_level(fragment, mst_ranks, plan, ra, rb, *, identity_fragment=False):
     else:
         fa, fb = fragment[ra[safe]], fragment[rb[safe]]
     dst_frag = torch.where(has, torch.where(fa == ids, fb, fa), ids)
-    fragment2, _ = hook_and_compress(has, dst_frag, fragment)
+    fragment2, _ = hook_and_compress(has, dst_frag, fragment, form=hook_form)
     return fragment2, _mark(mst_ranks, has, moe), has.any()
 
 
-def ell_solve_loop(buckets, ra, rb, *, num_nodes: int):
+def ell_solve_loop(buckets, ra, rb, *, num_nodes: int, tile_slots: int = kernels.ELL_TILE_SLOTS,
+                   hook_form: str = "auto"):
     """Full ELL solve from the identity partition: the identity level, then
     one level at a time while a fragment has an outgoing edge, capped at
-    ``_max_levels(num_nodes)``. Returns ``(mst_ranks, fragment, levels)``."""
-    plan = kernels.ell_plan(buckets)
+    ``_max_levels(num_nodes)``. Returns ``(mst_ranks, fragment, levels)``.
+    ``tile_slots`` is K3's tile and ``hook_form`` K1's launch form."""
+    plan = kernels.ell_plan(buckets, tile_slots=tile_slots)
     fragment = torch.arange(num_nodes, dtype=torch.int32, device=ra.device)
     mst_ranks = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
     fragment, mst_ranks, has = _ell_level(
-        fragment, mst_ranks, plan, ra, rb, identity_fragment=True,
+        fragment, mst_ranks, plan, ra, rb, identity_fragment=True, hook_form=hook_form,
     )
     levels, max_levels = 1, _max_levels(num_nodes)
     while levels < max_levels and bool(has):
-        fragment, mst_ranks, has = _ell_level(fragment, mst_ranks, plan, ra, rb)
+        fragment, mst_ranks, has = _ell_level(fragment, mst_ranks, plan, ra, rb,
+                                              hook_form=hook_form)
         levels += 1
     return mst_ranks, fragment, levels
 
@@ -465,16 +472,23 @@ def _solve_graph(graph: Graph, strategy: str, bucket_shapes: bool, device):
         )
 
         return solve_graph_rank(graph, device=device)
+    # A tuning record's config for this graph's bucket (tune/record.py),
+    # else the default launches.
+    bucket = (_next_pow2(graph.num_nodes), _next_pow2(graph.num_edges))
     if strategy == "ell":
+        config = kernels.tuned_config((*bucket, 0, "ell"))
         buckets, ra, rb, n_pad = prepare_ell_arrays(graph, device=device)
-        mst_ranks, fragment, levels = ell_solve_loop(buckets, ra, rb, num_nodes=n_pad)
+        mst_ranks, fragment, levels = ell_solve_loop(
+            buckets, ra, rb, num_nodes=n_pad, tile_slots=config.tile_slots,
+            hook_form=config.hook_form)
     else:
         args = prepare_device_arrays(graph, bucket_shapes=bucket_shapes, device=device)
         if strategy == "stepped":
             mst_ranks, fragment, levels = solve_arrays_stepped(*args)
         else:
+            config = kernels.tuned_config((*bucket, 0, "fused"))
             mst_ranks, fragment, levels = _solve_from_iota(
-                *args[1:], num_nodes=args[0].shape[0])
+                *args[1:], num_nodes=args[0].shape[0], hook_form=config.hook_form)
     return harvest(graph, mst_ranks, fragment, levels)
 
 

@@ -10,7 +10,10 @@ more ``nvcc`` links the objects. The module is cached under
 ``build/kernels/<key>/`` at the repository root, keyed by a hash of the
 sources, the headers they share, the flags and the interpreter's extension
 suffix, so a change to any of them rebuilds it and an unchanged tree loads
-it as it is. Nothing here runs when the module is imported.
+it as it is. An entry is loaded only if its manifest vouches for it
+(``utils/compile_cache.py``, which can also move the cache out of the
+checkout); any other entry is rebuilt. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import shutil
 import subprocess
 import sysconfig
 import tempfile
+import time
 from pathlib import Path
+
+from distributed_ghs_implementation_tpu_torch.utils import compile_cache
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PACKAGE / "csrc").glob("*.cu")))
@@ -85,12 +91,13 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile the kernels unless the cached library for these sources
-    exists; return its path. The compiler's report (registers, spills) is
-    kept beside it in ``build.log``."""
+    """Compile the kernels unless a verified cached library for these
+    sources exists; return its path. The compiler's report (registers,
+    spills) is kept beside it in ``build.log``."""
     out = library_path()
-    if out.is_file():
+    if compile_cache.lookup("kernels", out.parent.name, out):
         return out
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     include = _python_include()
     sources = SOURCES + (BINDING,)
@@ -118,7 +125,7 @@ def build_library() -> Path:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         (out.parent / "build.log").write_text("".join(logs) + link.stdout)
-        os.replace(tmp_lib, out)
+        compile_cache.commit("kernels", out.parent.name, tmp_lib, out, time.perf_counter() - t0)
     return out
 
 

@@ -470,3 +470,71 @@ gather.launches = 0
 #: The wrapper that counts each kernel's launches, for code that reads or
 #: resets the counts.
 WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather)
+
+
+# ---------------------------------------------------------------------------
+# Launch configs and the tuned table (tune/)
+# ---------------------------------------------------------------------------
+class LaunchConfig(NamedTuple):
+    """What a solve may vary in how it launches the kernels without
+    changing its result: K1's form and K3's tile. A tuning record
+    (``tune/record.py``) holds one a solver bucket."""
+
+    hook_form: str = "auto"
+    tile_slots: int = ELL_TILE_SLOTS
+
+    def to_json(self) -> dict:
+        return {"hook_form": self.hook_form, "tile_slots": self.tile_slots}
+
+    @staticmethod
+    def from_json(d) -> "LaunchConfig":
+        """Parse and check a config as a record stores it; raises
+        ``ValueError`` naming what is wrong."""
+        if not isinstance(d, dict) or set(d) != {"hook_form", "tile_slots"}:
+            raise ValueError(f"launch config must have hook_form and tile_slots, got {d!r}")
+        form, tile = d["hook_form"], d["tile_slots"]
+        if form not in HOOK_FORMS:
+            raise ValueError(f"hook_form must be one of {sorted(HOOK_FORMS)}, got {form!r}")
+        if not isinstance(tile, int) or isinstance(tile, bool) or tile < 1:
+            raise ValueError(f"tile_slots must be a positive int, got {tile!r}")
+        return LaunchConfig(form, tile)
+
+
+DEFAULT_CONFIG = LaunchConfig()
+
+#: Installed per-bucket configs, ``(n_pad, m_pad, lanes, mode) ->
+#: LaunchConfig``, and where they came from. ``tune.record.install_record``
+#: is the one writer; the lane solvers, the single-card flat solve and the
+#: ELL solve read their bucket's entry at each solve.
+_TUNED: dict = {}
+_TUNED_SOURCE: dict | None = None
+_TUNED_LOCK = threading.Lock()
+
+
+def set_tuned_configs(mapping: dict | None, source: dict | None = None) -> None:
+    """Install ``bucket -> LaunchConfig`` (replacing what was installed);
+    ``None`` uninstalls. ``source`` is a small provenance dict that
+    :func:`tuned_summary` reports."""
+    global _TUNED, _TUNED_SOURCE
+    table = {}
+    for bucket, config in (mapping or {}).items():
+        if not isinstance(config, LaunchConfig):
+            raise TypeError(f"tuned config for bucket {bucket!r} must be a LaunchConfig")
+        table[tuple(bucket)] = config
+    with _TUNED_LOCK:
+        _TUNED = table
+        _TUNED_SOURCE = None if mapping is None else dict(source or {})
+
+
+def tuned_config(bucket) -> LaunchConfig:
+    """The installed config of ``bucket``, or :data:`DEFAULT_CONFIG`."""
+    with _TUNED_LOCK:
+        return _TUNED.get(tuple(bucket), DEFAULT_CONFIG)
+
+
+def tuned_summary() -> dict | None:
+    """Provenance of the installed record (``None`` when none is)."""
+    with _TUNED_LOCK:
+        if _TUNED_SOURCE is None:
+            return None
+        return {**_TUNED_SOURCE, "entries": len(_TUNED)}

@@ -43,16 +43,19 @@ def hook_and_compress(
     has_moe: torch.Tensor,
     moe_dst_frag: torch.Tensor,
     fragment: torch.Tensor,
+    *,
+    form: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One merge round: hook every active fragment, compress, relabel vertices.
 
     Returns ``(new_fragment, parent_star)``. Fragments with no outgoing edge
     self-hook and are left untouched. On the card the round is K1
-    (``kernels.hook_compress``); on the CPU it is the early-exit form below,
-    as the JAX package runs it off the TPU. Both give the same result.
+    (``kernels.hook_compress``, launched in ``form``); on the CPU it is the
+    early-exit form below, as the JAX package runs it off the TPU. All give
+    the same result.
     """
     if fragment.is_cuda:
-        return kernels.hook_compress(has_moe, moe_dst_frag, fragment)
+        return kernels.hook_compress(has_moe, moe_dst_frag, fragment, form=form)
     ids = torch.arange(fragment.shape[0], dtype=fragment.dtype, device=fragment.device)
     parent = torch.where(has_moe, moe_dst_frag, ids)
     parent = pointer_jump(break_symmetric_hooks(parent))

@@ -1,6 +1,6 @@
 """The PyTorch port's public API: results, the device rule, the backends
-(``protocol`` is not ported yet), and import hygiene (the port imports nothing of
-JAX or of the JAX package)."""
+(every backend of the JAX package is ported), and import hygiene (the port
+imports nothing of JAX or of the JAX package)."""
 
 import re
 import subprocess
@@ -110,24 +110,29 @@ def test_unsupported_device_type_raises():
 
 
 def test_backends_not_ported_raise():
-    """``protocol`` raises unless the solve is supervised; ``sharded``
-    solves as the JAX package's does (edge ids, fragments and levels), and
-    so do ``host`` and supervised solves."""
+    """No backend is left unported: ``protocol`` and ``sharded`` solve as
+    the JAX package's do (edge ids, fragments and levels), and so do
+    ``host`` and supervised solves; a supervised ``protocol`` solve enters
+    the ladder at ``device``, as in JAX. The name is kept from when
+    ``protocol`` raised here."""
     from distributed_ghs_implementation_tpu import api as japi
 
     g = tgen.readme_sample_graph()
-    with pytest.raises(NotImplementedError, match="protocol"):
-        minimum_spanning_forest(g, backend="protocol", device=CPU)
     supervised = minimum_spanning_forest(g, backend="protocol", supervised=True, device=CPU)
-    assert supervised.backend == "supervised/device" and supervised.total_weight == 20
+    want_sup = japi.minimum_spanning_forest(jgen.readme_sample_graph(), backend="protocol",
+                                            supervised=True)
+    assert supervised.backend == want_sup.backend == "supervised/device"
+    assert supervised.total_weight == 20
     for graph, jgraph in ((g, jgen.readme_sample_graph()),
                           (tgen.erdos_renyi_graph(60, 0.2, seed=4),
                            jgen.erdos_renyi_graph(60, 0.2, seed=4))):
-        got = minimum_spanning_forest(graph, backend="sharded", device=CPU)
-        want = japi.minimum_spanning_forest(jgraph, backend="sharded")
-        assert got.backend == want.backend == "sharded"
-        np.testing.assert_array_equal(got.edge_ids, want.edge_ids)
-        assert (got.num_levels, got.num_components) == (want.num_levels, want.num_components)
+        for backend in ("sharded", "protocol"):
+            got = minimum_spanning_forest(graph, backend=backend, device=CPU)
+            want = japi.minimum_spanning_forest(jgraph, backend=backend)
+            assert got.backend == want.backend == backend
+            np.testing.assert_array_equal(got.edge_ids, want.edge_ids)
+            assert (got.num_levels, got.num_components) == (want.num_levels,
+                                                             want.num_components)
     supervised = minimum_spanning_forest(g, backend="sharded", supervised=True, device=CPU)
     assert supervised.backend == "supervised/sharded" and supervised.total_weight == 20
     assert minimum_spanning_forest(g, backend="host", device=CPU).total_weight == 20

@@ -1090,3 +1090,95 @@ def test_sharded_lane_on_card_equals_cpu(cuda):
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0][0] == rank_oracle_edge_ids(g).tolist()
     assert out["cuda"][2][0] == rank_oracle_edge_ids(g2).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DECK))
+def test_protocol_equals_the_card_solve(cuda, name):
+    """``backend="protocol"`` (host Python) against the card's
+    ``backend="device"`` solve and the oracle, on the fixture deck."""
+    from distributed_ghs_implementation_tpu_torch import minimum_spanning_forest
+
+    g = forest23(edgelist.Graph, generators) if name == "forest23" else DECK[name](generators)
+    proto = minimum_spanning_forest(g, backend="protocol", device=cuda)
+    card = minimum_spanning_forest(g, device=cuda)
+    np.testing.assert_array_equal(proto.edge_ids, card.edge_ids)
+    np.testing.assert_array_equal(proto.edge_ids, rank_oracle_edge_ids(g))
+    assert proto.num_components == card.num_components
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["auto", "block", "grid"])
+@pytest.mark.parametrize("lanes_, n_pad", [(16, 128), (16, 1024), (16, 8192)])
+def test_forced_k1_forms_on_a_lane_stack_equal_plain(cuda, form, lanes_, n_pad):
+    """K1 in each form the tuner can install, on a lane stack's first-level
+    inputs (a fused batch of gnm graphs), against its plain version; the
+    block form only where its shared memory holds the stack."""
+    from distributed_ghs_implementation_tpu_torch.batch import lanes
+    from distributed_ghs_implementation_tpu_torch.ops.segment_ops import fragment_moe
+
+    n = lanes_ * n_pad
+    if form == "block" and n > kernels.HOOK_BLOCK_MAX_NODES:
+        pytest.skip(f"the block form holds at most {kernels.HOOK_BLOCK_MAX_NODES} nodes")
+    graphs = [generators.gnm_random_graph(n_pad, 3 * n_pad, seed=s) for s in range(lanes_)]
+    stacked = lanes.stack_lanes(graphs, lanes=lanes_)
+    src, dst, rank, ra, rb = (torch.from_numpy(a).to(cuda) for a in stacked.arrays)
+    fragment = torch.arange(n, dtype=torch.int32, device=cuda)
+    has, _, dst_frag = fragment_moe(fragment, src, dst, rank, ra, rb, identity_fragment=True)
+    got = kernels.hook_compress(has, dst_frag, fragment, form=form)
+    _, ran = kernels.hook_compress_readout()
+    assert ran == (form if form != "auto" else
+                   "block" if n <= kernels.HOOK_BLOCK_FORM_THRESHOLD else "grid")
+    for g, w in zip(got, kernels.hook_compress_torch(has, dst_frag, fragment)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_slots", [4096, 8192, 16384])
+def test_k3_at_each_tuner_tile_equals_plain(cuda, tile_slots):
+    """K3's one launch a level at each tile the tuner searches, on random
+    buckets of RMAT-18's (rows, W) classes, against its plain version."""
+    n = 1 << 18
+    fragment, buckets = ell_bucket_set(7, n, RMAT18_BUCKETS)
+    buckets = [tuple(_t(a).to(cuda) for a in b) for b in buckets]
+    fragment = _t(fragment).to(cuda)
+    plan = kernels.ell_plan(buckets, tile_slots=tile_slots)
+    got = kernels.ell_level_min(fragment, plan, torch.full((n,), kernels.INT32_MAX,
+                                                           dtype=torch.int32, device=cuda))
+    want = kernels.ell_level_min_torch(fragment, plan, torch.full((n,), kernels.INT32_MAX,
+                                                                  dtype=torch.int32, device=cuda))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_a_tuning_record_installs_on_card(cuda, tmp_path):
+    """A short search on the card: measured winners that passed parity, a
+    record that loads (card fingerprint) and installs through warmup, and
+    a batch under it equal to the oracle with no ``compile.miss``."""
+    from distributed_ghs_implementation_tpu_torch.batch import lanes, warmup
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.tune import measure, record
+
+    buckets = [(128, 512, 16, "fused"), (1024, 4096, 0, "ell")]
+    rec = measure.search(buckets, repeats=3, device=cuda)
+    assert rec["backend"] == "cuda" and "cuda" in rec["fingerprint"]
+    for entry in rec["entries"].values():
+        assert entry["kernel"] == "cuda" and entry["source"] == "measured"
+        assert entry["parity"] == "ok" and entry["timings"]
+    path = str(tmp_path / "t.json")
+    record.save_record(rec, path)
+    assert record.load_record(path, device="cpu") is None  # another device: stale
+    kernels.set_tuned_configs(None)
+    lanes.clear_solver_cache()
+    BUS.enable()
+    try:
+        report = warmup.run_warmup(
+            warmup.WarmupPlan(buckets=((128, 512),), lanes=16, tuning=path), device=cuda)
+        assert report["tuned_entries"] == 2
+        misses = BUS.counters().get("compile.miss", 0)
+        graphs = [generators.gnm_random_graph(128, 500, seed=s) for s in range(16)]
+        for g, (ids, _, _) in zip(graphs, lanes.solve_lanes(graphs, lanes=16, device=cuda)):
+            np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
+        assert BUS.counters().get("compile.miss", 0) == misses
+    finally:
+        kernels.set_tuned_configs(None)

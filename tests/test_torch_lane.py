@@ -17,11 +17,13 @@ import pytest
 import torch
 
 from distributed_ghs_implementation_tpu import api as japi
+from distributed_ghs_implementation_tpu.batch import lanes as jlanes
 from distributed_ghs_implementation_tpu.graphs import edgelist as jedge
 from distributed_ghs_implementation_tpu.graphs import generators as jgen
 from distributed_ghs_implementation_tpu.obs.events import BUS as JBUS
 from distributed_ghs_implementation_tpu.parallel import lane as jlane
 from distributed_ghs_implementation_tpu_torch import api as tapi
+from distributed_ghs_implementation_tpu_torch.batch import lanes as tlanes
 from distributed_ghs_implementation_tpu_torch.graphs import edgelist as tedge
 from distributed_ghs_implementation_tpu_torch.graphs import generators as tgen
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS as TBUS
@@ -39,9 +41,15 @@ SIDES = {
 
 @pytest.fixture
 def fresh():
+    """Both lanes' shape ledgers, both buses and both packages' batch
+    solver caches reset: a fresh process. The services below stack small
+    graphs through ``batch/lanes.py``, whose module-level cache another test
+    file may have warmed in one package only."""
     for mod, _, _, bus in SIDES.values():
         mod._reset_shape_ledger()
         bus.clear()
+    for lanes in (jlanes, tlanes):
+        lanes.clear_solver_cache()
     yield
 
 

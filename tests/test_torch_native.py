@@ -29,6 +29,7 @@ from distributed_ghs_implementation_tpu_torch.graphs import generators as tgen
 from distributed_ghs_implementation_tpu_torch.graphs import native
 from distributed_ghs_implementation_tpu_torch.models import boruvka as tb
 from distributed_ghs_implementation_tpu_torch.models import rank_solver as trs
+from distributed_ghs_implementation_tpu_torch.utils import compile_cache
 from torch_inputs import build_deck
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -113,7 +114,8 @@ def test_the_build_is_keyed_and_cached():
 
 def test_concurrent_builds_both_load(tmp_path):
     """Processes that build into an empty cache at once each load a whole
-    library, and no temporary file is left behind."""
+    library, no temporary file is left behind, and the entry's manifest
+    (``utils/compile_cache.py``) vouches for the library left in place."""
     script = textwrap.dedent(f"""
         import sys
         from pathlib import Path
@@ -132,7 +134,9 @@ def test_concurrent_builds_both_load(tmp_path):
     assert len(lines) == 1  # the same library, the same graph
     lib_path = Path(lines.pop().split()[0])
     assert lib_path.is_file() and lib_path.parent.parent == tmp_path
-    assert [p.name for p in lib_path.parent.iterdir()] == [native.LIB_NAME]
+    assert sorted(p.name for p in lib_path.parent.iterdir()) == sorted(
+        [native.LIB_NAME, compile_cache.MANIFEST])
+    assert compile_cache._rejection("native", lib_path.parent.name, lib_path) is None
 
 
 def test_a_failing_build_raises_with_the_compilers_output(tmp_path, monkeypatch):

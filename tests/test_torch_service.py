@@ -18,7 +18,10 @@ package's XLA compile-cache telemetry (``utils/compile_cache.py``: a
 process-wide JAX listener that counts ``compile.persistent.*`` on that
 package's bus once any test has installed it) is pointed at a bus of its
 own for the comparison: it reports on XLA, which the port does not have,
-and whether it is installed depends on the tests that ran before. Where the port
+and whether it is installed depends on the tests that ran before. The
+port's build-cache telemetry (``utils/compile_cache.py``: ``compile.*`` at
+a process's first load of the native library) is pointed away for the same
+reason: which test loads the library first depends on the order. Where the port
 differs on purpose it is pinned here too: ``MSTService()`` needs CUDA unless
 given a device. A second deck runs through a service with a sharded lane
 (``parallel/lane.py``) in each package.
@@ -52,8 +55,11 @@ pytestmark = pytest.mark.usefixtures("isolated", "no_xla_telemetry")
 def no_xla_telemetry(monkeypatch):
     from distributed_ghs_implementation_tpu.obs.events import EventBus
     from distributed_ghs_implementation_tpu.utils import compile_cache
+    from distributed_ghs_implementation_tpu_torch.obs.events import EventBus as TEventBus
+    from distributed_ghs_implementation_tpu_torch.utils import compile_cache as tcompile_cache
 
     monkeypatch.setattr(compile_cache, "BUS", EventBus(capacity=16))
+    monkeypatch.setattr(tcompile_cache, "BUS", TEventBus(capacity=16))
 
 
 def _edges(g):
