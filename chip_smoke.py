@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, nine paths, each with every kernel launch count set to 0 just
+2. main path, ten paths, each with every kernel launch count set to 0 just
    before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -114,6 +114,21 @@ Phases, each printing a line:
       installed configs (no ``compile.miss`` after the warmup); and a
       child process that loads both libraries from this run's ``build/``
       through ``utils.compile_cache`` with hits only.
+   j. the fleet (``_fleet_path``): a pipe fleet of 2 workers on the card
+      (16 batch lanes, a shared disk store, the build cache at ``build/``)
+      answers the fixture deck, phase f's 21 128-vertex graphs sent together,
+      4 RMAT-13 as B-frames and RMAT-18 by ``graph_path``, a cached repeat of
+      each on the worker that solved it, and 12 updates pinned to one RMAT-13
+      session; a kill drill (worker 0 dies in place of its 3rd request: every
+      request answered, one restart, whose new incarnation loads both
+      libraries from the build cache); a ``--listen`` worker in a thread of
+      this process (its launches count) behind a TCP router with the chaos
+      layer: a one-way partition that expires the lease and heals warm, and a
+      corrupted answer the router's certificate rejects and re-dispatches;
+      then a drain, every worker exiting 0. Prints each worker's seconds from
+      spawn to hello, the hello caps (``kernel`` "cuda"), and by request
+      class the latency through the router and the router hop beside phase
+      g's in-process service.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -275,11 +290,12 @@ def _device_kernels(torch, fn, calls: int, attempts: int = 3) -> list:
     ran, by the profiler. The profiler's schedule takes a warm-up step of
     the same calls first and keeps only the second step (the tracer can
     miss the first kernels after it starts), and the step's own range on
-    the device track is not a kernel. A session that recorded no device
-    kernel at all is run again, up to ``attempts`` sessions: the tracer now
-    and then records nothing in a session while the kernels run (their
-    results and CUDA-event times are checked beside it); the callers check
-    what the last session returns."""
+    the device track is not a kernel. A session that recorded fewer device
+    kernels than ``calls`` is run again, up to ``attempts`` sessions: the
+    tracer now and then drops some or all of a session's records while the
+    kernels run (their results and CUDA-event times are checked beside
+    it); the callers check what the last session returns, so a session
+    with more kernels than calls, or another kernel's name, still fails."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts):
         torch.cuda.synchronize()
@@ -294,7 +310,7 @@ def _device_kernels(torch, fn, calls: int, attempts: int = 3) -> list:
                  for evt in prof.events()
                  if evt.device_type == torch.autograd.DeviceType.CUDA
                  and not evt.name.startswith("ProfilerStep")]  # the step's own range
-        if kerns:
+        if len(kerns) >= calls:
             return kerns
     return kerns
 
@@ -2220,6 +2236,404 @@ def _tuned_kernels_vs_plain(torch, kernels, cuda_time_ms, traced) -> tuple:
     return err1, err3, k1, k3
 
 
+def _timed_router(FleetRouter):
+    """A ``FleetRouter`` that records each worker incarnation's seconds from
+    its spawn to its hello, and the caps the hello carried."""
+
+    class TimedRouter(FleetRouter):
+        def __init__(self, config):
+            super().__init__(config)
+            self.spawned, self.hellos = {}, []
+
+        def _spawn(self, w):
+            self.spawned[w.id] = time.monotonic()
+            super()._spawn(w)
+
+        def _register_hello(self, w, hello):
+            super()._register_hello(w, hello)
+            t0 = self.spawned.get(w.id)
+            self.hellos.append({
+                "worker": w.id, "incarnation": w.incarnation,
+                "spawn_to_hello_s": None if t0 is None else time.monotonic() - t0,
+                "caps": {k: w.caps.get(k) for k in ("kernel", "warmed", "tuned", "crc",
+                                                     "wire")}})
+
+    return TimedRouter
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fleet_path(torch, kernels, graphs, oracle, deck, lane_sets, lane_oracle, scratch,
+                service_latency, card) -> dict:
+    """The fleet on the card (phase 2j): the port's router over worker
+    processes, each a full ``MSTService`` on the card.
+
+    a. a pipe fleet of 2 workers (16 batch lanes, a shared disk store, the
+       build cache at this run's ``build/``): the fixture deck as JSON edges,
+       phase 2f's 21 ``gnm_random_graph(128, 500)`` sent together (lane-mates
+       batch), 4 RMAT-13 as B-frame sections (passed through to the wire
+       peers), RMAT-18 by ``graph_path``; a repeat of each kind, ``cached`` on
+       the worker that solved it; 12 updates along one RMAT-13 session,
+       pinned to one worker, each against the oracle of the updated graph.
+    b. the kill drill: worker 0 dies in place of its 3rd request
+       (``GHS_FAULT_FLEET_WORKER_CRASH=3``); every accepted request is
+       answered and equals the oracle; the worker restarts once and its new
+       incarnation loads both libraries from the build cache (hits, no miss).
+    c. a ``--listen`` worker run in a thread of this process, so that its
+       launches count on this process's wrappers, dialed by a TCP router with
+       the chaos layer: batches and B-frames, then a seeded one-way partition
+       that expires the lease and heals with a warm rejoin (a repeat is
+       still cached). K1 and K2 must have launched in it.
+    d. on that router, ``verify_responses=True`` and ``fleet.chaos.payload``
+       armed once: the certificate rejects the corrupted answer, the router
+       re-dispatches it, and the served answer equals the oracle.
+    e. drain: every router shuts down, every worker exits 0, and no frame
+       error was read outside the kill drill.
+
+    Every answer's forest and weight must equal the SciPy rank oracle. Prints
+    each worker's spawn-to-hello seconds, the hello caps (``kernel`` must be
+    ``"cuda"``) and, by request class, the latency through the router, the
+    router hop (latency less the worker's service time) beside phase 2g's
+    in-process service.
+    """
+    import dataclasses
+    import threading
+
+    from distributed_ghs_implementation_tpu_torch.fleet import framing
+    from distributed_ghs_implementation_tpu_torch.fleet import transport as ftransport
+    from distributed_ghs_implementation_tpu_torch.fleet import worker as fworker
+    from distributed_ghs_implementation_tpu_torch.fleet.hashing import HashRing
+    from distributed_ghs_implementation_tpu_torch.fleet.router import FleetConfig, FleetRouter
+    from distributed_ghs_implementation_tpu_torch.graphs import generators as gen
+    from distributed_ghs_implementation_tpu_torch.graphs import io as graph_io
+    from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+    from distributed_ghs_implementation_tpu_torch.utils.resilience import FAULTS
+    from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+
+    BUS.enable()
+    out = {}
+    Timed = _timed_router(FleetRouter)
+    small, small_oracle = lane_sets["small128"], lane_oracle["small128"]
+    wire13, wire13_oracle = lane_sets["rmat13"][:4], lane_oracle["rmat13"][:4]
+    rmat18 = graphs["rmat18"]
+    npz18 = str(scratch / "rmat18.npz")
+    graph_io.write_npz(rmat18, npz18)
+    frame_errors = {"now": 0}
+    real_read = ftransport.read_frame
+
+    def counted_read(*args, **kw):
+        try:
+            return real_read(*args, **kw)
+        except framing.FrameError:
+            frame_errors["now"] += 1
+            raise
+
+    def edges_of(g):
+        return [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]
+
+    def json_req(g, cls):
+        return {"op": "solve", "num_nodes": g.num_nodes, "edges": edges_of(g),
+                "edges_out": True, "slo_class": cls}
+
+    def wire_req(g, cls):
+        return {"op": "solve", **g.to_wire(), "edges_out": True, "slo_class": cls}
+
+    def forest(resp):
+        pairs = np.asarray(resp["mst_edges"], dtype=np.int64).reshape(-1, 2)
+        return _pairs(pairs[:, 0], pairs[:, 1])
+
+    def check(what, resp, g, ids):
+        resp = framing.fold_sections(resp)
+        if not resp.get("ok"):
+            raise AssertionError(f"fleet {what}: {resp}")
+        if resp.get("digest") != g.digest():
+            raise AssertionError(f"fleet {what}: digest {resp.get('digest')} != the graph's")
+        if not np.array_equal(forest(resp), _pairs(g.u[ids], g.v[ids])):
+            raise AssertionError(f"fleet {what}: forest differs from the rank oracle")
+        if resp["total_weight"] != int(g.w[ids].sum()):
+            raise AssertionError(f"fleet {what}: weight {resp['total_weight']}")
+        return resp
+
+    latency = {}
+
+    def ask(router, req):
+        t = time.perf_counter()
+        resp = router.handle(req)
+        latency.setdefault(req.get("slo_class"), []).append((time.perf_counter() - t) * 1e3)
+        return resp
+
+    def together(router, reqs):
+        got = [None] * len(reqs)
+
+        def one(i):
+            got[i] = ask(router, reqs[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(g is None for g in got):
+            raise AssertionError("fleet: a request was never answered")
+        return got
+
+    def counters():
+        return dict(BUS.counters())
+
+    def moved(before, names):
+        now = BUS.counters()
+        return {n: now.get(n, 0) - before.get(n, 0) for n in names}
+
+    def wait_for(cond, what, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: {what} within {timeout} s")
+            time.sleep(0.05)
+
+    def worker_counters(router, prefixes):
+        stats = router.handle({"op": "stats"})
+        return {wid: {k: v for k, v in info.get("stats", {}).get("counters", {}).items()
+                      if k.startswith(prefixes)} for wid, info in stats["workers"].items()}
+
+    base = FleetConfig(workers=2, batch_lanes=16, worker_threads=16,
+                       compile_cache_dir=str(ROOT / "build"), heartbeat_interval_s=0.25,
+                       restart_backoff_base_s=0.05, ready_timeout_s=300.0,
+                       request_timeout_s=600.0)
+    routers, thread_worker = [], {}
+    ftransport.read_frame = counted_read
+    try:
+        # a. the pipe fleet
+        t = time.perf_counter()
+        ra = Timed(dataclasses.replace(base, disk_dir=str(scratch / "store_a")))
+        routers.append(ra)
+        ra.start()
+        out["a_start_s"] = time.perf_counter() - t
+        first = {}
+        for name, g in deck.items():
+            first[name] = check(f"deck {name}", ask(ra, json_req(g, "a_deck")), g, oracle[name])
+        resps = together(ra, [json_req(g, "a_small128") for g in small])
+        for i, (g, resp) in enumerate(zip(small, resps)):
+            first[f"small{i}"] = check(f"small128[{i}]", resp, g, small_oracle[i])
+        resps = together(ra, [wire_req(g, "a_rmat13_wire") for g in wire13])
+        for i, (g, resp) in enumerate(zip(wire13, resps)):
+            first[f"wire{i}"] = check(f"rmat13 B-frame [{i}]", resp, g, wire13_oracle[i])
+        path_req = {"op": "solve", "graph_path": npz18, "edges_out": True,
+                    "slo_class": "a_rmat18_path"}
+        first["rmat18"] = check("rmat18 graph_path", ask(ra, path_req), rmat18, oracle["rmat18"])
+        repeats = [("readme", json_req(deck["readme"], "a_repeat"), deck["readme"],
+                    oracle["readme"]),
+                   ("small0", json_req(small[0], "a_repeat"), small[0], small_oracle[0]),
+                   ("wire0", wire_req(wire13[0], "a_repeat"), wire13[0], wire13_oracle[0]),
+                   ("rmat18", dict(path_req, slo_class="a_repeat"), rmat18, oracle["rmat18"])]
+        for key, req, g, ids in repeats:
+            want = first[key]
+            resp = check(f"repeat {key}", ask(ra, req), g, ids)
+            if not resp.get("cached") or resp["worker"] != want["worker"]:
+                raise AssertionError(f"fleet repeat {key}: cached {resp.get('cached')} on "
+                                     f"worker {resp['worker']}, solved on {want['worker']}")
+        passthrough = BUS.counters().get("fleet.wire.passthrough", 0)
+        if passthrough < len(wire13) + 1:
+            raise AssertionError(f"fleet: {passthrough} B-frame passthroughs")
+        # 12 updates along the session of RMAT-13 (seed 1), pinned to the
+        # worker that solved it, each against the oracle of the updated graph
+        g13 = wire13[0]
+        n13, wdtype = g13.num_nodes, g13.w.dtype
+        mirror = {(int(a), int(b)): int(c) for a, b, c in zip(g13.u, g13.v, g13.w)}
+        wmax = int(g13.w.max())
+        rng = np.random.default_rng(11)
+        session = first["wire0"]["worker"]
+        digest, tree = g13.digest(), forest(first["wire0"])
+        updates = []
+        for kind in ("insert", "delete", "reweight") * 4:
+            if kind == "insert":
+                x, y = sorted(int(q) for q in rng.choice(n13, 2, replace=False))
+                while (x, y) in mirror:
+                    x, y = sorted(int(q) for q in rng.choice(n13, 2, replace=False))
+                upd = {"kind": "insert", "u": x, "v": y, "w": int(rng.integers(1, wmax + 1))}
+                mirror[(x, y)] = upd["w"]
+            else:
+                x, y = (int(q) for q in tree[int(rng.integers(0, len(tree)))])
+                if kind == "delete":
+                    upd = {"kind": "delete", "u": x, "v": y}
+                    del mirror[(x, y)]
+                else:
+                    upd = {"kind": "reweight", "u": x, "v": y,
+                           "w": wmax + int(rng.integers(1, 100))}
+                    mirror[(x, y)] = upd["w"]
+            keys = np.array(sorted(mirror), dtype=np.int64)
+            gu = Graph(n13, keys[:, 0], keys[:, 1],
+                       np.array([mirror[(int(a), int(b))] for a, b in keys], dtype=wdtype))
+            resp = ask(ra, {"op": "update", "digest": digest, "updates": [upd],
+                            "edges_out": True, "slo_class": "a_update"})
+            resp = check(f"update {upd}", resp, gu, rank_oracle_edge_ids(gu))
+            if resp["worker"] != session or resp.get("prev_digest") != digest:
+                raise AssertionError(f"fleet update {upd}: worker {resp['worker']} (session on "
+                                     f"{session}), prev {resp.get('prev_digest')}")
+            digest, tree = resp["digest"], forest(resp)
+            updates.append([kind, resp.get("mode")])
+        out["a_updates"] = updates
+        out["a_workers"] = worker_counters(ra, ("compile.persistent", "batch.", "serve.requests"))
+        a_counters = {k: v for k, v in BUS.counters().items() if k.startswith("fleet.")}
+        if a_counters.get("fleet.worker.dead", 0) or frame_errors["now"]:
+            raise AssertionError(f"fleet a: {a_counters}, {frame_errors['now']} frame errors")
+        ra.shutdown()
+        out["a_exit_codes"] = [w.proc.returncode for w in ra._workers]
+        if out["a_exit_codes"] != [0, 0]:
+            raise AssertionError(f"fleet a: worker exit codes {out['a_exit_codes']}")
+
+        # b. the kill drill
+        before, errors_before = counters(), frame_errors["now"]
+        rb = Timed(dataclasses.replace(
+            base, disk_dir=str(scratch / "store_b"),
+            worker_env={0: {"GHS_FAULT_FLEET_WORKER_CRASH": "3"}}))
+        routers.append(rb)
+        rb.start()
+        reqs = [json_req(g, "b_drill") for g in small] + [
+            json_req(g, "b_drill") for g in deck.values()]
+        gs = list(small) + list(deck.values())
+        ids = list(small_oracle) + [oracle[name] for name in deck]
+        for i, resp in enumerate(together(rb, reqs)):
+            check(f"kill drill [{i}]", resp, gs[i], ids[i])
+        wait_for(lambda: BUS.counters().get("fleet.worker.restart", 0)
+                 > before.get("fleet.worker.restart", 0), "worker 0 never rejoined")
+        ring = HashRing(range(2), replicas=base.ring_replicas)
+        fresh = next(g for g in (gen.gnm_random_graph(128, 500, seed=s) for s in range(100, 400))
+                     if ring.assign(g.digest()) == 0)
+        resp = check("after the restart", ask(rb, json_req(fresh, "b_drill")), fresh,
+                     rank_oracle_edge_ids(fresh))
+        if resp["worker"] != 0:
+            raise AssertionError(f"fleet b: the restarted worker's digest went to {resp['worker']}")
+        drill = moved(before, ("fleet.worker.dead", "fleet.requeue", "fleet.worker.restart"))
+        reborn = worker_counters(rb, ("compile.persistent",))["0"]
+        if drill["fleet.worker.dead"] != 1 or drill["fleet.worker.restart"] != 1 or (
+                drill["fleet.requeue"] < 1):
+            raise AssertionError(f"fleet b: {drill}")
+        if reborn.get("compile.persistent.hit", 0) < 1 or reborn.get("compile.persistent.miss"):
+            raise AssertionError(f"fleet b: the new incarnation's build cache {reborn}")
+        out["b"] = {**drill, "requests": len(reqs) + 1, "reborn": reborn,
+                    "incarnation": rb._workers[0].incarnation,
+                    "frame_errors": frame_errors["now"] - errors_before}
+        errors_before = frame_errors["now"]
+        rb.shutdown()
+        out["b_exit_codes"] = [w.proc.returncode for w in rb._workers]
+        if out["b_exit_codes"] != [0, 0]:
+            raise AssertionError(f"fleet b: worker exit codes {out['b_exit_codes']}")
+
+        # c. a --listen worker in a thread of this process, a TCP router with
+        # the chaos layer
+        port = _free_port()
+        args = fworker.build_parser().parse_args([
+            "--worker-id", "0", "--listen", f"127.0.0.1:{port}", "--batch-lanes", "16",
+            "--threads", "16", "--no-compile-cache"])
+        th = threading.Thread(target=lambda: thread_worker.setdefault(
+            "rc", fworker.run_worker(args)), name="fleet-worker-thread", daemon=True)
+        k12 = (kernels.hook_compress.launches, kernels.gather_key.launches)
+        th.start()
+        rc_ = Timed(FleetConfig(
+            remote_workers=(f"127.0.0.1:{port}",), transport="tcp", chaos=True, chaos_seed=12,
+            verify_responses=True, lease_s=2.0, heartbeat_interval_s=0.2,
+            restart_backoff_base_s=0.05, ready_timeout_s=300.0, request_timeout_s=600.0))
+        routers.append(rc_)
+        rc_.start()
+        before = counters()
+        for i, resp in enumerate(together(rc_, [json_req(g, "c_small128") for g in small[:16]])):
+            check(f"tcp small128[{i}]", resp, small[i], small_oracle[i])
+        for i, resp in enumerate(together(rc_, [wire_req(g, "c_rmat13_wire") for g in wire13])):
+            check(f"tcp rmat13 B-frame [{i}]", resp, wire13[i], wire13_oracle[i])
+        for name, g in deck.items():
+            check(f"tcp deck {name}", ask(rc_, json_req(g, "c_deck")), g, oracle[name])
+        if frame_errors["now"] != errors_before:
+            raise AssertionError(f"fleet c: {frame_errors['now'] - errors_before} frame errors")
+        rc_.partition_worker(0, mode="oneway")
+        wait_for(lambda: BUS.counters().get("fleet.lease.expired", 0)
+                 > before.get("fleet.lease.expired", 0), "the partition never expired the lease")
+        held = {}
+        during = threading.Thread(target=lambda: held.setdefault("resp", ask(
+            rc_, json_req(small[16], "c_partition"))))
+        during.start()
+        rc_.heal_partition(0)
+        wait_for(lambda: rc_._workers[0].alive, "no rejoin after the heal")
+        # A link torn by the lease may cut a frame in two: counted apart.
+        out["c_partition_frame_errors"] = frame_errors["now"] - errors_before
+        errors_before = frame_errors["now"]
+        during.join(timeout=600)
+        check("answered across the partition", held["resp"], small[16], small_oracle[16])
+        warm = check("repeat after the rejoin", ask(rc_, json_req(small[0], "c_repeat")),
+                     small[0], small_oracle[0])
+        if not warm.get("cached"):
+            raise AssertionError("fleet c: the rejoin was not warm (the repeat was not cached)")
+        chaos = moved(before, ("fleet.chaos.partition", "fleet.chaos.heal", "fleet.chaos.dropped",
+                               "fleet.lease.expired", "fleet.worker.restart"))
+        if chaos["fleet.chaos.partition"] != 1 or chaos["fleet.chaos.heal"] != 1 or (
+                chaos["fleet.chaos.dropped"] < 1 or chaos["fleet.worker.restart"] != 1):
+            raise AssertionError(f"fleet c: {chaos}")
+        k1 = kernels.hook_compress.launches - k12[0]
+        k2 = kernels.gather_key.launches - k12[1]
+        if k1 < 1 or k2 < 1:
+            raise AssertionError(f"fleet c: the counted worker launched K1 x{k1}, K2 x{k2}")
+        out["c"] = {**chaos, "hook_compress": k1, "gather_key": k2,
+                    "worker": worker_counters(rc_, ("batch.", "serve.requests"))["0"]}
+
+        # d. a corrupted answer, certified and re-dispatched
+        before = counters()
+        FAULTS.arm(ftransport.CHAOS_PAYLOAD_SITE, times=1)
+        check("certified", ask(rc_, json_req(small[17], "d_certified")), small[17],
+              small_oracle[17])
+        cert = moved(before, ("fleet.chaos.payload_corrupted", "verify.failed",
+                              "fleet.response.rejected", "verify.corrected"))
+        if set(cert.values()) != {1}:
+            raise AssertionError(f"fleet d: {cert}")
+        out["d"] = cert
+
+        # e. drain
+        rc_.shutdown()
+        th.join(timeout=120)
+        if th.is_alive() or thread_worker.get("rc") != 0:
+            raise AssertionError(f"fleet e: the thread worker returned {thread_worker}")
+        if frame_errors["now"] != errors_before:
+            raise AssertionError(f"fleet: {frame_errors['now'] - errors_before} frame errors")
+        out["e"] = {"exit_codes": out.pop("a_exit_codes") + out.pop("b_exit_codes")
+                    + [thread_worker["rc"]], "frame_errors_outside_the_drill": 0}
+    finally:
+        ftransport.read_frame = real_read
+        for router in routers:
+            if not router._closed:
+                router.shutdown(drain=False)
+
+    hellos = [dict(h, step=step) for step, router in zip("abc", routers) for h in router.hellos]
+    if any(h["caps"]["kernel"] != "cuda" for h in hellos):
+        raise AssertionError(f"fleet: a worker's hello does not read kernel cuda: {hellos}")
+    print(f"phase 2j ({card}), spawn to hello s by step, worker, incarnation: " + ", ".join(
+        f"{h['step']} {h['worker']}.{h['incarnation']} "
+        + ("dialed" if h["spawn_to_hello_s"] is None else f"{h['spawn_to_hello_s']:.3f}")
+        for h in hellos))
+    print(f"phase 2j ({card}), hello caps: " + json.dumps([
+        {"step": h["step"], "worker": h["worker"], **h["caps"]} for h in hellos]))
+    hists = BUS.histograms()
+    by_class = {}
+    for cls, values in sorted(latency.items()):
+        hop = hists.get(f"fleet.hop_s.{cls}", {})
+        by_class[cls] = {"count": len(values), "router_median_ms": statistics.median(values),
+                         "router_max_ms": max(values),
+                         "hop_median_ms": hop.get("p50", float("nan")) * 1e3,
+                         "hop_max_ms": hop.get("max", float("nan")) * 1e3}
+    in_process = {k: service_latency[k]["median"] for k in (
+        "solve/mst/solved", "solve/mst/cache", "update/mst/incremental") if k in service_latency}
+    print(f"phase 2j ({card}), latency ms by class through the router and the router hop "
+          f"(latency less the worker's service time): " + json.dumps(by_class)
+          + "; phase 2g's in-process service, median ms: " + json.dumps(in_process))
+    out.update(hellos=hellos, latency_ms=by_class, in_process_ms=in_process)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2515,9 +2929,23 @@ def main() -> int:
     print(f"main path, protocol, chaos, tuner and build cache ({card_description()}): "
           f"{protocol_tune['phase_s']:.2f} s; "
           f"{json.dumps({**protocol_tune, 'launches': tune_counts})}")
+    # 2j. the fleet: the router over worker processes on the card
+    zero_counts()
+    t_fleet = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        fleet = _fleet_path(torch, kernels, graphs, oracle, deck, lane_sets, lane_oracle, scratch,
+                            service["latency_ms"], card_description())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    fleet_counts = read_counts("fleet", ("gather_key", "hook_compress"))
+    fleet["phase_s"] = time.perf_counter() - t_fleet
+    print(f"main path, fleet ({card_description()}): {fleet['phase_s']:.2f} s, every answer "
+          f"equals the rank oracle; {json.dumps({**fleet, 'launches': fleet_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
                 + service_counts[name] + sharded_counts[name] + tune_counts[name]
+                + fleet_counts[name]
                 for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
@@ -2862,6 +3290,7 @@ def main() -> int:
             "launches_service": service_counts[name],
             "launches_sharded": sharded_counts[name],
             "launches_protocol_tune": tune_counts[name],
+            "launches_fleet": fleet_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,

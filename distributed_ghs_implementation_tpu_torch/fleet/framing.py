@@ -4,8 +4,8 @@ A copy of the JAX package's ``fleet/framing.py``, which imports neither
 JAX nor anything of that package: the port keeps its own so that it
 imports nothing of the JAX package. The byte format is the same, so a
 frame written by either package reads in the other. The port serves it
-through ``serve/service.serve_frames``; the router, worker and transports
-are not ported (ROADMAP queue 1).
+through ``serve/service.serve_frames`` and the fleet's transports
+(``fleet/transport.py``).
 
 The single-process service speaks newline-delimited JSON (one request per
 line, ``serve/service.py``); the fleet cannot: a worker's channel carries
