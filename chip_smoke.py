@@ -10,8 +10,8 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, ten paths, each with every kernel launch count set to 0 just
-   before it and read just after:
+2. main path, eleven paths, each with every kernel launch count set to 0
+   just before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
       and warm). Every fused solve of L levels must launch K1 L times and K2
@@ -129,6 +129,22 @@ Phases, each printing a line:
       spawn to hello, the hello caps (``kernel`` "cuda"), and by request
       class the latency through the router and the router hop beside phase
       g's in-process service.
+   k. the front ends (``_front_end_path``), through ``cli.main`` in this
+      process (its launches count): ``generate --kind rmat --rmat-scale 18
+      --npz`` then ``run --verify --metrics-out`` on it (``auto``: the rank
+      solver, K1); a reference-format partition dir through ``generate``,
+      ``run --verify`` and ``verify --result``; ``experiments --extended``
+      (9 records, all correct); ``serve --input`` over a JSONL deck (the
+      fixture deck as JSON edges, RMAT-13 by ``graph_path``) in one process
+      and through ``serve --fleet 2`` (worker processes on the card); ``run
+      --backend sharded`` on RMAT-13; ``trace`` and ``stats``; ``tune
+      --buckets 2048x8192 --lanes 16``; ``chaos``; then
+      ``entry.dryrun_multichip(4)`` (four shards on the card), a cold
+      ``strategy="ell"`` RMAT-18 solve with its ELL buckets from the native
+      library against the NumPy form, in turns (K3), and one ``python -m
+      distributed_ghs_implementation_tpu_torch run --verify`` subprocess.
+      Every CLI step must exit 0 and every forest equal the rank oracle;
+      K1, K2 and K3 must launch.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -183,6 +199,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 L2_SECTOR_BYTES = 32  # what one random 4 B read costs the L2
 HOST_CALLS = 10_000
 TURNS = 20  # turns of each side where two solves are timed against each other
+PROFILER_PAD_S = 0.05  # host time inside a profiler session before and after its calls
+PROFILER_LAGS: list = []  # each profiler session's least launch-to-kernel lag, ms
 # The SciPy oracle's forest weight of RMAT-20 ef 16 seed 24 on the native
 # generator's stream, as the JAX package's bench.py records it.
 RMAT20_ORACLE_WEIGHT = 35_737_768
@@ -285,34 +303,88 @@ def _in_turns(timer, kern, library, iters: int = 10) -> dict:
             "library_ms": t["b_ms"], "library_ms_spread": t["b_spread_ms"]}
 
 
-def _device_kernels(torch, fn, calls: int, attempts: int = 3) -> list:
+def _device_kernels(torch, fn, calls: int, attempts: int = 6) -> list:
     """``(name, us)`` of every device kernel that ``calls`` calls of ``fn``
-    ran, by the profiler. The profiler's schedule takes a warm-up step of
-    the same calls first and keeps only the second step (the tracer can
-    miss the first kernels after it starts), and the step's own range on
-    the device track is not a kernel. A session that recorded fewer device
-    kernels than ``calls`` is run again, up to ``attempts`` sessions: the
-    tracer now and then drops some or all of a session's records while the
-    kernels run (their results and CUDA-event times are checked beside
-    it); the callers check what the last session returns, so a session
-    with more kernels than calls, or another kernel's name, still fails."""
+    ran, by the profiler. The calls are warmed outside the session and sit
+    inside it with ``PROFILER_PAD_S`` of host time before and after them:
+    Kineto keeps only the device records whose time falls inside the
+    session on the host's clock, and late in a long run the device's clock
+    stands off the host's by milliseconds (a kernel can seem to start before
+    its launch). There a session padded by 0.05 s or less lost some or all
+    of its records, and one padded by 0.1-0.2 s kept them all. A session
+    that recorded fewer device kernels than ``calls`` is run again with
+    twice the pad, up to ``attempts`` sessions, and says so on stderr;
+    every other retry takes the profiler's schedule instead (a warm-up step
+    of the same calls, then the step it keeps; the step's own range on the
+    device track is not a kernel). Each session's least lag from a launch on
+    the host to its kernel's start on the device goes into ``PROFILER_LAGS``.
+    The callers check what the last session returns, so a session with more
+    kernels than calls, or another kernel's name, still fails."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        pad_s = PROFILER_PAD_S * 2 ** attempt
+        if attempt:
+            print(f"profiler: session {attempt} recorded {len(kerns)} device kernels for "
+                  f"{calls} calls (least launch-to-kernel lag {_ms_or_not(lag)} ms); again "
+                  f"with {pad_s:.2f} s of pad", file=sys.stderr)
         torch.cuda.synchronize()
-        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-        with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
-            for _ in range(2):
+        if attempt % 2:
+            schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+            with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+                for step in range(2):
+                    time.sleep(pad_s * step)
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    time.sleep(pad_s * step)
+                    prof.step()
+        else:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                time.sleep(pad_s)
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-                prof.step()
+                time.sleep(pad_s)
         kerns = [(evt.name, evt.time_range.end - evt.time_range.start)
                  for evt in prof.events()
                  if evt.device_type == torch.autograd.DeviceType.CUDA
                  and not evt.name.startswith("ProfilerStep")]  # the step's own range
+        lag = _launch_lag_ms(torch, prof)
+        if lag is not None:
+            PROFILER_LAGS.append(lag)
         if len(kerns) >= calls:
             return kerns
     return kerns
+
+
+def _launch_lag_ms(torch, prof):
+    """The least time from a launch's start on the host to its kernel's
+    start on the device, in ms, over a session's kernels (records matched
+    by correlation id), or ``None`` where the session kept no kernel."""
+    launch, kernel = {}, {}
+    for evt in prof.profiler.kineto_results.events():
+        if not evt.correlation_id():
+            continue
+        side = kernel if evt.device_type() == torch.autograd.DeviceType.CUDA else launch
+        side.setdefault(evt.correlation_id(), evt.start_ns())
+    lags = [kernel[c] - launch[c] for c in kernel if c in launch]
+    return min(lags) / 1e6 if lags else None
+
+
+def _device_ms(torch, fn, calls: int):
+    """The median device ms of one call of ``fn`` by the profiler, or
+    ``None`` where every session of :func:`_device_kernels` came back
+    without a device record. Only for a time printed beside its CUDA-event
+    time: a check of what ran on the card reads :func:`_device_kernels`."""
+    kerns = _device_kernels(torch, fn, calls)
+    return statistics.median(us for _, us in kerns) / 1e3 if kerns else None
+
+
+def _ms_or_not(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _host_us(torch, fn) -> float:
@@ -2634,6 +2706,201 @@ def _fleet_path(torch, kernels, graphs, oracle, deck, lane_sets, lane_oracle, sc
     return out
 
 
+def _cli(cli, argv) -> str:
+    """``cli.main(argv)`` in this process; returns its standard output. A
+    non-zero exit raises."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: exit {rc}")
+    return out.getvalue()
+
+
+def _front_end_path(torch, kernels, graphs, oracle, scratch, card) -> dict:
+    """The front ends on the card (phase 2k): the port's CLI in this process,
+    so that its launches count on this process's wrappers, plus the entry
+    module, the native ELL buckets against their NumPy form, and one
+    ``python -m`` subprocess. Every step's forest must equal the SciPy rank
+    oracle; a CLI step that exits non-zero fails the phase."""
+    from distributed_ghs_implementation_tpu_torch import cli, entry
+    from distributed_ghs_implementation_tpu_torch.graphs import io as graph_io
+    from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+    from distributed_ghs_implementation_tpu_torch.models import boruvka
+    from distributed_ghs_implementation_tpu_torch.utils.verify import rank_oracle_edge_ids
+
+    steps, out = {}, {"card": card}
+    build = str(ROOT / "build")
+
+    def step(name, fn):
+        t = time.perf_counter()
+        got = fn()
+        steps[name] = time.perf_counter() - t
+        return got
+
+    def same_forest(what, pairs, g, ids):
+        pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        if not np.array_equal(_pairs(pairs[:, 0], pairs[:, 1]), _pairs(g.u[ids], g.v[ids])):
+            raise AssertionError(f"front ends, {what}: forest differs from the rank oracle")
+
+    def result_file(what, path, g, ids):
+        res = json.loads(Path(path).read_text())
+        same_forest(what, res["mst_edges"], g, ids)
+        if res["total_weight"] != int(g.w[ids].sum()):
+            raise AssertionError(f"front ends, {what}: weight {res['total_weight']}")
+        return res
+
+    # a. RMAT-18 through generate --npz, then run --verify --metrics-out
+    rmat18 = graphs["rmat18"]
+    d18 = scratch / "rmat18"
+    step("generate_rmat18_s", lambda: _cli(cli, [
+        "generate", "--kind", "rmat", "--rmat-scale", "18", "--rmat-edge-factor", "16",
+        "--seed", "1", "--npz", "--output-dir", str(d18)]))
+    npz18 = str(d18 / "graph.npz")
+    if graph_io.read_npz(npz18).digest() != rmat18.digest():
+        raise AssertionError("front ends: generate --kind rmat gave another RMAT-18")
+    k1 = kernels.hook_compress.launches
+    step("run_rmat18_s", lambda: _cli(cli, [
+        "run", "--graph-dir", npz18, "--verify", "--output", str(scratch / "r18.json"),
+        "--metrics-out", str(scratch / "r18.metrics.json")]))
+    if kernels.hook_compress.launches == k1:
+        raise AssertionError("front ends: run on RMAT-18 launched no K1")
+    res = result_file("run RMAT-18", scratch / "r18.json", rmat18, oracle["rmat18"])
+    metrics = json.loads((scratch / "r18.metrics.json").read_text())
+    if metrics["schema"] != "ghs-bench-metrics-v1" or metrics["metrics"]["mst_edges"] != len(
+            oracle["rmat18"]):
+        raise AssertionError(f"front ends: metrics {metrics}")
+    out["run_rmat18"] = {"execution_time": res["execution_time"], "levels": res["num_levels"],
+                         "backend": res["backend"]}
+
+    # b. a reference-format partition dir: generate, run --verify, verify --result
+    ref = scratch / "ref"
+    step("reference_dir_s", lambda: (
+        _cli(cli, ["generate", "--nodes", "60", "--edge-prob", "0.1", "--seed", "7",
+                   "--output-dir", str(ref)]),
+        _cli(cli, ["run", "--graph-dir", str(ref), "--verify", "--output",
+                   str(scratch / "ref.json")]),
+        _cli(cli, ["verify", "--graph-dir", str(ref), "--result", str(scratch / "ref.json")])))
+    gref = graph_io.read_partition_dir(str(ref))
+    result_file("reference dir", scratch / "ref.json", gref, rank_oracle_edge_ids(gref))
+
+    # c. experiments --extended
+    step("experiments_s", lambda: _cli(cli, [
+        "experiments", "--extended", "--output", str(scratch / "exp.json")]))
+    records = json.loads((scratch / "exp.json").read_text())
+    if len(records) != 9 or not all(r["is_correct"] for r in records):
+        raise AssertionError(f"front ends: experiments {records}")
+
+    # d. serve --input, one process and a fleet of 2 workers
+    deck = {name: graphs[name] for name in ("readme", "er48", "rmat12", "road40", "forest23")}
+    npz13 = str(scratch / "rmat13.npz")
+    graph_io.write_npz(graphs["rmat13"], npz13)
+    reqs = [({"op": "solve", "num_nodes": g.num_nodes, "edges_out": True,
+              "edges": [[int(a), int(b), int(c)] for a, b, c in zip(g.u, g.v, g.w)]}, name)
+            for name, g in deck.items()]
+    reqs.append(({"op": "solve", "graph_path": npz13, "edges_out": True}, "rmat13"))
+    jsonl = scratch / "deck.jsonl"
+    jsonl.write_text("\n".join(json.dumps(r) for r, _ in reqs) + "\n")
+
+    def serve(extra):
+        text = _cli(cli, ["serve", "--input", str(jsonl), "--batch-lanes", "16",
+                             "--compile-cache-dir", build] + extra)
+        answers = [json.loads(line) for line in text.splitlines()]
+        if len(answers) != len(reqs):
+            raise AssertionError(f"front ends: serve {extra}: {len(answers)} answers")
+        for (_, name), ans in zip(reqs, answers):
+            if not ans.get("ok"):
+                raise AssertionError(f"front ends: serve {extra} {name}: {ans}")
+            same_forest(f"serve {extra} {name}", ans["mst_edges"], graphs[name], oracle[name])
+        return answers
+
+    k2 = kernels.gather_key.launches
+    step("serve_s", lambda: serve([]))
+    if kernels.gather_key.launches == k2:
+        raise AssertionError("front ends: serve launched no K2")
+    step("serve_fleet2_s", lambda: serve(["--fleet", "2", "--disk-cache",
+                                          str(scratch / "store")]))
+
+    # e. run --backend sharded (one shard a card)
+    step("run_sharded_s", lambda: _cli(cli, [
+        "run", "--graph-dir", npz13, "--backend", "sharded", "--output",
+        str(scratch / "sharded.json")]))
+    result_file("run --backend sharded", scratch / "sharded.json", graphs["rmat13"],
+                oracle["rmat13"])
+
+    # f. trace and stats
+    def trace():
+        _cli(cli, ["trace", "--out", str(scratch / "trace.json"), "--jsonl",
+                   str(scratch / "trace.jsonl")])
+        text = _cli(cli, ["stats", "--input", str(scratch / "trace.jsonl")])
+        if "solver.level" not in text:
+            raise AssertionError("front ends: stats shows no solver.level span")
+
+    step("trace_stats_s", trace)
+
+    # g. tune, h. chaos
+    def tune():
+        return json.loads(_cli(cli, ["tune", "--buckets", "2048x8192", "--lanes", "16",
+                                     "--out", str(scratch / "tuning.json")]))
+
+    tuned = step("tune_s", tune)
+    out["tune"] = {"buckets": tuned["buckets"], "winners": tuned["winners"],
+                   "pinned": tuned["pinned"]}
+    step("chaos_s", lambda: _cli(cli, ["chaos", "--output", str(scratch / "chaos.json")]))
+
+    # i. the entry module: four shards on the card
+    out["dryrun"] = step("dryrun_multichip_s", lambda: entry.dryrun_multichip(4))
+
+    # j. a cold ELL solve of RMAT-18, its buckets native against NumPy, in
+    # turns (native, NumPy, NumPy, native, ...): a fresh Graph each time, so
+    # the rank order is cold too.
+    def cold_ell(native):
+        g = Graph(rmat18.num_nodes, rmat18.u, rmat18.v, rmat18.w)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g.__dict__["ell_buckets"] = g.build_ell_buckets(native=native)
+        buckets_s = time.perf_counter() - t
+        ids, _, _ = boruvka.solve_graph(g, strategy="ell")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not np.array_equal(ids, oracle["rmat18"]):
+            raise AssertionError("front ends: the cold ELL solve differs from the rank oracle")
+        return wall, buckets_s
+
+    def ell_turns():
+        times = {True: [], False: []}
+        for turn in range(2):
+            for native in ((True, False) if turn % 2 == 0 else (False, True)):
+                times[native].append(cold_ell(native))
+        return times
+
+    k3 = kernels.ell_row_min.launches
+    times = step("ell_turns_s", ell_turns)
+    if kernels.ell_row_min.launches == k3:
+        raise AssertionError("front ends: the ELL solves launched no K3")
+    out["ell_cold_rmat18"] = {
+        side: {"solve_s": [w for w, _ in times[flag]], "buckets_s": [b for _, b in times[flag]],
+               "solve_median_s": statistics.median(w for w, _ in times[flag])}
+        for side, flag in (("native", True), ("numpy", False))}
+
+    # k. python -m on the card, a process of its own
+    def module_run():
+        proc = subprocess.run(
+            [sys.executable, "-m", PORT, "run", "--graph-dir", str(ref), "--verify",
+             "--output", str(scratch / "module.json")],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"front ends: python -m {PORT} run: {proc.stderr[-2000:]}")
+        result_file("python -m run", scratch / "module.json", gref, rank_oracle_edge_ids(gref))
+
+    step("python_m_run_s", module_run)
+    out["steps_s"] = steps
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2942,10 +3209,22 @@ def main() -> int:
     fleet["phase_s"] = time.perf_counter() - t_fleet
     print(f"main path, fleet ({card_description()}): {fleet['phase_s']:.2f} s, every answer "
           f"equals the rank oracle; {json.dumps({**fleet, 'launches': fleet_counts})}")
+    # 2k. the front ends: the CLI, the entry module, the native ELL buckets
+    zero_counts()
+    t_front = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        front = _front_end_path(torch, kernels, graphs, oracle, scratch, card_description())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    front_counts = read_counts("front ends", ("gather_key", "hook_compress", "ell_row_min"))
+    front["phase_s"] = time.perf_counter() - t_front
+    print(f"main path, front ends ({card_description()}): {front['phase_s']:.2f} s, every "
+          f"forest equals the rank oracle; {json.dumps({**front, 'launches': front_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
                 + service_counts[name] + sharded_counts[name] + tune_counts[name]
-                + fleet_counts[name]
+                + fleet_counts[name] + front_counts[name]
                 for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
@@ -3224,13 +3503,16 @@ def main() -> int:
         block = lambda: kernels.hook_compress(*hook, form="block")  # noqa: E731
         grid = lambda: kernels.hook_compress(*hook, form="grid")  # noqa: E731
         t = cuda_time_in_turns_ms(block, grid)
-        forms[m] = (t["a_ms"], t["b_ms"], *(
-            statistics.median(us for _, us in _device_kernels(torch, fn, 10)) / 1e3
-            for fn in (block, grid)))
+        forms[m] = (t["a_ms"], t["b_ms"], *(_device_ms(torch, fn, 10) for fn in (block, grid)))
     print("K1 forms by n, ms in turns by CUDA events (block, grid) and device ms by the "
-          "profiler (block, grid): " + ", ".join(
-              f"{m} ({b:.4f}, {g:.4f}; {db:.4f}, {dg:.4f})" for m, (b, g, db, dg) in forms.items())
+          "profiler (block, grid; 'not measured' where the tracer dropped every session's "
+          "records): " + ", ".join(
+              f"{m} ({b:.4f}, {g:.4f}; {_ms_or_not(db)}, {_ms_or_not(dg)})"
+              for m, (b, g, db, dg) in forms.items())
           + f"; auto takes the block form up to n = {kernels.HOOK_BLOCK_FORM_THRESHOLD}")
+    print(f"profiler: least launch-to-kernel lag a session, ms, in run order ({len(PROFILER_LAGS)} "
+          "sessions that kept a kernel; a negative lag is the device clock's offset from the "
+          "host's): " + json.dumps(PROFILER_LAGS))
     tiles = {t: cuda_time_ms(lambda p=kernels.ell_plan(buckets, tile_slots=t):
                              kernels.ell_level_min(frag1_ell, p, vmin_k))
              for t in (1024, 2048, 4096, 8192, 16384)}
@@ -3291,6 +3573,7 @@ def main() -> int:
             "launches_sharded": sharded_counts[name],
             "launches_protocol_tune": tune_counts[name],
             "launches_fleet": fleet_counts[name],
+            "launches_front_ends": front_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,

@@ -8,9 +8,9 @@ That order makes the minimum spanning forest unique, so two solvers that are
 both right return the same edge ids.
 
 This is the port's own copy of the JAX package's ``graphs/edgelist.py``.
-The rank order and the first ranks run in the port's native library
-(``graphs/native.py``), as they do in the JAX package; each keeps its NumPy
-form, which ``native=False`` selects.
+The rank order, the first ranks and the ELL buckets' CSR run in the port's
+native library (``graphs/native.py``), as they do in the JAX package; each
+keeps its NumPy form, which ``native=False`` selects.
 """
 
 from __future__ import annotations
@@ -292,19 +292,31 @@ class Graph:
         vertex itself as destination and rank INT32_MAX. ``Vb`` pads to a
         power of two with rows of vertex 0, destination 0 and rank
         INT32_MAX, inert under the scatter-min that collects per-vertex
-        minima.
+        minima. The slots' CSR comes from the native library
+        (:meth:`build_ell_buckets`).
         """
-        n, m = self.num_nodes, self.num_edges
-        rank_of_edge = np.empty(m, dtype=np.int64)
-        rank_of_edge[self._rank_order] = np.arange(m)
-        ds = np.concatenate([self.u, self.v])
-        dd = np.concatenate([self.v, self.u])
-        dr = np.concatenate([rank_of_edge, rank_of_edge])
-        o2 = np.lexsort((dr, ds))
-        dd, dr, ds = dd[o2], dr[o2], ds[o2]
-        indptr = np.zeros(n + 1, dtype=np.int64)
-        np.add.at(indptr, ds + 1, 1)
-        np.cumsum(indptr, out=indptr)
+        return self.build_ell_buckets()
+
+    def build_ell_buckets(self, *, native: bool = True) -> list:
+        """:attr:`ell_buckets`, computed anew (not cached). The directed
+        slots' CSR, rows in rank order, is one native pass
+        (``build_rank_csr``, as the JAX package's ``ell_buckets`` calls
+        it), or with ``native=False`` a NumPy ``lexsort``; the buckets are
+        cut from it in NumPy either way."""
+        rank_of_edge = np.empty(self.num_edges, dtype=np.int64)
+        rank_of_edge[self._rank_order] = np.arange(self.num_edges)
+        n = self.num_nodes
+        if native:
+            indptr, dd, dr = native_lib.build_rank_csr(n, self.u, self.v, rank_of_edge)
+        else:
+            ds = np.concatenate([self.u, self.v])
+            dd = np.concatenate([self.v, self.u])
+            dr = np.concatenate([rank_of_edge, rank_of_edge])
+            o2 = np.lexsort((dr, ds))
+            dd, dr, ds = dd[o2], dr[o2], ds[o2]
+            indptr = np.zeros(n + 1, dtype=np.int64)
+            np.add.at(indptr, ds + 1, 1)
+            np.cumsum(indptr, out=indptr)
         deg = np.diff(indptr)
 
         def pow2(x: int) -> int:

@@ -258,6 +258,26 @@ def first_cross_rank(num_nodes: int, ra: np.ndarray, rb: np.ndarray,
     return out
 
 
+def build_rank_csr(num_nodes: int, u: np.ndarray, v: np.ndarray,
+                   rank_of_edge: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The directed slots (each edge from both ends) in CSR order, each row
+    sorted by rank: ``(indptr[n + 1], adj_dst[2m], adj_rank[2m])``, int64. A
+    counting pass and one sort a row, the rows in parallel."""
+    lib = get_lib()
+    u, v, rank_of_edge = _i64(u), _i64(v), _i64(rank_of_edge)
+    m = u.shape[0]
+    _check(v.shape == (m,) and rank_of_edge.shape == (m,),
+           "build_rank_csr needs len(u) == len(v) == len(rank_of_edge)")
+    _check(m == 0 or (0 <= min(u.min(), v.min()) and max(u.max(), v.max()) < num_nodes),
+           "build_rank_csr needs every endpoint in [0, num_nodes)")
+    indptr = np.empty(num_nodes + 1, dtype=np.int64)
+    adj_dst = np.empty(2 * m, dtype=np.int64)
+    adj_rank = np.empty(2 * m, dtype=np.int64)
+    lib.build_rank_csr(num_nodes, m, _p64(u), _p64(v), _p64(rank_of_edge), _p64(indptr),
+                       _p64(adj_dst), _p64(adj_rank))
+    return indptr, adj_dst, adj_rank
+
+
 def kruskal_msf_solve_native(num_nodes: int, order: np.ndarray, u: np.ndarray, v: np.ndarray,
                              w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Kruskal over the precomputed rank order, one union-find pass:

@@ -203,6 +203,25 @@ def test_first_ranks_match_numpy_and_jax(graphs, name):
 
 
 @pytest.mark.parametrize("name", NAMES)
+def test_ell_buckets_match_numpy_and_jax(graphs, name):
+    """The native CSR (``build_rank_csr``) gives the buckets of the NumPy
+    ``lexsort`` and of the JAX package's NumPy branch; tolerance 0."""
+    jg, tg = graphs[name]
+    got = tg.build_ell_buckets()
+    for want in (tg.build_ell_buckets(native=False), jg.ell_buckets, tg.ell_buckets):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, np.asarray(y))
+                assert x.dtype == np.int32
+
+
+def test_rank_csr_refuses_an_endpoint_past_the_vertices():
+    with pytest.raises(ValueError, match="endpoint"):
+        native.build_rank_csr(3, np.array([0, 1]), np.array([1, 3]), np.array([0, 1]))
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_host_level2_matches_numpy_and_jax(graphs, name):
     """Over the true edge count and over a prefix past it, into the pad
     ranks (self-edges of vertex 0), as the filter route's prep runs it."""
