@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, eleven paths, each with every kernel launch count set to 0
+2. main path, twelve paths, each with every kernel launch count set to 0
    just before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -145,6 +145,18 @@ Phases, each printing a line:
       distributed_ghs_implementation_tpu_torch run --verify`` subprocess.
       Every CLI step must exit 0 and every forest equal the rank oracle;
       K1, K2 and K3 must launch.
+   l. the benchmark (``_bench_path``): every workload of the port's
+      ``bench.py`` once in this process (its launches count), through
+      ``cli.main(["bench", ...])`` where the CLI reaches it: RMAT-20 ef 16
+      seed 24 (weight 35,737,768; K1), ``--backend sharded`` at RMAT-18, the
+      16-lane batch and the update stream (K1, K2); then through the bench
+      module's ``main``: the certify engines, the query kinds (K1), the
+      tuned launch configs (K1, K2), the sharded lane (K1) and the sharded
+      stream, each at its defaults, and the echo fleets of ``--fleet-tcp``
+      (50 requests, 2 forwards) and ``--wire`` (8 graphs, 1 repeat), cut
+      because a fleet's time is its spawn. Every workload must exit 0 with
+      its JSON line last, carry the card, and pass its own exact fields
+      (weights, parity, counters).
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -2901,6 +2913,80 @@ def _front_end_path(torch, kernels, graphs, oracle, scratch, card) -> dict:
     return out
 
 
+#: Phase 2l's workloads: (name, argv, entry, kernels that must launch in
+#: it, the check of its JSON line and metrics). ``cli`` is
+#: ``cli.main(["bench", ...])``; the workloads the CLI does not reach go
+#: through the bench module's ``main``, both in this process.
+BENCH_WORKLOADS = (
+    ("rmat20", ["--scale", "20"], "cli", ("hook_compress",),
+     lambda line, m: "weight-verified" in line["metric"]
+     and m["mst_weight"] == RMAT20_ORACLE_WEIGHT),
+    ("sharded18", ["--scale", "18", "--backend", "sharded"], "cli", ("hook_compress",),
+     lambda line, m: "weight-verified" in line["metric"]),
+    ("batch16", ["--batch-lanes", "16"], "cli", ("gather_key", "hook_compress"),
+     lambda line, m: line["parity"] == "edge-exact vs sequential"),
+    ("update_stream", ["--update-stream"], "cli", ("gather_key", "hook_compress"),
+     lambda line, m: line["parity"] == "edge-exact vs sequential AND fresh solve"),
+    ("verify", ["--verify"], "bench", (),
+     lambda line, m: line["mutation_rejected"] == 24 and m["verify_failed_clean"] == 0),
+    ("kinds", ["--kinds"], "bench", ("hook_compress",),
+     lambda line, m: line["wrong_results"] == 0),
+    ("tuned", ["--tuned"], "bench", ("gather_key", "hook_compress"),
+     lambda line, m: line["tune_record_hits"] >= 1),
+    # One resident re-solve a warm repeat (3) and one for the update.
+    ("sharded_lane", ["--sharded-lane"], "bench", ("hook_compress",),
+     lambda line, m: (line["reshard_skipped"], line["update_donated"]) == (4, 1)),
+    ("stream_sharded", ["--stream-sharded"], "bench", (),
+     lambda line, m: (line["replay_fresh_solves"], line["residency_restored"]) == (0, 1)),
+    # The echo fleets at a cut depth (defaults 200 requests, 6 forwards, 16
+    # graphs, 3 repeats): their time is the workers' spawn, about 6 s a
+    # fleet on the card, and the phase keeps to its budget.
+    ("fleet_tcp", ["--fleet-tcp", "--fleet-requests", "50", "--fleet-forward", "2"], "bench",
+     (), lambda line, m: (line["forward_hit"], line["forward_miss"], line["elastic_scale_up"],
+                          line["elastic_scale_down"]) == (2, 2, 1, 1)),
+    ("wire", ["--wire", "--wire-graphs", "8", "--repeats", "1"], "bench", (),
+     lambda line, m: (line["wire_passthrough"], line["wire_fallback_json"]) == (8, 0)
+     and line["wire_mixed_passthrough"] + line["wire_mixed_fallback_json"] == 8),
+)
+
+
+def _bench_path(kernels, scratch, card) -> dict:
+    """The benchmark on the card (phase 2l): each workload of the port's
+    ``bench.py`` once, at its defaults but RMAT-20 and sharded RMAT-18, in
+    this process so that its launches count. Each must exit 0 with a JSON
+    line as its last line, carry the card, pass its own correctness
+    fields, and launch the kernels ``BENCH_WORKLOADS`` names."""
+    import contextlib
+    import io
+
+    from distributed_ghs_implementation_tpu_torch import bench, cli
+
+    out = {}
+    for name, argv, entry, want, check in BENCH_WORKLOADS:
+        path = scratch / f"{name}.json"
+        before = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = (cli.main(["bench"] + argv + ["--metrics-out", str(path)]) if entry == "cli"
+                  else bench.main(argv + ["--metrics-out", str(path)]))
+        wall = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"bench {name}: exit {rc}: {text.getvalue()[-2000:]}")
+        line = json.loads(text.getvalue().strip().splitlines()[-1])
+        metrics = json.loads(path.read_text())["metrics"]
+        launched = {w.__name__: w.launches - before[w.__name__] for w in kernels.WRAPPERS}
+        idle = [k for k in want if launched[k] < 1]
+        if idle or line["device"] != card or line.get("kernel", "cuda") != "cuda":
+            raise AssertionError(f"bench {name}: {idle} never launched ({launched}), {line}")
+        if not check(line, metrics):
+            raise AssertionError(f"bench {name}: wrong result: {line}")
+        out[name] = {"wall_s": wall, "launches": launched,
+                     **{k: v for k, v in line.items() if k not in ("metric", "device")}}
+        print(f"bench {name} ({card}, {wall:.2f} s): {json.dumps(line)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3221,10 +3307,22 @@ def main() -> int:
     front["phase_s"] = time.perf_counter() - t_front
     print(f"main path, front ends ({card_description()}): {front['phase_s']:.2f} s, every "
           f"forest equals the rank oracle; {json.dumps({**front, 'launches': front_counts})}")
+    # 2l. the benchmark: every workload of the port's bench.py
+    zero_counts()
+    t_bench = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        bench_runs = _bench_path(kernels, scratch, card_description())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    bench_counts = read_counts("bench", ("gather_key", "hook_compress"))
+    bench_s = time.perf_counter() - t_bench
+    print(f"main path, bench ({card_description()}): {bench_s:.2f} s, every workload "
+          f"passed its checks; {json.dumps({'workloads': bench_runs, 'launches': bench_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
                 + service_counts[name] + sharded_counts[name] + tune_counts[name]
-                + fleet_counts[name] + front_counts[name]
+                + fleet_counts[name] + front_counts[name] + bench_counts[name]
                 for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------

@@ -122,10 +122,16 @@ def clear_solver_cache() -> None:
 def _hook_form(n_pad: int, m_pad: int, lanes: int, mode: str, hook_form: str | None) -> str:
     """K1's launch form for a bucket's solve: ``hook_form`` where the
     caller fixed one (the tuner does), else the installed tuning record's
-    config for the bucket (``kernels.tuned_config``), read at each solve."""
+    config for the bucket (``kernels.tuned_config``), read at each solve.
+    An installed config counts ``kernel.selected.measured``, as the JAX
+    package's selector counts a record's winner for a lane bucket."""
     if hook_form is not None:
         return hook_form
-    return kernels.tuned_config((n_pad, m_pad, lanes, mode)).hook_form
+    config = kernels.tuned_config((n_pad, m_pad, lanes, mode), default=None)
+    if config is None:
+        return kernels.DEFAULT_CONFIG.hook_form
+    BUS.count("kernel.selected.measured")
+    return config.hook_form
 
 
 def _solve_fused(src, dst, rank, ra, rb, *, n_pad: int, m_pad: int, lanes: int,

@@ -26,8 +26,8 @@ kernels' plain PyTorch versions. Where the port differs on purpose:
   JAX package uses NetworkX;
 * ``tune --mesh-buckets`` counts the devices of the port's mesh
   (``parallel.mesh.edge_mesh``);
-* ``bench`` exits 2: the port's benchmark is not written yet, and the
-  repository's ``bench.py`` runs the JAX package.
+* ``bench`` runs the port's ``bench.py``, which has no ``--kernel`` and
+  writes the card's name and power limit beside its numbers.
 
 Usage: ``python -m distributed_ghs_implementation_tpu_torch <subcommand> ...``
 """
@@ -657,15 +657,23 @@ def _cmd_tune(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    """The port has no benchmark yet (ROADMAP queue 1 item 5b); the
-    repository's ``bench.py`` runs the JAX package. Exits 2 with that."""
-    del args
-    print(
-        "bench: the port's benchmark is not written yet (ROADMAP queue 1 "
-        "item 5b); the repository's bench.py runs the JAX package",
-        file=sys.stderr,
-    )
-    return 2
+    from distributed_ghs_implementation_tpu_torch import bench as bench_mod
+
+    argv = ["--scale", str(args.scale),
+            "--edge-factor", str(args.edge_factor),
+            "--repeats", str(args.repeats), "--backend", args.backend,
+            "--device", args.device]
+    if args.no_verify:
+        argv.append("--no-verify")
+    if args.metrics_out:
+        argv += ["--metrics-out", args.metrics_out]
+    if args.batch_lanes:
+        argv += ["--batch-lanes", str(args.batch_lanes)]
+    if args.warmup:
+        argv.append("--warmup")
+    if args.update_stream:
+        argv.append("--update-stream")
+    return bench_mod.main(argv)
 
 
 def _device_arg(sp) -> None:
@@ -1074,8 +1082,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     b = sub.add_parser(
         "bench",
-        help="the benchmark: not written for the port yet, exits 2 "
-        "(the flags are kept from the JAX package's CLI)",
+        help="the benchmark (the port's bench.py): MST edges/s on RMAT, "
+        "or a serving workload",
     )
     b.add_argument("--scale", type=int, default=22)
     b.add_argument("--edge-factor", type=int, default=16)
@@ -1101,6 +1109,7 @@ def build_parser() -> argparse.ArgumentParser:
         "vs the sequential per-update path (bench.py --update-stream, "
         "docs/STREAMING.md)",
     )
+    _device_arg(b)
     b.set_defaults(fn=_cmd_bench)
     return p
 

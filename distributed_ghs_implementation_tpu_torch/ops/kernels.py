@@ -526,10 +526,10 @@ def set_tuned_configs(mapping: dict | None, source: dict | None = None) -> None:
         _TUNED_SOURCE = None if mapping is None else dict(source or {})
 
 
-def tuned_config(bucket) -> LaunchConfig:
-    """The installed config of ``bucket``, or :data:`DEFAULT_CONFIG`."""
+def tuned_config(bucket, default: LaunchConfig | None = DEFAULT_CONFIG) -> LaunchConfig | None:
+    """The installed config of ``bucket``, or ``default``."""
     with _TUNED_LOCK:
-        return _TUNED.get(tuple(bucket), DEFAULT_CONFIG)
+        return _TUNED.get(tuple(bucket), default)
 
 
 def tuned_summary() -> dict | None:

@@ -1,12 +1,13 @@
 """Where one solve's time goes on the card.
 
     python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
-        [--strategy fused|stepped|ell|rank] [--graph rmat|road-grid|rmat20|rmat21]
+        [--strategy fused|stepped|ell|rank] [--graph rmat|road-grid|rmat20|rmat21|rmat24]
 
 Solves a graph once to warm up (``--graph rmat``: RMAT-18, edge factor 16,
 seed 1, the default; ``road-grid``: ``road_grid_graph(2048, 2048,
-seed=1)``; ``rmat20``: RMAT-20 ef 16 seed 24 and ``rmat21``: RMAT-21 ef 16
-seed 1, the dense graphs of the filter route, for ``--strategy rank``),
+seed=1)``; ``rmat20``: RMAT-20 ef 16 seed 24, ``rmat21``: RMAT-21 ef 16
+seed 1 and ``rmat24``: RMAT-24 ef 16 seed 24 (the benchmark's default
+graph), the dense graphs of the filter route, for ``--strategy rank``),
 then once more split into its phases, timed on the host clock
 around ``torch.cuda.synchronize()``, then once more under
 ``torch.profiler``: the device's busy time is the union of its kernel and
@@ -53,6 +54,7 @@ GRAPHS = {
                   lambda: road_grid_graph(2048, 2048, seed=1)),
     "rmat20": ("rmat-20 ef 16 seed 24", lambda: rmat_graph(20, 16, seed=24)),
     "rmat21": ("rmat-21 ef 16 seed 1", lambda: rmat_graph(21, 16, seed=1)),
+    "rmat24": ("rmat-24 ef 16 seed 24", lambda: rmat_graph(24, 16, seed=24)),
 }
 
 
@@ -262,7 +264,7 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", choices=("fused", "stepped", "ell", "rank"), default="fused")
     ap.add_argument("--graph", choices=tuple(GRAPHS), default="rmat")
     args = ap.parse_args(argv)
-    if args.graph in ("rmat20", "rmat21") and args.strategy != "rank":
+    if args.graph in ("rmat20", "rmat21", "rmat24") and args.strategy != "rank":
         ap.error(f"--graph {args.graph} is for --strategy rank")
     device = resolve_device(None)
     card = card_description()

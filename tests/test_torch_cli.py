@@ -6,8 +6,8 @@ side with ``--device cpu``. Every comparison is exact; what is left out is
 named where it is left out: wall times (``execution_time``, ``solve_s``,
 ``wall_time_s``), the ``backend`` label where the two name a rung
 differently, and the kernel counters (``compile.kernel.*``). Where the port
-differs on purpose it is pinned here: ``serve`` has no ``--kernel``,
-``bench`` exits 2, ``verify`` prints the SciPy rank oracle's forest, every
+differs on purpose it is pinned here: ``serve`` and ``bench`` have no
+``--kernel``, ``verify`` prints the SciPy rank oracle's forest, every
 solving subcommand takes ``--device`` and refuses to solve on the CPU
 unless asked.
 """
@@ -308,9 +308,87 @@ def test_trace_and_stats_equal_jax(tmp_path):
     assert rc == 0 and "solver.level" in out
 
 
-def test_bench_exits_2(capsys):
-    assert tcli.main(["bench"]) == 2
-    assert "not written yet" in capsys.readouterr().err
+#: ``bench`` flag sets: the port's CLI must hand its bench module what
+#: JAX's hands the root bench.py, plus ``--device``.
+BENCH_FLAGS = {
+    "defaults": [],
+    "scale": ["--scale", "20"],
+    "edge-factor-repeats": ["--edge-factor", "8", "--repeats", "5"],
+    "sharded": ["--backend", "sharded"],
+    "no-verify": ["--no-verify"],
+    "metrics-out": ["--metrics-out", "m.json"],
+    "batch-lanes": ["--batch-lanes", "16"],
+    "warmup": ["--batch-lanes", "16", "--warmup"],
+    "update-stream": ["--update-stream"],
+}
+
+
+@pytest.mark.parametrize("name", list(BENCH_FLAGS))
+def test_bench_passes_jax_s_flags(name, monkeypatch):
+    import bench as jbench
+
+    from distributed_ghs_implementation_tpu_torch import bench as tbench
+
+    seen = {}
+
+    def capture(side):
+        def main(argv):
+            seen[side] = argv
+            return 0
+        return main
+
+    monkeypatch.setattr(jbench, "main", capture("jax"))
+    monkeypatch.setattr(tbench, "main", capture("port"))
+    assert jcli.main(["bench"] + BENCH_FLAGS[name]) == 0
+    assert tcli.main(["bench"] + BENCH_FLAGS[name] + CPU) == 0
+    port = list(seen["port"])
+    i = port.index("--device")
+    assert port[i:i + 2] == CPU and port[:i] + port[i + 2:] == seen["jax"]
+    assert seen["jax"][:2] == ["--scale", BENCH_FLAGS[name][1] if name == "scale" else "22"]
+
+
+#: ``bench`` runs in both packages: (flags, JAX's keys the port leaves out).
+BENCH_RUNS = {
+    "rmat": ["--scale", "10", "--repeats", "2"],
+    "sharded": ["--scale", "10", "--repeats", "1", "--backend", "sharded"],
+    "batch": ["--batch-lanes", "8", "--repeats", "1"],
+}
+
+
+@pytest.mark.parametrize("name", list(BENCH_RUNS))
+def test_bench_runs_and_prints_jax_s_line(name, tmp_path):
+    """``bench --device cpu`` prints JAX's line (the same keys, but
+    ``level_kernel_speedup``, plus ``device``) and writes its metrics; the
+    deterministic fields equal JAX's (``test_torch_bench.compare_runs``)."""
+    from test_torch_bench import compare_runs, run_bench
+
+    compare_runs(run_bench(jcli.main, ["bench"] + BENCH_RUNS[name], tmp_path / "j.json"),
+                 run_bench(tcli.main, ["bench"] + BENCH_RUNS[name] + CPU, tmp_path / "t.json"))
+
+
+def test_bench_without_device_refuses_without_cuda(monkeypatch):
+    """No CUDA and no ``--device cpu``: a non-zero exit before the bench
+    module runs."""
+    import torch
+
+    from distributed_ghs_implementation_tpu_torch import bench as tbench
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tbench, "main", lambda argv: calls.append(argv))
+    for argv in (["bench"], ["bench", "--batch-lanes", "4"], ["bench", "--update-stream"]):
+        with pytest.raises(SystemExit) as e:
+            tcli.main(argv)
+        assert e.value.code not in (0, None) and "CUDA is not available" in str(e.value.code)
+    assert calls == []
+
+
+def test_bench_refuses_kernel(capsys):
+    """The port's bench has no ``--kernel`` (JAX's bench.py does): the
+    parser refuses it."""
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["bench", "--kernel", "xla"] + CPU)
+    assert e.value.code == 2 and "--kernel" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +414,7 @@ def test_parser_has_every_jax_option():
         for dest, default in jdefaults.items():
             if dest in tdefaults:
                 assert tdefaults[dest] == default, (name, dest)
-    solving = {"run", "experiments", "chaos", "trace", "stats", "serve", "tune"}
+    solving = {"run", "experiments", "chaos", "trace", "stats", "serve", "tune", "bench"}
     assert {n for n, o in topts.items() if "--device" in o} == solving
     for name in solving:
         assert tcli.build_parser().parse_args(
