@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, twelve paths, each with every kernel launch count set to 0
+2. main path, thirteen paths, each with every kernel launch count set to 0
    just before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -157,6 +157,18 @@ Phases, each printing a line:
       because a fleet's time is its spawn. Every workload must exit 0 with
       its JSON line last, carry the card, and pass its own exact fields
       (weights, parity, counters).
+   m. the open-loop load drill (``_load_drill_path``), each run through
+      ``load_drill.main`` in this process at JAX's ``--smoke`` defaults
+      (a 10 s window, seed 23): the in-process service with ``--chaos``
+      (hit, miss, batch, dup, update and oversize classes from 16 client
+      threads, faults armed mid-flight) and with ``--update-heavy``
+      (published windows and polls on 3 subscribed streams; K1 and K2 must
+      launch in these), ``--kinds-mixed`` (its 2-worker fleet leg on the
+      card), ``--fleet 2 --kill-worker 1`` on workers that solve on the
+      card, and ``--fleet 3 --kill-router --transport tcp --test-echo``.
+      Every report must be ``ok`` with ``lost_accepted`` 0 and carry the
+      card; prints per class p50/p95/p99 and goodput, and the window's
+      ``compile.*``.
    Every forest must equal the SciPy rank oracle edge for edge; every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -202,6 +214,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2987,6 +3000,75 @@ def _bench_path(kernels, scratch, card) -> dict:
     return out
 
 
+#: Phase 2m's drill runs: (name, argv, kernels that must launch in this
+#: process). The fleet runs' solves are in their worker processes.
+LOAD_DRILL_RUNS = (
+    ("service_chaos", ["--smoke", "--chaos"], ("gather_key", "hook_compress")),
+    ("stream", ["--smoke", "--no-chaos", "--update-heavy"], ("gather_key", "hook_compress")),
+    ("kinds", ["--kinds-mixed"], ("hook_compress",)),
+    ("fleet2_kill1", ["--smoke", "--no-chaos", "--fleet", "2", "--kill-worker", "1"], ()),
+    ("router_kill", ["--smoke", "--no-chaos", "--fleet", "3", "--kill-router", "--transport",
+                     "tcp", "--test-echo"], ()),
+)
+
+
+def _load_drill_path(kernels, scratch, card) -> dict:
+    """The open-loop load drill on the card (phase 2m): each run of
+    ``LOAD_DRILL_RUNS`` through ``load_drill.main`` in this process, so that
+    the in-process service's launches count. Each must exit 0 with a report
+    that is ``ok``, loses no accepted query, carries the card, and launched
+    the kernels the run names. The drill's temporary stores go under
+    ``scratch``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from distributed_ghs_implementation_tpu_torch import load_drill
+
+    out = {}
+    tmp = scratch / "tmp"
+    tmp.mkdir()
+    tempfile.tempdir = str(tmp)
+    try:
+        for name, argv, want in LOAD_DRILL_RUNS:
+            path = scratch / f"{name}.json"
+            before = {w.__name__: w.launches for w in kernels.WRAPPERS}
+            text = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = load_drill.main(argv + ["--obs-dir", str(scratch / f"{name}_obs"),
+                                             "--output", str(path)])
+            wall = time.perf_counter() - t
+            report = json.loads(path.read_text())
+            metrics = report["gate_metrics"]["metrics"]
+            launched = {w.__name__: w.launches - before[w.__name__] for w in kernels.WRAPPERS}
+            idle = [k for k in want if launched[k] < 1]
+            failed = [c["name"] for c in report["checks"] if not c["ok"]]
+            lost = metrics.get("lost_accepted", 0)
+            if (rc != 0 or not report["ok"] or lost or metrics.get("wrong_results", 0)
+                    or report["config"]["device"] != card or idle):
+                raise AssertionError(f"load drill {name}: exit {rc}, failed {failed}, lost "
+                                     f"{lost}, {idle} never launched ({launched}), "
+                                     f"{text.getvalue()[-2000:]}")
+            classes = {cls: {"sent": c["sent"], "goodput_per_sec": c["goodput_per_sec"],
+                             **{p: c["latency_s"].get(p) for p in ("p50", "p95", "p99")}}
+                       for cls, c in report["slo"]["classes"].items()}
+            out[name] = {"wall_s": wall, "workload": report["config"]["workload"],
+                         "checks": len(report["checks"]), "lost_accepted": lost,
+                         "launches": launched, "classes": classes,
+                         "compile": report.get("compile_counters")}
+            print(f"load drill {name} ({card}, {wall:.2f} s, {report['config']['workload']}, "
+                  f"{len(report['checks'])} checks passed, lost_accepted {lost}): per class "
+                  f"p50/p95/p99 s and goodput/s "
+                  + json.dumps({cls: [round(c[p], 5) for p in ("p50", "p95", "p99")]
+                                + [round(c["goodput_per_sec"] or 0, 3)]
+                                for cls, c in classes.items()})
+                  + f"; window compile.* {json.dumps(out[name]['compile'])}")
+    finally:
+        tempfile.tempdir = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3036,6 +3118,8 @@ def main() -> int:
           f"({'cached' if native_cached else 'compiled'}) {native_path.relative_to(ROOT)}")
 
     # Host-side inputs and oracles: set-up, outside the main path's window.
+    # The SciPy oracles run on a thread each core (their sorts and
+    # csgraph's tree release the GIL) while the lane sets are generated.
     t0 = time.perf_counter()
     deck = _fixture_deck(Graph, gen)
     rmat13 = gen.rmat_graph(13, 16, seed=1)
@@ -3046,19 +3130,41 @@ def main() -> int:
     rmat21 = gen.rmat_graph(21, 16, seed=1)
     graphs = {**deck, "rmat13": rmat13, "rmat18": rmat18, "grid2048": grid2048,
               "road1024": road1024, "rmat20": rmat20, "rmat21": rmat21}
-    oracle = {name: rank_oracle_edge_ids(g) for name, g in graphs.items()}
-    # Phase 2f's lane sets: 16 RMAT-13 graphs of one bucket, 21 128-vertex
-    # graphs of one bucket (16 lanes and a partial batch of 5), and 16
-    # graphs of the policy's ceiling bucket, 2^16 vertices and 2^17 ranks.
-    lane_sets = {"rmat13": [rmat13] + [gen.rmat_graph(13, 16, seed=s) for s in range(2, 17)],
-                 "small128": [gen.gnm_random_graph(128, 500, seed=s) for s in range(1, 22)],
-                 "ceiling": [gen.gnm_random_graph(60000, 120000, seed=s) for s in range(1, 17)]}
-    lane_oracle = {name: [rank_oracle_edge_ids(g) for g in gs] for name, gs in lane_sets.items()}
-    for name, gs in lane_sets.items():
-        buckets = {bucket_key(g) for g in gs}
-        if len(buckets) != 1:
-            raise AssertionError(f"{name}: the lane set spans buckets {buckets}")
-    oracle_w = {name: scipy_mst_weight(g) for name, g in graphs.items()}
+    setup_s = {"graphs": time.perf_counter() - t0}
+    oracle_s = {}
+
+    def timed(key, fn, g):
+        t = time.perf_counter()
+        value = fn(g)
+        oracle_s[key] = time.perf_counter() - t
+        return value
+
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        oracle_f = {name: pool.submit(timed, f"rank {name}", rank_oracle_edge_ids, g)
+                    for name, g in graphs.items()}
+        weight_f = {name: pool.submit(timed, f"weight {name}", scipy_mst_weight, g)
+                    for name, g in graphs.items()}
+        # Phase 2f's lane sets: 16 RMAT-13 graphs of one bucket, 21
+        # 128-vertex graphs of one bucket (16 lanes and a partial batch of
+        # 5), and 16 graphs of the policy's ceiling bucket, 2^16 vertices
+        # and 2^17 ranks.
+        t = time.perf_counter()
+        lane_sets = {
+            "rmat13": [rmat13] + [gen.rmat_graph(13, 16, seed=s) for s in range(2, 17)],
+            "small128": [gen.gnm_random_graph(128, 500, seed=s) for s in range(1, 22)],
+            "ceiling": [gen.gnm_random_graph(60000, 120000, seed=s) for s in range(1, 17)]}
+        setup_s["lane_sets"] = time.perf_counter() - t
+        lane_f = {name: [pool.submit(timed, f"rank {name}[{i}]", rank_oracle_edge_ids, g)
+                         for i, g in enumerate(gs)] for name, gs in lane_sets.items()}
+        for name, gs in lane_sets.items():
+            buckets = {bucket_key(g) for g in gs}
+            if len(buckets) != 1:
+                raise AssertionError(f"{name}: the lane set spans buckets {buckets}")
+        t = time.perf_counter()
+        oracle = {name: f.result() for name, f in oracle_f.items()}
+        lane_oracle = {name: [f.result() for f in fs] for name, fs in lane_f.items()}
+        oracle_w = {name: f.result() for name, f in weight_f.items()}
+    setup_s["oracles_wait"] = time.perf_counter() - t
     # Phase 2g's inputs: RMAT-18 as an .npz for ``graph_path``, and as one
     # JSON request for the ingest timing.
     from distributed_ghs_implementation_tpu_torch.graphs import io as graph_io
@@ -3074,6 +3180,10 @@ def main() -> int:
     if oracle_w["rmat20"] != RMAT20_ORACLE_WEIGHT:
         raise AssertionError(f"RMAT-20 seed 24: oracle weight {oracle_w['rmat20']}, recorded "
                              f"{RMAT20_ORACLE_WEIGHT}")
+    setup_s["oracles_summed"] = sum(oracle_s.values())
+    slowest = sorted(oracle_s.items(), key=lambda kv: -kv[1])[:6]
+    print(f"setup: {time.perf_counter() - t0:.2f} s, split s: " + json.dumps(setup_s)
+          + f"; oracles on {os.cpu_count()} threads, the slowest s: " + json.dumps(dict(slowest)))
     print(f"setup: {time.perf_counter() - t0:.2f} s; " + "; ".join(
         f"{name} {graphs[name].num_nodes} vertices {graphs[name].num_edges} edges "
         f"{getattr(graphs[name], 'generator_path', '')}"
@@ -3319,10 +3429,24 @@ def main() -> int:
     bench_s = time.perf_counter() - t_bench
     print(f"main path, bench ({card_description()}): {bench_s:.2f} s, every workload "
           f"passed its checks; {json.dumps({'workloads': bench_runs, 'launches': bench_counts})}")
+    # 2m. the open-loop load drill: service, streams, kinds, fleets
+    zero_counts()
+    t_drill = time.perf_counter()
+    scratch.mkdir(parents=True)
+    try:
+        drill_runs = _load_drill_path(kernels, scratch, card_description())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    drill_counts = read_counts("load drill", ("gather_key", "hook_compress"))
+    drill_s = time.perf_counter() - t_drill
+    print(f"main path, load drill ({card_description()}): {drill_s:.2f} s, every report ok "
+          f"with no accepted query lost; "
+          f"{json.dumps({'runs': drill_runs, 'launches': drill_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
                 + service_counts[name] + sharded_counts[name] + tune_counts[name]
                 + fleet_counts[name] + front_counts[name] + bench_counts[name]
+                + drill_counts[name]
                 for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
@@ -3672,6 +3796,8 @@ def main() -> int:
             "launches_protocol_tune": tune_counts[name],
             "launches_fleet": fleet_counts[name],
             "launches_front_ends": front_counts[name],
+            "launches_bench": bench_counts[name],
+            "launches_load_drill": drill_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
