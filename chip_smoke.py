@@ -10,7 +10,7 @@ Phases, each printing a line:
 1. build: compile the CUDA kernels from ``csrc/`` (or find them cached under
    ``build/kernels/``) and the native host library from ``native/`` (under
    ``build/native/``).
-2. main path, thirteen paths, each with every kernel launch count set to 0
+2. main path, fourteen paths, each with every kernel launch count set to 0
    just before it and read just after:
    a. flat: the public entry points solve the README sample, the fixture
       deck, RMAT-13 (``auto``) and RMAT-18 (``fused`` and ``stepped``, cold
@@ -169,7 +169,17 @@ Phases, each printing a line:
       Every report must be ``ok`` with ``lost_accepted`` 0 and carry the
       card; prints per class p50/p95/p99 and goodput, and the window's
       ``compile.*``.
-   Every forest must equal the SciPy rank oracle edge for edge; every
+   n. the public surface (``_surface_path``), only through the package
+      exports: ``ops.fragment_moe`` and ``ops.hook_and_compress`` at
+      RMAT-18's level 1 (K2, K1; equal to the torch forms on CPU copies),
+      ``models.solve_graph`` and ``parallel.make_sharded_solver`` (4 shards)
+      on RMAT-13, ``utils.verify_result(oracle="auto")`` on RMAT-20 and
+      RMAT-21 (the native Kruskal pass, timed beside SciPy's weight of the
+      same graph), SciPy's RMAT-18 weight against the native one, and
+      RMAT-20's rank endpoints staged as int32 copies and over the 24-bit
+      wire, equal on the card.
+   Every forest must equal the SciPy rank oracle edge for edge, and every
+   weight the native Kruskal pass's (SciPy's for float weights); every
    kernel of a path must have launched in it.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, element-exact (all state is integer, tolerance 0), over a range of
@@ -3069,6 +3079,136 @@ def _load_drill_path(kernels, scratch, card) -> dict:
     return out
 
 
+def _surface_path(torch, kernels, graphs, oracle, oracle_w, card) -> dict:
+    """The public surface on the card (phase 2n), reached only through the
+    port's package exports (``graphs``, ``models``, ``ops``, ``utils``,
+    ``parallel`` and the package itself):
+
+    a. ``ops.fragment_moe`` and ``ops.hook_and_compress`` at RMAT-18's level
+       1 (the partition after the identity level) on CUDA tensors: K2 and
+       K1 must launch, and equal the torch forms on CPU copies, element for
+       element;
+    b. ``models.solve_graph`` on RMAT-13 and ``parallel.make_sharded_solver``
+       over 4 shards on the card on RMAT-13, each equal to the rank oracle;
+    c. ``utils.verify_result(oracle="auto")`` on RMAT-20 and RMAT-21: the
+       native Kruskal pass (``native``), ``ok``, timed beside SciPy's
+       weight of the same graph (on two threads under the rest of the
+       phase); SciPy's weight of RMAT-18 equal to its native weight;
+    d. RMAT-20's rank endpoints staged both ways, the int32 copies and the
+       24-bit wire, equal on the card.
+    """
+    from distributed_ghs_implementation_tpu_torch import (
+        minimum_spanning_forest,
+        models,
+        ops,
+        parallel,
+        utils,
+    )
+    from distributed_ghs_implementation_tpu_torch import graphs as pgraphs
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def scipy_timed(g):
+        t = time.perf_counter()
+        return utils.scipy_mst_weight(g), time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:
+        scipy_f = {name: pool.submit(scipy_timed, graphs[name]) for name in FILTER_GRAPHS}
+        # a. K2 and K1 through the ops exports at RMAT-18's level 1.
+        g18 = graphs["rmat18"]
+        if not isinstance(g18, pgraphs.Graph):
+            raise AssertionError("RMAT-18 is not the exported Graph")
+        src, dst, rank, ra, rb = (torch.from_numpy(a).to(dev) for a in g18.rank_arrays())
+        f0 = torch.arange(g18.num_nodes, dtype=torch.int32, device=dev)
+        has0, _, d0 = ops.fragment_moe(f0, src, dst, rank, ra, rb, identity_fragment=True)
+        f1, _ = ops.hook_and_compress(has0, d0, f0)
+        before = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        moe = ops.fragment_moe(f1, src, dst, rank, ra, rb)
+        hooked = ops.hook_and_compress(moe[0], moe[2], f1)
+        torch.cuda.synchronize()
+        launched = {w.__name__: w.launches - before[w.__name__] for w in kernels.WRAPPERS}
+        if launched["gather_key"] < 1 or launched["hook_compress"] < 1:
+            raise AssertionError(f"surface: ops exports launched {launched}")
+        cpu = [t.cpu() for t in (f1, src, dst, rank, ra, rb)]
+        want_moe = ops.fragment_moe(*cpu)
+        want_hook = ops.hook_and_compress(want_moe[0], want_moe[2], cpu[0])
+        err = max(_max_abs_err([t.cpu() for t in moe], want_moe),
+                  _max_abs_err([t.cpu() for t in hooked], want_hook))
+        if err:
+            raise AssertionError(f"surface: ops exports differ from the torch forms by {err}")
+        out["ops"] = {"graph": "rmat18 level 1", "n": g18.num_nodes, "slots": src.numel(),
+                      "launches": launched, "max_abs_err": err}
+        # b. the solver and the sharded solver factory through the exports.
+        g13 = graphs["rmat13"]
+        t = time.perf_counter()
+        ids, _, levels = models.solve_graph(g13)
+        solve_s = time.perf_counter() - t
+        if not np.array_equal(ids, oracle["rmat13"]):
+            raise AssertionError("surface: models.solve_graph differs from the rank oracle")
+        mesh = parallel.edge_mesh(num_shards=4)
+        e_pad = -(-2 * g13.num_edges // (2 * mesh.size)) * 2 * mesh.size
+        arrays = g13.rank_arrays(pad_edges_to=e_pad, pad_ranks_to=e_pad // 2)
+        t = time.perf_counter()
+        mst, fragment, sharded_levels = parallel.make_sharded_solver(mesh, g13.num_nodes)(*arrays)
+        sharded_ids = np.sort(g13.edge_id_of_rank(np.nonzero(mst.cpu().numpy())[0]))
+        sharded_s = time.perf_counter() - t
+        if not np.array_equal(sharded_ids, oracle["rmat13"]) or sharded_levels != levels:
+            raise AssertionError("surface: make_sharded_solver differs from the rank oracle")
+        out["solve_graph"] = {"graph": "rmat13", "levels": levels, "s": solve_s}
+        out["make_sharded_solver"] = {"graph": "rmat13", "shards": mesh.size,
+                                      "levels": sharded_levels, "s": sharded_s}
+        # c. the native oracle through verify_result, beside SciPy's.
+        t = time.perf_counter()
+        scipy18 = utils.scipy_mst_weight(g18)
+        scipy18_s = time.perf_counter() - t
+        if scipy18 != oracle_w["rmat18"]:
+            raise AssertionError(f"surface: RMAT-18's SciPy weight {scipy18} != native "
+                                 f"{oracle_w['rmat18']}")
+        out["rmat18_weight"] = {"scipy_s": scipy18_s, "scipy": scipy18,
+                                "native": oracle_w["rmat18"]}
+        verified = {}
+        for name in FILTER_GRAPHS:
+            r = minimum_spanning_forest(graphs[name])
+            if not np.array_equal(r.edge_ids, oracle[name]):
+                raise AssertionError(f"surface: {name} differs from the rank oracle")
+            t = time.perf_counter()
+            v = utils.verify_result(r, oracle="auto")
+            verified[name] = {"oracle": v.oracle, "ok": v.ok, "native_s": time.perf_counter() - t,
+                              "weight": v.expected_weight}
+            if v.oracle != "native" or not v.ok:
+                raise AssertionError(f"surface: verify_result on {name}: {v}")
+        # d. RMAT-20's endpoints staged both ways.
+        rs = models.rank_solver
+        g20 = graphs["rmat20"]
+        m_pad = models.boruvka._bucket_size(g20.num_edges)
+        staged = {}
+        for how, stage in (("int32", rs._stage_endpoints_int32),
+                           ("wire24", rs._stage_endpoints_wire24)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, sa, sb = stage(g20, m_pad, dev)
+            issued = time.perf_counter() - t
+            torch.cuda.synchronize()
+            staged[how] = ((sa, sb), {"host_s": issued, "total_s": time.perf_counter() - t})
+        if not all(torch.equal(a, b) for a, b in zip(staged["int32"][0], staged["wire24"][0])):
+            raise AssertionError("surface: the int32 and 24-bit stagings of RMAT-20 differ")
+        out["staging_rmat20"] = {how: rec for how, (_, rec) in staged.items()}
+        for name, f in scipy_f.items():
+            weight, seconds = f.result()
+            verified[name]["scipy_s"] = seconds
+            if weight != verified[name]["weight"]:
+                raise AssertionError(f"surface: {name}'s SciPy weight {weight} != native "
+                                     f"{verified[name]['weight']}")
+        out["verify_result"] = verified
+    print(f"phase 2n ({card}), verify_result(oracle='auto') s, the native pass beside SciPy's "
+          "weight of the same graph (SciPy on two threads under the phase): " + json.dumps(
+              {name: {k: v for k, v in rec.items() if k != "weight"}
+               for name, rec in out["verify_result"].items()})
+          + f"; RMAT-18: SciPy {scipy18_s:.3f} s, equal to the native weight")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3096,6 +3236,7 @@ def main() -> int:
     from distributed_ghs_implementation_tpu_torch.ops import _build, kernels
     from distributed_ghs_implementation_tpu_torch.ops.segment_ops import fragment_moe
     from distributed_ghs_implementation_tpu_torch.utils.verify import (
+        native_mst_weight,
         rank_oracle_edge_ids,
         scipy_mst_weight,
         verify_result,
@@ -3118,8 +3259,10 @@ def main() -> int:
           f"({'cached' if native_cached else 'compiled'}) {native_path.relative_to(ROOT)}")
 
     # Host-side inputs and oracles: set-up, outside the main path's window.
-    # The SciPy oracles run on a thread each core (their sorts and
-    # csgraph's tree release the GIL) while the lane sets are generated.
+    # The oracles run on a thread each core (their sorts, csgraph's tree
+    # and the native pass release the GIL) while the lane sets are
+    # generated: SciPy's rank oracle for every edge id, the native Kruskal
+    # pass for every weight (SciPy's where it has nothing to do).
     t0 = time.perf_counter()
     deck = _fixture_deck(Graph, gen)
     rmat13 = gen.rmat_graph(13, 16, seed=1)
@@ -3139,10 +3282,14 @@ def main() -> int:
         oracle_s[key] = time.perf_counter() - t
         return value
 
+    def expected_weight(g):
+        weight = native_mst_weight(g)
+        return scipy_mst_weight(g) if weight is None else weight
+
     with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
         oracle_f = {name: pool.submit(timed, f"rank {name}", rank_oracle_edge_ids, g)
                     for name, g in graphs.items()}
-        weight_f = {name: pool.submit(timed, f"weight {name}", scipy_mst_weight, g)
+        weight_f = {name: pool.submit(timed, f"weight {name}", expected_weight, g)
                     for name, g in graphs.items()}
         # Phase 2f's lane sets: 16 RMAT-13 graphs of one bucket, 21
         # 128-vertex graphs of one bucket (16 lanes and a partial batch of
@@ -3442,11 +3589,20 @@ def main() -> int:
     print(f"main path, load drill ({card_description()}): {drill_s:.2f} s, every report ok "
           f"with no accepted query lost; "
           f"{json.dumps({'runs': drill_runs, 'launches': drill_counts})}")
+    # 2n. the public surface: the package exports, the native oracle, the
+    # sharded solver factory, both stagings of the rank endpoints
+    zero_counts()
+    t_surface = time.perf_counter()
+    surface = _surface_path(torch, kernels, graphs, oracle, oracle_w, card_description())
+    surface_counts = read_counts("surface", ("gather_key", "hook_compress"))
+    surface["phase_s"] = time.perf_counter() - t_surface
+    print(f"main path, surface ({card_description()}): {surface['phase_s']:.2f} s, every forest "
+          f"equals the rank oracle; {json.dumps({**surface, 'launches': surface_counts})}")
     launches = {name: flat_counts[name] + ell_counts[name] + probe_counts[name]
                 + rank_counts[name] + sup_counts[name] + batch_counts[name]
                 + service_counts[name] + sharded_counts[name] + tune_counts[name]
                 + fleet_counts[name] + front_counts[name] + bench_counts[name]
-                + drill_counts[name]
+                + drill_counts[name] + surface_counts[name]
                 for name in flat_counts}
 
     # -- 3. kernels vs plain on the card ------------------------------------
@@ -3798,6 +3954,7 @@ def main() -> int:
             "launches_front_ends": front_counts[name],
             "launches_bench": bench_counts[name],
             "launches_load_drill": drill_counts[name],
+            "launches_surface": surface_counts[name],
             "max_abs_err": err[name],
             "plain_ms": cuda_time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,

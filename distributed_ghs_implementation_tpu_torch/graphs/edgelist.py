@@ -51,6 +51,11 @@ class Graph:
     def is_integer_weighted(self) -> bool:
         return self.w.dtype.kind in "iu"
 
+    @property
+    def total_weight(self):
+        """The sum of every edge's weight (a NumPy scalar)."""
+        return self.w.sum()
+
     @staticmethod
     def from_edges(
         num_nodes: int,
@@ -120,6 +125,13 @@ class Graph:
             lo, hi, w = lo[first], hi[first], w[first]
         w = w.astype(np.int64) if w.dtype.kind in "iu" else w.astype(np.float64)
         return Graph(num_nodes, lo, hi, w)
+
+    @staticmethod
+    def from_networkx(g) -> "Graph":
+        """Convert a ``networkx.Graph`` whose edges carry ``weight`` (1
+        where they do not); its nodes must be ``0..n-1``."""
+        edges = [(a, b, d.get("weight", 1)) for a, b, d in g.edges(data=True)]
+        return Graph.from_edges(g.number_of_nodes(), edges)
 
     # ------------------------------------------------------------------
     # Identity
@@ -209,6 +221,74 @@ class Graph:
                 return Graph(num_nodes, e, e.copy(), w.astype(w.dtype))
             return Graph(num_nodes, u, v, w)
         return Graph.from_arrays(num_nodes, u, v, w)
+
+    # ------------------------------------------------------------------
+    # Views
+    # ------------------------------------------------------------------
+    def edge_triples(self) -> list:
+        """The edges as ``[(u, v, w), ...]`` of Python scalars (``w`` an int
+        for integer weights, else a float)."""
+        cast = int if self.is_integer_weighted else float
+        return [(int(a), int(b), cast(c)) for a, b, c in zip(self.u, self.v, self.w)]
+
+    def to_networkx(self):
+        """A ``networkx.Graph`` over ``0..n-1`` with ``weight`` on every edge.
+        NetworkX is imported here: the card's machine has none."""
+        import networkx as nx
+
+        g = nx.Graph()
+        g.add_nodes_from(range(self.num_nodes))
+        g.add_weighted_edges_from(self.edge_triples())
+        return g
+
+    def device_weight_dtype(self) -> np.dtype:
+        """The weight type of the directed layout: int32 where every weight
+        lies strictly inside its range, else float32."""
+        i32 = np.iinfo(np.int32)
+        if self.is_integer_weighted and (
+                self.w.size == 0 or (self.w.min() > i32.min and self.w.max() < i32.max)):
+            return np.dtype(np.int32)
+        return np.dtype(np.float32)
+
+    def directed_arrays(self, *, pad_to: int | None = None
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The interleaved directed layout ``(src, dst, w)`` of length
+        ``2m``: slot ``2e`` is ``u[e] -> v[e]``, slot ``2e + 1`` is ``v[e] ->
+        u[e]``. ``pad_to`` right-pads with self-edges at vertex 0 of the
+        weight type's largest value (``inf`` for floats), which are never
+        outgoing."""
+        n2 = 2 * self.num_edges
+        wd = self.device_weight_dtype()
+        sentinel = np.iinfo(wd).max if wd.kind == "i" else np.inf
+        size = n2 if pad_to is None else int(pad_to)
+        if size < n2:
+            raise ValueError(f"pad_to={pad_to} < 2*m={n2}")
+        src = np.zeros(size, dtype=np.int32)
+        dst = np.zeros(size, dtype=np.int32)
+        w = np.full(size, sentinel, dtype=wd)
+        src[0:n2:2] = self.u
+        dst[0:n2:2] = self.v
+        src[1:n2:2] = self.v
+        dst[1:n2:2] = self.u
+        w[0:n2:2] = self.w.astype(wd)
+        w[1:n2:2] = self.w.astype(wd)
+        return src, dst, w
+
+    def csr(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """CSR adjacency over the directed slots: ``(indptr, dst, w)``, the
+        slots sorted by source, stably (each row in slot order)."""
+        src, dst, w = self.directed_arrays()
+        order = np.argsort(src, kind="stable")
+        src, dst, w = src[order], dst[order], w[order]
+        indptr = np.zeros(self.num_nodes + 1, dtype=np.int64)
+        np.add.at(indptr, src + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return indptr, dst, w
+
+    def degrees(self) -> np.ndarray:
+        """Each vertex's number of incident edges, int64."""
+        return np.bincount(self.u, minlength=self.num_nodes) + np.bincount(
+            self.v, minlength=self.num_nodes)
 
     def rank_arrays(
         self, *, pad_edges_to: int | None = None, pad_ranks_to: int | None = None

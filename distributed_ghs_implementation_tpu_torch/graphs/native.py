@@ -223,6 +223,54 @@ def rank_endpoints_i32(order: np.ndarray, u: np.ndarray, v: np.ndarray,
     return ra, rb
 
 
+def rank_endpoints_i32_planes(order: np.ndarray, u: np.ndarray, v: np.ndarray,
+                              size_pad: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`rank_endpoints_i32` and the 24-bit wire buffer in one pass:
+    ``(ra, rb, planes)``, where ``planes[k * size_pad + r]`` is byte ``k`` of
+    ``ra[r]`` for ``k < 3`` and byte ``k - 3`` of ``rb[r]`` for ``k >= 3``
+    (``models.rank_solver.stage_pair_packed24``). The caller keeps every
+    endpoint id below 2^24 (a graph of at most 2^24 vertices): the pass
+    keeps three bytes of each."""
+    lib = get_lib()
+    order, u, v = _i64(order), _i64(u), _i64(v)
+    _check(u.shape == v.shape and order.shape[0] <= min(u.shape[0], size_pad),
+           "rank_endpoints_i32_planes needs len(u) == len(v) >= len(order) <= size_pad")
+    ra = np.empty(size_pad, dtype=np.int32)
+    rb = np.empty(size_pad, dtype=np.int32)
+    planes = np.empty(6 * size_pad, dtype=np.uint8)
+    lib.rank_endpoints_i32_planes(order.shape[0], size_pad, _p64(order), _p64(u), _p64(v),
+                                  _p32(ra), _p32(rb), planes.ctypes.data_as(_U8))
+    return ra, rb, planes
+
+
+def _endpoints64(num_nodes: int, ra, rb, what: str) -> Tuple[np.ndarray, np.ndarray]:
+    ra, rb = _i64(ra), _i64(rb)
+    _check(ra.shape == rb.shape, f"{what} needs len(ra) == len(rb)")
+    _check(ra.size == 0 or (0 <= min(ra.min(), rb.min()) and max(ra.max(), rb.max()) < num_nodes),
+           f"{what} needs every endpoint in [0, num_nodes)")
+    return ra, rb
+
+
+def first_rank(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
+    """Each vertex's minimum incident rank over int64 rank endpoints, int32
+    (INT32_MAX for an isolated vertex): Borůvka's level 1 on the host."""
+    lib = get_lib()
+    ra, rb = _endpoints64(num_nodes, ra, rb, "first_rank")
+    out = np.empty(num_nodes, dtype=np.int32)
+    lib.first_rank(num_nodes, ra.shape[0], _p64(ra), _p64(rb), _p32(out))
+    return out
+
+
+def first_rank64(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
+    """:func:`first_rank` with int64 ranks and an INT64_MAX sentinel, for
+    rank spaces past 2^31."""
+    lib = get_lib()
+    ra, rb = _endpoints64(num_nodes, ra, rb, "first_rank64")
+    out = np.empty(num_nodes, dtype=np.int64)
+    lib.first_rank64(num_nodes, ra.shape[0], _p64(ra), _p64(rb), _p64(out))
+    return out
+
+
 def first_rank_i32(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
     """Each vertex's minimum incident rank over the unpadded rank endpoints
     (INT32_MAX for an isolated vertex)."""
@@ -276,6 +324,48 @@ def build_rank_csr(num_nodes: int, u: np.ndarray, v: np.ndarray,
     lib.build_rank_csr(num_nodes, m, _p64(u), _p64(v), _p64(rank_of_edge), _p64(indptr),
                        _p64(adj_dst), _p64(adj_rank))
     return indptr, adj_dst, adj_rank
+
+
+def build_csr(num_nodes: int, u: np.ndarray, v: np.ndarray,
+              w: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The directed slots (each edge from both ends) in CSR order, each row
+    in edge order: ``(indptr[n + 1], adj_dst[2m], adj_w[2m])``, int64 (the
+    weights must be integers). One counting sort."""
+    lib = get_lib()
+    u, v, w = _i64(u), _i64(v), _i64(w)
+    m = u.shape[0]
+    _check(v.shape == (m,) and w.shape == (m,), "build_csr needs len(u) == len(v) == len(w)")
+    _check(m == 0 or (0 <= min(u.min(), v.min()) and max(u.max(), v.max()) < num_nodes),
+           "build_csr needs every endpoint in [0, num_nodes)")
+    indptr = np.empty(num_nodes + 1, dtype=np.int64)
+    adj_dst = np.empty(2 * m, dtype=np.int64)
+    adj_w = np.empty(2 * m, dtype=np.int64)
+    lib.build_csr(num_nodes, m, _p64(u), _p64(v), _p64(w), _p64(indptr), _p64(adj_dst),
+                  _p64(adj_w))
+    return indptr, adj_dst, adj_w
+
+
+def kruskal_msf(num_nodes: int, order: np.ndarray, u: np.ndarray, v: np.ndarray,
+                w: np.ndarray) -> Tuple[int, int]:
+    """Kruskal over the precomputed rank order, weight only:
+    ``(total_weight, edge_count)`` of the minimum spanning forest, one
+    union-find pass sharing :func:`kruskal_msf_solve_native`'s loop.
+    Integer weights. The pass checks the order it is handed, since the
+    solver under test ranks by the same order: it raises ``ValueError``
+    when ``order`` is not a weight-nondecreasing permutation of the edges."""
+    lib = get_lib()
+    order, u, v, w = _i64(order), _i64(u), _i64(v), _i64(w)
+    _check(u.shape == v.shape == w.shape and order.shape[0] <= u.shape[0],
+           "kruskal_msf needs len(u) == len(v) == len(w) >= len(order)")
+    _check(min(u.min(initial=0), v.min(initial=0)) >= 0
+           and max(u.max(initial=-1), v.max(initial=-1)) < num_nodes,
+           "kruskal_msf needs every endpoint in [0, num_nodes)")
+    out = np.zeros(2, dtype=np.int64)
+    lib.kruskal_msf(num_nodes, order.shape[0], _p64(order), _p64(u), _p64(v), _p64(w),
+                    _p64(out))
+    if out[1] < 0:
+        raise ValueError("rank order is not a non-decreasing permutation of the edges")
+    return int(out[0]), int(out[1])
 
 
 def kruskal_msf_solve_native(num_nodes: int, order: np.ndarray, u: np.ndarray, v: np.ndarray,

@@ -417,6 +417,70 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_planes24(planes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 24-bit wire buffer (six byte planes in one flat uint8 tensor:
+    bytes 0-2 of ``ra``, then bytes 0-2 of ``rb``) back to the int32 pair,
+    on the buffer's device. JAX's ``_decode_planes24``, an XLA program
+    there, as torch ops here."""
+    w = planes.shape[0] // 6
+    p = [planes[i * w:(i + 1) * w].to(torch.int32) for i in range(6)]
+    return p[0] | (p[1] << 8) | (p[2] << 16), p[3] | (p[4] << 8) | (p[5] << 16)
+
+
+def pack_planes24(ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
+    """The 24-bit wire buffer of a host int32 pair whose values are below
+    2^24: JAX's byte-plane loop over the little-endian bytes. The graph's
+    own endpoints come packed from the native pass instead
+    (``native.rank_endpoints_i32_planes``)."""
+    if ra.dtype != np.int32 or rb.dtype != np.int32 or ra.shape != rb.shape:
+        raise ValueError("pack_planes24 needs two int32 arrays of one length")
+    w = ra.shape[0]
+    planes = np.empty(6 * w, dtype=np.uint8)
+    for arr, base in ((ra, 0), (rb, 3 * w)):
+        bytes_ = np.ascontiguousarray(arr).view(np.uint8)
+        for k in range(3):
+            planes[base + k * w:base + (k + 1) * w] = bytes_[k::4]
+    return planes
+
+
+def _stage_planes24(planes: np.ndarray, device: torch.device):
+    """One copy of the wire buffer (from pinned memory to the card, issued
+    without waiting), then its decode there."""
+    t = torch.from_numpy(planes)
+    t = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.clone()
+    return decode_planes24(t)
+
+
+def stage_pair_packed24(ra: np.ndarray, rb: np.ndarray, device=None):
+    """A host int32 pair (values below 2^24) on ``device`` (``None`` =
+    CUDA) over the 24-bit wire: three bytes an element cross the link, one
+    buffer, decoded on the device (JAX ``_stage_pair_packed24``). Returns
+    the int32 pair."""
+    return _stage_planes24(pack_planes24(ra, rb), resolve_device(device))
+
+
+def _stage_endpoints_int32(graph: Graph, m_pad: int, device: torch.device):
+    """The rank endpoints ``(ra, rb)`` on the host and their int32 copies
+    issued to ``device``: ``(ra, rb, sa, sb)``."""
+    ra, rb = graph.rank_endpoints(pad_to=m_pad)
+    return ra, rb, _stage(ra, device), _stage(rb, device)
+
+
+def _stage_endpoints_wire24(graph: Graph, m_pad: int, device: torch.device):
+    """:func:`_stage_endpoints_int32` over the 24-bit wire: one native pass
+    writes the host endpoints and the wire buffer, whose one copy is issued
+    and decoded on ``device``. Endpoint ids must be below 2^24."""
+    ra, rb, planes = native_lib.rank_endpoints_i32_planes(graph._rank_order, graph.u, graph.v,
+                                                          m_pad)
+    return (ra, rb, *_stage_planes24(planes, device))
+
+
+#: How ``_prep_head`` stages the rank endpoints. The int32 copies and the
+#: 24-bit wire were timed against each other in turns on the card
+#: (``profile_solve --staging``; ``PERF.md`` §6); this is the one that won.
+_stage_endpoints = _stage_endpoints_int32
+
+
 def _prep_head(graph: Graph, device: torch.device):
     """The shared head of the preps: the rank endpoints, their copies
     issued first, then ``vmin0`` (the first ranks, from these endpoints
@@ -428,8 +492,7 @@ def _prep_head(graph: Graph, device: torch.device):
     n_pad = _bucket_size(n)
     m_pad = _bucket_size(m)
     check_rank_envelope(n_pad, m_pad)
-    ra, rb = graph.rank_endpoints(pad_to=m_pad)
-    sa, sb = _stage(ra, device), _stage(rb, device)
+    ra, rb, sa, sb = _stage_endpoints(graph, m_pad, device)
     # --- everything below overlaps the endpoint copies ---
     if "first_ranks" not in graph.__dict__:  # fill the cached property
         graph.__dict__["first_ranks"] = first_ranks_of(n, ra[:m], rb[:m])

@@ -9,11 +9,15 @@ combine with ``pmin``, and vertex arrays stay replicated, one copy a device.
 
 from distributed_ghs_implementation_tpu_torch.parallel.lane import ShardedLane
 from distributed_ghs_implementation_tpu_torch.parallel.mesh import EdgeMesh, edge_mesh
-from distributed_ghs_implementation_tpu_torch.parallel.sharded import solve_graph_sharded
+from distributed_ghs_implementation_tpu_torch.parallel.sharded import (
+    make_sharded_solver,
+    solve_graph_sharded,
+)
 
 __all__ = [
     "EdgeMesh",
     "ShardedLane",
     "edge_mesh",
+    "make_sharded_solver",
     "solve_graph_sharded",
 ]

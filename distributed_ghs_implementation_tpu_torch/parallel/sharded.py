@@ -116,6 +116,40 @@ def sharded_solve(mesh: EdgeMesh, num_nodes: int, src, dst, rank, ra, rb):
     return mst, fragment, level
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _shard_buckets(mesh: EdgeMesh, buckets) -> list:
+    """Each bucket's rows block-sharded over the mesh: a list a local shard
+    of ``(verts, dst, rank)`` tensors."""
+    shards = [[] for _ in range(mesh.local_shards)]
+    for verts, dstb, rankb in buckets:
+        for j, parts in enumerate(zip(*(mesh.shard_host(a) for a in (verts, dstb, rankb)))):
+            shards[j].append(parts)
+    return shards
+
+
+def make_sharded_solver(mesh: EdgeMesh, num_nodes: int):
+    """JAX ``make_sharded_solver``: a solver ``(src, dst, rank, ra, rb) ->
+    (mst_ranks, fragment, levels)`` over ``mesh`` from the identity
+    partition of ``num_nodes`` vertices (:func:`sharded_solve`).
+
+    The arguments are the global arrays of ``Graph.rank_arrays`` (NumPy, or
+    tensors, read back to the host), each block-sharded here
+    (``mesh.shard_host``, which raises unless the slot count and the rank
+    count divide by the shard count: pad with inert entries first).
+    ``mst_ranks`` is the bool mask over every rank, gathered from the
+    shards, ``fragment`` the replicated int32 labels and ``levels`` an int,
+    all on the mesh's first device."""
+    def solve(src, dst, rank, ra, rb):
+        shards = (mesh.shard_host(_host(a)) for a in (src, dst, rank, ra, rb))
+        mst, fragment, levels = sharded_solve(mesh, num_nodes, *shards)
+        return mesh.all_gather(mst)[0].bool(), fragment[0], int(levels)
+
+    return solve
+
+
 def _harvest_shards(graph: Graph, mst: List[torch.Tensor], fragment, levels):
     home = mst[0].device
     mask = torch.cat([m.to(home) for m in mst])
@@ -190,6 +224,25 @@ def sharded_ell_solve(mesh: EdgeMesh, num_nodes: int, buckets, ra, rb):
     return mst, fragment, level
 
 
+def make_sharded_ell_solver(mesh: EdgeMesh, num_nodes: int):
+    """JAX ``make_sharded_ell_solver``: a solver ``(buckets, ra, rb) ->
+    (mst_ranks, fragment, levels)`` over ``mesh`` (:func:`sharded_ell_solve`).
+
+    ``buckets`` is a sequence of global ``(verts, dst, rank)`` buckets
+    (NumPy, as ``Graph.ell_buckets`` gives them), whose row counts must
+    divide by the shard count; each bucket's rows are block-sharded here
+    (:func:`_shard_buckets`), and ``ra``/``rb`` replicated. The results are replicated: the bool rank
+    mask, the int32 labels and the level count, on the mesh's first
+    device."""
+    def solve(buckets, ra, rb):
+        mst, fragment, levels = sharded_ell_solve(
+            mesh, num_nodes, _shard_buckets(mesh, buckets), mesh.replicate_host(_host(ra)),
+            mesh.replicate_host(_host(rb)))
+        return mst[0].bool(), fragment[0], int(levels)
+
+    return solve
+
+
 def solve_graph_sharded_ell(graph: Graph, *, mesh: Optional[EdgeMesh] = None,
                             device=None) -> Tuple[np.ndarray, np.ndarray, int]:
     """ELL strategy on a mesh; ``solve_graph_sharded``'s contract. Each
@@ -205,7 +258,7 @@ def solve_graph_sharded_ell(graph: Graph, *, mesh: Optional[EdgeMesh] = None,
     m_pad = _bucket_size(graph.num_edges)
     ra_np, rb_np = graph.rank_endpoints(pad_to=m_pad)
     with BUS.span("parallel.stage", cat="parallel", strategy="ell", devices=n_dev):
-        buckets = [[] for _ in range(mesh.local_shards)]
+        buckets = []
         for verts, dstb, rankb in graph.ell_buckets:
             vb, w = dstb.shape
             vb_pad = int(math.ceil(vb / n_dev) * n_dev)
@@ -214,8 +267,8 @@ def solve_graph_sharded_ell(graph: Graph, *, mesh: Optional[EdgeMesh] = None,
                 verts = np.concatenate([verts, np.zeros(pad, dtype=np.int32)])
                 dstb = np.vstack([dstb, np.zeros((pad, w), dtype=np.int32)])
                 rankb = np.vstack([rankb, np.full((pad, w), INT32_MAX, dtype=np.int32)])
-            for j, parts in enumerate(zip(*(mesh.shard_host(a) for a in (verts, dstb, rankb)))):
-                buckets[j].append(parts)
+            buckets.append((verts, dstb, rankb))
+        buckets = _shard_buckets(mesh, buckets)
         ra = mesh.replicate_host(ra_np)
         rb = mesh.replicate_host(rb_np)
     with BUS.span("parallel.sharded.solve", cat="parallel", strategy="ell", devices=n_dev):

@@ -2,6 +2,8 @@
 
     python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
         [--strategy fused|stepped|ell|rank] [--graph rmat|road-grid|rmat20|rmat21|rmat24]
+    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
+        --staging [--graph ...]
 
 Solves a graph once to warm up (``--graph rmat``: RMAT-18, edge factor 16,
 seed 1, the default; ``road-grid``: ``road_grid_graph(2048, 2048,
@@ -28,6 +30,17 @@ rejected speculation and the head that answered), each finish chunk, and
 on the filter route the prefix finish, the suffix filter and the
 survivors' finish, then the harvest. The profiled solve is a warm one, from
 the arrays the graph keeps staged.
+
+``--staging`` times the rank solver's prep head (``_prep_head``) with each
+way of staging the rank endpoints, in turns (A B, then B A,
+``STAGING_TURNS`` times each): the int32 copies (``int32``: the endpoints from the native
+gather, two pinned int32 copies) and the 24-bit wire (``wire24``: the
+native pass that also packs the three low bytes of each endpoint, one
+pinned uint8 copy, the decode on the card). A turn reports the staging's
+host seconds (up to the copies being issued), the host passes under the
+copies, the wait for the copies, and the whole prep; the JSON line has each
+way's turns, medians and spreads, and whether the two staged pairs are
+equal.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import statistics
 import time
 from collections import defaultdict
 
@@ -199,6 +213,61 @@ def _rank_phases(graph, device) -> dict:
     return out
 
 
+STAGINGS = {"int32": rs._stage_endpoints_int32, "wire24": rs._stage_endpoints_wire24}
+STAGING_TURNS = 5
+
+
+def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
+    """One prep head (``_prep_head``) with the endpoints staged ``how``,
+    from a graph that keeps only its rank order: ``(times, (sa, sb))``."""
+    graph.__dict__.pop("first_ranks", None)
+    spans = {}
+
+    def stage(*args):
+        t = time.perf_counter()
+        out = STAGINGS[how](*args)
+        spans["host_s"] = time.perf_counter() - t
+        return out
+
+    saved = rs._stage_endpoints
+    rs._stage_endpoints = stage
+    try:
+        rs._sync(device)
+        t0 = time.perf_counter()
+        head = rs._prep_head(graph, device)
+        t1 = time.perf_counter()
+        rs._sync(device)
+        t2 = time.perf_counter()
+    finally:
+        rs._stage_endpoints = saved
+    return ({"host_s": spans["host_s"], "under_copies_s": t1 - t0 - spans["host_s"],
+             "copy_wait_s": t2 - t1, "prep_s": t2 - t0}, head[-2:])
+
+
+def _summary(values) -> dict:
+    values = sorted(values)
+    return {"median": statistics.median(values), "min": values[0], "max": values[-1],
+            "spread": values[-1] - values[0]}
+
+
+def staging_turns(graph, device, turns: int) -> dict:
+    """Both stagings in turns; ``int32`` first in even turns, ``wire24``
+    first in odd ones."""
+    graph._rank_order  # noqa: B018 -- the shared rank order, outside the turns
+    runs = {how: [] for how in STAGINGS}
+    staged = {}
+    for i in range(turns):
+        for how in (("int32", "wire24") if i % 2 == 0 else ("wire24", "int32")):
+            times, pair = _staging_turn(graph, device, how)
+            runs[how].append(times)
+            staged[how] = pair
+    equal = all(torch.equal(a, b) for a, b in zip(staged["int32"], staged["wire24"]))
+    return {"turns": turns, "equal": equal,
+            "chosen": next(h for h, fn in STAGINGS.items() if fn is rs._stage_endpoints),
+            **{how: {"turns": r, **{k: _summary([t[k] for t in r]) for k in r[0]}}
+               for how, r in runs.items()}}
+
+
 def _phases(graph, strategy: str, device) -> dict:
     if strategy == "rank":
         return _rank_phases(graph, device)
@@ -263,13 +332,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--strategy", choices=("fused", "stepped", "ell", "rank"), default="fused")
     ap.add_argument("--graph", choices=tuple(GRAPHS), default="rmat")
+    ap.add_argument("--staging", action="store_true",
+                    help="time the rank endpoints' two stagings in turns instead")
     args = ap.parse_args(argv)
-    if args.graph in ("rmat20", "rmat21", "rmat24") and args.strategy != "rank":
+    if args.graph in ("rmat20", "rmat21", "rmat24") and args.strategy != "rank" and not (
+            args.staging):
         ap.error(f"--graph {args.graph} is for --strategy rank")
     device = resolve_device(None)
     card = card_description()
     label, make = GRAPHS[args.graph]
     graph = make()
+    if args.staging:
+        print(json.dumps({"card": card, "graph": label, "nodes": graph.num_nodes,
+                          "edges": graph.num_edges,
+                          "staging": staging_turns(graph, device, STAGING_TURNS)}))
+        return 0
     boruvka.solve_graph(graph, strategy=args.strategy, device=device)  # warm-up
     phases = _phases(graph, args.strategy, device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

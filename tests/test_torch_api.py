@@ -41,8 +41,9 @@ def test_readme_sample_weight_20():
     assert v.ok and v.oracle == "scipy" and v.expected_weight == 20
     assert verify_result(r, expected_weight=20).oracle == "recorded"
     assert not verify_result(r, expected_weight=21).ok
+    assert verify_result(r, oracle="networkx").oracle == "networkx"
     with pytest.raises(ValueError, match="oracle"):
-        verify_result(r, oracle="networkx")
+        verify_result(r, oracle="exact")
 
 
 @pytest.mark.parametrize("make", [
@@ -260,8 +261,11 @@ def test_parallel_imports_and_solves_without_jax():
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
-    """Nor NetworkX, which the card's machine does not have."""
-    jax_import = re.compile(r"^\s*(import jax|from jax|import networkx|from networkx)\b", re.M)
+    """Nor NetworkX at module level, which the card's machine does not
+    have: only the NetworkX oracles and ``Graph``'s conversions import it,
+    when they are called."""
+    jax_import = re.compile(r"^\s*(import jax|from jax)\b|^(import networkx|from networkx)\b",
+                            re.M)
     files = sorted(PORT_DIR.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
         REPO / "tests" / "torch_inputs.py", REPO / "tests" / "torch_multihost_child.py",

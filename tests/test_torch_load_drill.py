@@ -34,12 +34,14 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_ghs_implementation_tpu_torch import load_drill as tdrill
 from torch_pairs import isolated  # noqa: F401 -- fixture
@@ -265,6 +267,67 @@ def test_drill_matches_jax(mode, tmp_path):
             if isinstance(value, int):
                 assert tm[key] == value, key
         assert tm["wrong_results"] == 0
+
+
+def _live_children() -> set:
+    """The pids of this process's children that have not exited."""
+    pids = set()
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            pids.update(f.read().split())
+    alive = set()
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    alive.add(pid)
+        except FileNotFoundError:
+            pass
+    return alive
+
+
+def _overhead_leg_start(drill, service_module, argv, out, monkeypatch) -> dict:
+    """Run ``drill.main(argv)`` in this process. When its overhead leg
+    builds the service it times with verification off (the first service
+    built with neither a store nor a policy), record the threads the drill
+    started that are still alive, by name, and its child processes that
+    have not exited."""
+    threads, children = set(threading.enumerate()), _live_children()
+    seen = {}
+    real = service_module.MSTService
+
+    class Recorded(real):
+        def __init__(self, *args, **kwargs):
+            if not seen and "disk_dir" not in kwargs and "verify" not in kwargs:
+                seen["threads"] = sorted(t.name for t in threading.enumerate()
+                                         if t not in threads)
+                seen["children"] = sorted(_live_children() - children)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(service_module, "MSTService", Recorded)
+    drill.main(argv + ["--output", str(out)])
+    monkeypatch.setattr(service_module, "MSTService", real)
+    return seen
+
+
+def test_corrupt_overhead_leg_starts_with_what_jax_leaves_running(tmp_path, monkeypatch):
+    """The corrupt drill's audit check times two services' warm hits; what
+    the earlier legs leave running competes with them. At the leg's start
+    the port's drill has the threads JAX's has (the fleet leg's listener,
+    blocked in ``accept``) and no child process, and it has not changed
+    torch's CPU thread count. Either drill's timing check may pass or fail
+    here: only the state is held."""
+    from distributed_ghs_implementation_tpu.serve import service as jservice
+    from distributed_ghs_implementation_tpu_torch.serve import service as tservice
+
+    argv = ["--corrupt-store", "2", "--duration", "3"]
+    torch_threads = torch.get_num_threads()
+    want = _overhead_leg_start(jdrill, jservice, argv, tmp_path / "jax.json", monkeypatch)
+    got = _overhead_leg_start(tdrill, tservice, argv + ["--device", "cpu"],
+                              tmp_path / "port.json", monkeypatch)
+    assert want["threads"] == ["fleet-listener"] and want["children"] == []
+    assert got == want
+    assert torch.get_num_threads() == torch_threads
 
 
 # ----------------------------------------------------------------------
