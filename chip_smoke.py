@@ -482,8 +482,19 @@ def _k1_summary(trace) -> list:
             for (n, form), j in groups.items()]
 
 
-def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, graphs,
-               check) -> dict:
+def _answered(call):
+    """``call()``, and the route its rank solve answered on: the ``route``
+    of the last ``solver.rank.solve`` span the call left on the event
+    bus."""
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+
+    mark = BUS.mark()
+    res = call()
+    routes = [rec[6]["route"] for rec in BUS.events_since(mark) if rec[1] == "solver.rank.solve"]
+    return res, routes[-1]
+
+
+def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -> dict:
     """The rank solver's main path: the fixture deck through
     ``solve_graph(strategy="rank")``, then RMAT-18, the 2048 x 2048 road
     grid, the 1024 x 1024 random road network, RMAT-20 and RMAT-21 through
@@ -494,11 +505,11 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
     the alive count each finish started from, by wrapping the solver's
     functions. Returns the records and K1's inputs at the first traced
     launch of each (graph, n): the real shapes and data of the path, census
-    spaces included, for the check against the plain version."""
-    routes, census, trace, finishes, prefixes = [], [], [], [], []
+    spaces included, for the check against the plain version. The route
+    comes from the solve's own span on the event bus."""
+    census, trace, finishes, prefixes = [], [], [], []
     k1_inputs, current = {}, []
     saved = {name: getattr(rank_solver, name) for name in (
-        "solve_rank_speculative", "solve_rank_filtered_speculative", "solve_rank_filtered",
         "_shrink_and_run", "_finish_to_fixpoint", "_filtered_head", "_filtered_head_l2",
         "_speculative_tail", "hook_and_compress")}
     hook = saved["hook_and_compress"]
@@ -506,9 +517,7 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
     def spy(name):
         def call(*a, **k):
             out = saved[name](*a, **k)
-            if name.startswith("solve_rank"):
-                routes.append((name, out is not None))
-            elif name == "_shrink_and_run":
+            if name == "_shrink_and_run":
                 census.append(k["f_size"])
             elif name == "_finish_to_fixpoint":
                 finishes.append(k["count"])
@@ -552,14 +561,14 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
             rec = {"family": family}
             current.append(name)
             for run in ("cold", "warm", "traced"):
-                for log in (routes, census, trace, finishes, prefixes):
+                for log in (census, trace, finishes, prefixes):
                     log.clear()
                 if run == "traced":
                     rank_solver.hook_and_compress = traced_hook
                 k1 = kernels.hook_compress.launches
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                res = msf(g)
+                res, route = _answered(lambda: msf(g))
                 wall = time.perf_counter() - t
                 rank_solver.hook_and_compress = hook
                 check(name, res.edge_ids, float(g.w[res.edge_ids].sum()))
@@ -569,7 +578,6 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
                         raise AssertionError(f"{name}: K1 x{k1} but {len(trace)} traced")
                     rec["k1"] = _k1_summary(trace)
                     continue
-                route = rank_route(family, routes)
                 if filtered and not route.startswith("filtered") or k1 < 1:
                     raise AssertionError(f"{name}: route {route}, K1 x{k1}")
                 rec[run] = {"s": wall, "edges_per_s": g.num_edges / wall,
@@ -584,8 +592,8 @@ def _rank_path(torch, kernels, rank_solver, rank_route, boruvka, msf, deck, grap
     return out, k1_inputs
 
 
-def _supervision_path(torch, kernels, rank_solver, rank_route, observed, msf, graphs, oracle,
-                      check, scratch) -> dict:
+def _supervision_path(torch, kernels, rank_solver, msf, graphs, oracle, check,
+                      scratch) -> dict:
     """Supervised solves, checkpoint and resume, and the per-level metrics,
     on the card, each against the oracle:
 
@@ -623,14 +631,6 @@ def _supervision_path(torch, kernels, rank_solver, rank_route, observed, msf, gr
     faults = resilience.FAULTS
     faults.reset()
 
-    def routed(call, family):
-        calls = []
-        with observed(rank_solver, ("solve_rank_speculative",
-                                    "solve_rank_filtered_speculative", "solve_rank_filtered"),
-                      lambda name, start, res: calls.append((name, res is not None))):
-            res = call()
-        return res, rank_route(family, calls)
-
     def trail(log):
         return [f"{r.rung} {r.outcome}" for r in log.records]
 
@@ -638,9 +638,8 @@ def _supervision_path(torch, kernels, rank_solver, rank_route, observed, msf, gr
     t = time.perf_counter()
     for name in ("rmat18", "grid2048", "rmat21"):
         g = graphs[name]
-        family = rank_solver._pick_family(g)
-        plain, plain_route = routed(lambda: msf(g), family)
-        sup, sup_route = routed(lambda: msf(g, supervised=True), family)
+        plain, plain_route = _answered(lambda: msf(g))
+        sup, sup_route = _answered(lambda: msf(g, supervised=True))
         check(name, sup.edge_ids, float(g.w[sup.edge_ids].sum()))
         if trail(sup.incidents) != ["device ok"] or sup.backend != "supervised/device":
             raise AssertionError(f"{name}: supervised {sup.backend} {sup.incidents.summary()}")
@@ -3222,7 +3221,6 @@ def main() -> int:
         minimum_spanning_tree,
     )
     from distributed_ghs_implementation_tpu_torch.batch.lanes import bucket_key
-    from distributed_ghs_implementation_tpu_torch.profile_solve import _observed, rank_route
     from distributed_ghs_implementation_tpu_torch.device import (
         card_description,
         cuda_time_in_turns_ms,
@@ -3460,8 +3458,7 @@ def main() -> int:
     zero_counts()
     t_rank = time.perf_counter()
     rank_solves, rank_k1_inputs = _rank_path(
-        torch, kernels, rank_solver, rank_route, boruvka, minimum_spanning_forest, deck, graphs,
-        check)
+        torch, kernels, rank_solver, boruvka, minimum_spanning_forest, deck, graphs, check)
     rank_counts = read_counts("rank", ("hook_compress",))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
@@ -3474,8 +3471,8 @@ def main() -> int:
     scratch.mkdir(parents=True)
     try:
         supervision = _supervision_path(
-            torch, kernels, rank_solver, rank_route, _observed, minimum_spanning_forest,
-            graphs, oracle, check, scratch)
+            torch, kernels, rank_solver, minimum_spanning_forest, graphs, oracle, check,
+            scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     sup_counts = read_counts("supervision", ("hook_compress",))

@@ -30,6 +30,7 @@ import numpy as np
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
+from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 
 if TYPE_CHECKING:  # deferred: the supervisor stays off the plain path
     from distributed_ghs_implementation_tpu_torch.utils.resilience import IncidentLog
@@ -145,7 +146,7 @@ def minimum_spanning_forest(
         edge_ids, fragment, levels = _solve(graph, backend, device)
         backend_label = backend
     wall = time.perf_counter() - t0
-    num_components = int(np.unique(fragment).size) if graph.num_nodes else 0
+    num_components = count_components(fragment) if graph.num_nodes else 0
     return MSTResult(
         graph=graph,
         edge_ids=edge_ids,
@@ -155,6 +156,15 @@ def minimum_spanning_forest(
         num_components=num_components,
         incidents=incidents,
     )
+
+
+def count_components(fragment: np.ndarray) -> int:
+    """The forest's component count: the distinct labels of a solve's
+    ``fragment``, in one ``api.components`` span on the event bus."""
+    with BUS.span("api.components", cat="api") as span:
+        count = int(np.unique(fragment).size)
+        span.set(components=count)
+    return count
 
 
 def minimum_spanning_forest_batch(

@@ -495,9 +495,12 @@ def _solve_graph(graph: Graph, strategy: str, bucket_shapes: bool, device):
 def harvest(graph: Graph, mst_ranks: torch.Tensor, fragment: torch.Tensor,
             levels) -> Tuple[np.ndarray, np.ndarray, int]:
     """A solve's device state -> ``solve_graph``'s result: ``(sorted edge
-    ids, fragment[:n] on the host, levels)``."""
-    return (fetch_mst_edge_ids(graph, mst_ranks),
-            fragment[: graph.num_nodes].cpu().numpy(), int(levels))
+    ids, fragment[:n] on the host, levels)``, in one ``solver.harvest``
+    span (``forest_edges``)."""
+    with BUS.span("solver.harvest", cat="solver") as span:
+        edge_ids = fetch_mst_edge_ids(graph, mst_ranks)
+        span.set(forest_edges=int(edge_ids.size))
+        return edge_ids, fragment[: graph.num_nodes].cpu().numpy(), int(levels)
 
 
 def fetch_mst_edge_ids(graph: Graph, mst_ranks: torch.Tensor) -> np.ndarray:

@@ -33,6 +33,7 @@ int32; the mask is uint8 (0/1).
 
 from __future__ import annotations
 
+import contextvars
 import time
 from typing import Tuple
 
@@ -67,6 +68,21 @@ def _iota(size: int, device) -> torch.Tensor:
 def _ints(*scalars) -> list:
     """Small device tensors as Python ints: one host sync."""
     return torch.stack([s.long() for s in scalars]).tolist()
+
+
+#: The ``solver.rank.solve`` span open in this context (None when the bus
+#: is off), which the routing names the route that answered on.
+_SOLVE_SPAN = contextvars.ContextVar("rank_solve_span", default=None)
+
+
+def _note_route(route: str) -> None:
+    """Name the route that answers on the open ``solver.rank.solve`` span:
+    ``host-l2``, ``speculative``, ``staged``, ``staged after a
+    misprediction``, ``filtered-speculative``, ``filtered`` or ``filtered
+    after a misprediction``."""
+    span = _SOLVE_SPAN.get()
+    if span is not None:
+        span.set(route=route)
 
 
 def _moe_over(fa, fb, key, n: int) -> torch.Tensor:
@@ -398,23 +414,46 @@ def _cache_put(graph: Graph, kind: str, device, staged, m_pad: int) -> None:
         graph.__dict__.setdefault("_rank_stage_cache", {})[(kind, _device_key(device))] = staged
 
 
-def _pinned(a: np.ndarray) -> torch.Tensor:
-    """An int32 copy of ``a`` in page-locked host memory."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).pin_memory()
+def _prep_step(name: str, **args):
+    """A span of the rank route's prep on the bus: ``solver.prep`` or one
+    of its steps, with the process's CPU seconds over it (``cpu_s``, every
+    thread, the native passes' included). A no-op when the bus is off."""
+    return BUS.span(name, cat="solver", cpu=True, **args)
 
 
-def _stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An int32 copy of ``a`` on ``device``. To the card it goes from pinned
-    memory with ``non_blocking=True``: the call returns once the copy is
-    queued, and host work after it overlaps the transfer."""
-    if device.type == "cuda":
-        return _pinned(a).to(device, non_blocking=True)
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).clone()
+def _stage(a: np.ndarray, device: torch.device, dtype=np.int32) -> torch.Tensor:
+    """A ``dtype`` copy of ``a`` on ``device``. To the card it goes from
+    pinned memory with ``non_blocking=True``: the call returns once the copy
+    is queued, and host work after it overlaps the transfer. One
+    ``solver.prep.stage`` span (``bytes``; ``pin_s``, the page locking's
+    share), whose bytes go to the ``solver.stage.h2d_bytes`` counter, and
+    the counter's total onto the timeline."""
+    with _prep_step("solver.prep.stage") as span:
+        host = np.ascontiguousarray(a, dtype=dtype)
+        t = torch.from_numpy(host)
+        pin_s = 0.0
+        if device.type == "cuda":
+            t0 = time.perf_counter()
+            t = t.pin_memory()
+            pin_s = time.perf_counter() - t0
+            out = t.to(device, non_blocking=True)
+        else:
+            out = t.clone()
+        span.set(bytes=host.nbytes, pin_s=pin_s)
+    BUS.count("solver.stage.h2d_bytes", host.nbytes)
+    BUS.counter_sample("solver.stage.h2d_bytes", cat="solver")
+    return out
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _wait_copies(device: torch.device) -> None:
+    """The end of a prep: wait for its copies (``solver.prep.copy_wait``)."""
+    with _prep_step("solver.prep.copy_wait"):
+        _sync(device)
 
 
 def decode_planes24(planes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -446,9 +485,7 @@ def pack_planes24(ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
 def _stage_planes24(planes: np.ndarray, device: torch.device):
     """One copy of the wire buffer (from pinned memory to the card, issued
     without waiting), then its decode there."""
-    t = torch.from_numpy(planes)
-    t = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.clone()
-    return decode_planes24(t)
+    return decode_planes24(_stage(planes, device, np.uint8))
 
 
 def stage_pair_packed24(ra: np.ndarray, rb: np.ndarray, device=None):
@@ -462,7 +499,8 @@ def stage_pair_packed24(ra: np.ndarray, rb: np.ndarray, device=None):
 def _stage_endpoints_int32(graph: Graph, m_pad: int, device: torch.device):
     """The rank endpoints ``(ra, rb)`` on the host and their int32 copies
     issued to ``device``: ``(ra, rb, sa, sb)``."""
-    ra, rb = graph.rank_endpoints(pad_to=m_pad)
+    with _prep_step("solver.prep.endpoints"):
+        ra, rb = graph.rank_endpoints(pad_to=m_pad)
     return ra, rb, _stage(ra, device), _stage(rb, device)
 
 
@@ -470,8 +508,9 @@ def _stage_endpoints_wire24(graph: Graph, m_pad: int, device: torch.device):
     """:func:`_stage_endpoints_int32` over the 24-bit wire: one native pass
     writes the host endpoints and the wire buffer, whose one copy is issued
     and decoded on ``device``. Endpoint ids must be below 2^24."""
-    ra, rb, planes = native_lib.rank_endpoints_i32_planes(graph._rank_order, graph.u, graph.v,
-                                                          m_pad)
+    with _prep_step("solver.prep.endpoints"):
+        ra, rb, planes = native_lib.rank_endpoints_i32_planes(graph._rank_order, graph.u,
+                                                              graph.v, m_pad)
     return (ra, rb, *_stage_planes24(planes, device))
 
 
@@ -481,25 +520,39 @@ def _stage_endpoints_wire24(graph: Graph, m_pad: int, device: torch.device):
 _stage_endpoints = _stage_endpoints_int32
 
 
-def _prep_head(graph: Graph, device: torch.device):
-    """The shared head of the preps: the rank endpoints, their copies
-    issued first, then ``vmin0`` (the first ranks, from these endpoints
-    unless the graph has them) and the level-1 partition computed on the
-    host under the copies. Returns ``(m, m_pad, ra, rb, vmin0, parent1, sa,
-    sb)``: host arrays and the staged (in-flight) endpoints."""
+def _prep_head(graph: Graph, device: torch.device, stage_endpoints=None):
+    """The shared head of the preps: the rank order (the graph's, filled
+    here if it has none), the rank endpoints, their copies issued first,
+    then ``vmin0`` (the first ranks, from these endpoints unless the graph
+    has them) and the level-1 partition computed on the host under the
+    copies. ``stage_endpoints`` replaces :data:`_stage_endpoints`. Returns
+    ``(m, m_pad, ra, rb, vmin0, parent1, sa, sb)``: host arrays and the
+    staged (in-flight) endpoints. Each step is a ``solver.prep.*`` span."""
     n = graph.num_nodes
     m = graph.num_edges
     n_pad = _bucket_size(n)
     m_pad = _bucket_size(m)
     check_rank_envelope(n_pad, m_pad)
-    ra, rb, sa, sb = _stage_endpoints(graph, m_pad, device)
+    with _prep_step("solver.prep.rank_order"):
+        graph._rank_order  # noqa: B018 -- fills the cached property
+    ra, rb, sa, sb = (stage_endpoints or _stage_endpoints)(graph, m_pad, device)
     # --- everything below overlaps the endpoint copies ---
-    if "first_ranks" not in graph.__dict__:  # fill the cached property
-        graph.__dict__["first_ranks"] = first_ranks_of(n, ra[:m], rb[:m])
-    vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
-    vmin0[:n] = graph.first_ranks
-    parent1 = host_level1(vmin0, ra, rb)
+    with _prep_step("solver.prep.first_ranks"):
+        if "first_ranks" not in graph.__dict__:  # fill the cached property
+            graph.__dict__["first_ranks"] = first_ranks_of(n, ra[:m], rb[:m])
+        vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
+        vmin0[:n] = graph.first_ranks
+    with _prep_step("solver.prep.level1"):
+        parent1 = host_level1(vmin0, ra, rb)
     return m, m_pad, ra, rb, vmin0, parent1, sa, sb
+
+
+def _prep_level2(parent1, ra, rb, m: int, m_pad: int):
+    """The preps' host level 2 over ranks ``[0, m)`` (``solver.prep.level2``):
+    ``(parent12, l2_ranks)``, the ranks padded for staging."""
+    with _prep_step("solver.prep.level2"):
+        parent12, l2r = host_level2(parent1, ra, rb, m)
+        return parent12, _pad_l2_ranks(l2r, m_pad)
 
 
 def prepare_rank_arrays_full(graph: Graph, *, device=None):
@@ -514,7 +567,7 @@ def prepare_rank_arrays_full(graph: Graph, *, device=None):
         return cached
     _, m_pad, _, _, vmin0, parent1, sa, sb = _prep_head(graph, device)
     staged = (_stage(vmin0, device), sa, sb, _stage(parent1, device))
-    _sync(device)
+    _wait_copies(device)
     _cache_put(graph, "full", device, staged, m_pad)
     return staged
 
@@ -534,10 +587,10 @@ def prepare_rank_arrays_l2(graph: Graph, *, device=None):
     if cached is not None:
         return cached
     m, m_pad, ra, rb, vmin0, parent1, sa, sb = _prep_head(graph, device)
-    parent12, l2r = host_level2(parent1, ra, rb, m)
+    parent12, l2_ranks = _prep_level2(parent1, ra, rb, m, m_pad)
     staged = (_stage(vmin0, device), sa, sb, _stage(parent12, device),
-              _stage(_pad_l2_ranks(l2r, m_pad), device))
-    _sync(device)
+              _stage(l2_ranks, device))
+    _wait_copies(device)
     _cache_put(graph, "l2", device, staged, m_pad)
     return staged
 
@@ -565,10 +618,10 @@ def prepare_rank_arrays_filtered(graph: Graph, *, device=None):
     if 2 * l2_prefix > m_pad or not use_filtered_path("dense", m_pad):
         return prepare_rank_arrays_full(graph, device=device) + (None, None, prefix)
     _, m_pad, ra, rb, vmin0, parent1, sa, sb = _prep_head(graph, device)
-    parent12, l2r = host_level2(parent1, ra, rb, l2_prefix)
+    parent12, l2_ranks = _prep_level2(parent1, ra, rb, l2_prefix, m_pad)
     staged = (_stage(vmin0, device), sa, sb, _stage(parent1, device) if speculative else None,
-              _stage(parent12, device), _stage(_pad_l2_ranks(l2r, m_pad), device), l2_prefix)
-    _sync(device)
+              _stage(parent12, device), _stage(l2_ranks, device), l2_prefix)
+    _wait_copies(device)
     _cache_put(graph, "filtered", device, staged, m_pad)
     return staged
 
@@ -674,13 +727,15 @@ def solve_rank_speculative(vmin0, ra, rb, *, out_size: int, parent1=None):
     solve). When accepted the result equals the staged solve's."""
     n_pad = vmin0.shape[0]
     parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
-    fragment, mst, fa, fb, (lv, count) = _rank_head(vmin0, ra, rb, parent1, compact_after=2)
+    with BUS.span("solver.rank.head", cat="solver"):
+        fragment, mst, fa, fb, (lv, count) = _rank_head(vmin0, ra, rb, parent1, compact_after=2)
     if count > out_size:
         return None  # the compaction would drop survivors
-    fragment, mst, _, _, _, (extra, count2) = _finish_chunk(
-        fragment, mst, fa, fb, _iota(ra.shape[0], ra.device),
-        out_size=out_size, chunk_levels=_max_levels(n_pad),
-    )
+    with BUS.span("solver.rank.finish", cat="solver", phase="staged", step="_finish_chunk"):
+        fragment, mst, _, _, _, (extra, count2) = _finish_chunk(
+            fragment, mst, fa, fb, _iota(ra.shape[0], ra.device),
+            out_size=out_size, chunk_levels=_max_levels(n_pad),
+        )
     if count2 == 0:
         return mst, fragment, lv + extra
     return None
@@ -710,7 +765,8 @@ def solve_rank_l2(vmin0, ra, rb, parent12, l2_ranks, *, chunk_levels: int = 2,
     (:func:`prepare_rank_arrays_l2`): equal to :func:`solve_rank_staged`,
     without the full-width level 2 on the card. ``on_chunk`` as there."""
     n_pad = vmin0.shape[0]
-    mst, fa, fb, (lv, count) = _head_l2(vmin0, ra, rb, parent12, l2_ranks)
+    with BUS.span("solver.rank.head", cat="solver"):
+        mst, fa, fb, (lv, count) = _head_l2(vmin0, ra, rb, parent12, l2_ranks)
     if on_chunk is not None:
         on_chunk(lv, parent12, mst, count)
     return _finish_to_fixpoint(
@@ -753,9 +809,10 @@ def solve_rank_staged(
         fa, fb, count = _relabel_slots(fragment, ra, rb)
     else:
         parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
-        fragment, mst, fa, fb, (lv, count) = _rank_head(
-            vmin0, ra, rb, parent1, compact_after=compact_after
-        )
+        with BUS.span("solver.rank.head", cat="solver"):
+            fragment, mst, fa, fb, (lv, count) = _rank_head(
+                vmin0, ra, rb, parent1, compact_after=compact_after
+            )
     if compact_space is None:
         compact_space = compact_after <= 1 or n_pad >= _CENSUS_MIN_SPACE
     if on_chunk is not None and initial_state is None:
@@ -783,12 +840,15 @@ def _finish_to_fixpoint(
     chunk_levels: int,
     compact_space: bool,
     on_chunk=None,
+    phase: str = "staged",
 ):
     """Run finish chunks to the fixpoint from any mid-solve state:
     ``fragment`` is the vertex partition (``space``-sized), ``fa/fb`` the
     alive-slot endpoints in it, ``rank_of_slot`` each slot's rank. Handles
     the slot compactions, the shrink chain and the final replay. Returns
-    ``(mst, fragment, levels)`` with ``fragment`` in the vertex space."""
+    ``(mst, fragment, levels)`` with ``fragment`` in the vertex space. Each
+    chunk is a ``solver.rank.finish`` span (``phase``; ``step``, the step
+    that ran its levels), which closes before ``on_chunk`` sees it."""
     frag_state = fragment  # the vertex partition until the first shrink, then compact
     vertex_fragment = fragment  # frozen at the first shrink, for the replay
     rep = None  # current space -> original root (None: the original space)
@@ -810,36 +870,40 @@ def _finish_to_fixpoint(
         eff_levels = (
             _max_levels(2 * out_size) if out_size <= _ONE_SHOT_MAX_SLOTS else chunk_levels
         )
-        if compact_space and space > _SHRINK_MIN_SPACE and census_failures < 2:
-            cfa_o, cfb_o, crank, mark, newid, (f_count, _) = _compact_and_mark(
-                fa, fb, rank_of_slot, n=space, out_size=out_size
-            )
-            f_size = max(_bucket_size(f_count), _SHRINK_MIN_SPACE // 4)
-            if f_size <= space // 2:
-                census_failures = 0
-                rep_prev = rep if rep is not None else _iota(space, fa.device)
-                if pending is not None:
-                    stages.append((*pending, frag_state))
+        with BUS.span("solver.rank.finish", cat="solver", phase=phase) as chunk:
+            if compact_space and space > _SHRINK_MIN_SPACE and census_failures < 2:
+                cfa_o, cfb_o, crank, mark, newid, (f_count, _) = _compact_and_mark(
+                    fa, fb, rank_of_slot, n=space, out_size=out_size
+                )
+                f_size = max(_bucket_size(f_count), _SHRINK_MIN_SPACE // 4)
+                if f_size <= space // 2:
+                    census_failures = 0
+                    rep_prev = rep if rep is not None else _iota(space, fa.device)
+                    if pending is not None:
+                        stages.append((*pending, frag_state))
+                    else:
+                        vertex_fragment = frag_state
+                    rep, frag_state, mst, fa, fb, (extra, count) = _shrink_and_run(
+                        mark, newid, rep_prev, mst, cfa_o, cfb_o, crank,
+                        f_size=f_size, chunk_levels=eff_levels,
+                    )
+                    pending = (mark, newid, rep)
+                    space = f_size
+                    chunk.set(step="_shrink_and_run")
                 else:
-                    vertex_fragment = frag_state
-                rep, frag_state, mst, fa, fb, (extra, count) = _shrink_and_run(
-                    mark, newid, rep_prev, mst, cfa_o, cfb_o, crank,
-                    f_size=f_size, chunk_levels=eff_levels,
-                )
-                pending = (mark, newid, rep)
-                space = f_size
+                    census_failures += 1
+                    # Reuse the compacted slots; run the levels without a shrink.
+                    frag_state, mst, fa, fb, (extra, count) = _levels_loop(
+                        frag_state, mst, cfa_o, cfb_o, crank, chunk_levels=eff_levels,
+                    )
+                    chunk.set(step="_levels_loop")
+                rank_of_slot = crank
             else:
-                census_failures += 1
-                # Reuse the compacted slots; run the levels without a shrink.
-                frag_state, mst, fa, fb, (extra, count) = _levels_loop(
-                    frag_state, mst, cfa_o, cfb_o, crank, chunk_levels=eff_levels,
+                frag_state, mst, fa, fb, rank_of_slot, (extra, count) = _finish_chunk(
+                    frag_state, mst, fa, fb, rank_of_slot,
+                    out_size=out_size, chunk_levels=eff_levels,
                 )
-            rank_of_slot = crank
-        else:
-            frag_state, mst, fa, fb, rank_of_slot, (extra, count) = _finish_chunk(
-                frag_state, mst, fa, fb, rank_of_slot,
-                out_size=out_size, chunk_levels=eff_levels,
-            )
+                chunk.set(step="_finish_chunk")
         lv += extra
         if on_chunk is not None:
             on_chunk(lv, current_vertex_fragment(), mst, count)
@@ -1052,38 +1116,45 @@ def solve_rank_filtered(
     if 2 * prefix > m_pad:  # too little suffix to split: the staged solve
         return solve_rank_staged(vmin0, ra, rb, chunk_levels=chunk_levels, on_chunk=on_chunk,
                                  parent1=parent1)
-    if parent12 is not None:
-        head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
-    else:
-        head = _filtered_head(vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1),
-                              prefix=prefix)
-    fragment, mst, fa, fb, stats = head
-    lv, count = _ints(*stats)
+    with BUS.span("solver.rank.head", cat="solver"):
+        if parent12 is not None:
+            head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
+        else:
+            head = _filtered_head(vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1),
+                                  prefix=prefix)
+        fragment, mst, fa, fb, stats = head
+        lv, count = _ints(*stats)
     if on_chunk is not None:
         on_chunk(lv, fragment, mst, count)
     finish = dict(space=n_pad, chunk_levels=chunk_levels,
                   compact_space=n_pad >= _CENSUS_MIN_SPACE, on_chunk=on_chunk)
     mst, fragment, lv = _finish_to_fixpoint(
         fragment, mst, fa, fb, _iota(prefix, ra.device),
-        lv=lv, count=count, max_levels=lv + _max_levels(n_pad), **finish,
+        lv=lv, count=count, max_levels=lv + _max_levels(n_pad), phase="prefix", **finish,
     )
-    if force_chunked or 8 * (m_pad - prefix) > _FILTER_CHUNK_BYTES:
-        cfa, cfb, crank, count = _filter_suffix_chunked(fragment, ra, rb, prefix)
-    else:
-        out_size = _filter_width(m_pad)
-        cfa, cfb, crank, count = _filter_suffix_fused(fragment, ra, rb, prefix=prefix,
-                                                      out_size=out_size)
-        count = int(count)
-        if count > out_size:  # overflow: the two-step filter at the true count
-            fa_s, fb_s, count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
+    with BUS.span("solver.rank.filter", cat="solver") as span:
+        if force_chunked or 8 * (m_pad - prefix) > _FILTER_CHUNK_BYTES:
+            cfa, cfb, crank, count = _filter_suffix_chunked(fragment, ra, rb, prefix)
+            span.set(steps=["_filter_suffix_chunked"])
+        else:
+            out_size = _filter_width(m_pad)
+            cfa, cfb, crank, count = _filter_suffix_fused(fragment, ra, rb, prefix=prefix,
+                                                          out_size=out_size)
             count = int(count)
-            cfa, cfb, crank = _filter_compact(
-                fa_s, fb_s, prefix, out_size=max(_bucket_size(count), _COMPACT_MIN_SLOTS))
-            del fa_s, fb_s
+            span.set(steps=["_filter_suffix_fused"])
+            if count > out_size:  # overflow: the two-step filter at the true count
+                fa_s, fb_s, count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
+                count = int(count)
+                cfa, cfb, crank = _filter_compact(
+                    fa_s, fb_s, prefix, out_size=max(_bucket_size(count), _COMPACT_MIN_SLOTS))
+                del fa_s, fb_s
+                span.set(steps=["_filter_suffix_fused", "_filter_suffix_ends",
+                                "_filter_compact"])
     if count > 0:
         mst, fragment, lv = _finish_to_fixpoint(
             fragment, mst, cfa, cfb, crank,
-            lv=lv, count=count, max_levels=lv + _max_levels(n_pad), **finish,
+            lv=lv, count=count, max_levels=lv + _max_levels(n_pad), phase="survivors",
+            **finish,
         )
     return mst, fragment, lv
 
@@ -1095,7 +1166,8 @@ def _filtered_speculative_program(vmin0, ra, rb, parent1, *, prefix: int, prefix
     and their levels to the fixpoint, the filter compacted to ``out_size``,
     the survivors' levels. Returns ``(fragment, mst, (levels,
     prefix_count, prefix_alive_end, filter_count, survivor_alive_end))``."""
-    head = _filtered_head(vmin0, ra, rb, parent1, prefix=prefix)
+    with BUS.span("solver.rank.head", cat="solver"):
+        head = _filtered_head(vmin0, ra, rb, parent1, prefix=prefix)
     return _speculative_tail(*head, ra, rb, prefix=prefix, prefix_out=prefix_out,
                              out_size=out_size, max_levels=max_levels)
 
@@ -1104,7 +1176,8 @@ def _filtered_speculative_program_l2(vmin0, ra, rb, parent12, l2_ranks, *, prefi
                                      prefix_out: int, out_size: int, max_levels: int):
     """:func:`_filtered_speculative_program` from the host's level 2 over
     this program's prefix."""
-    head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
+    with BUS.span("solver.rank.head", cat="solver"):
+        head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
     return _speculative_tail(*head, ra, rb, prefix=prefix, prefix_out=prefix_out,
                              out_size=out_size, max_levels=max_levels)
 
@@ -1114,15 +1187,22 @@ def _speculative_tail(fragment, mst, fa, fb, stats0, ra, rb, *, prefix: int, pre
     """The speculative programs after their head. The levels loops read
     their own counts a level; the head's and the filter's counts are read
     once, at the end."""
-    cfa, cfb, crank, _ = _compact_slots(fa, fb, _iota(prefix, ra.device), prefix_out)
-    fragment, mst, _, _, (k1, prefix_alive) = _levels_loop(
-        fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
-    fa_s, fb_s, filter_count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
-    cfa, cfb, crank = _filter_compact(fa_s, fb_s, prefix, out_size=out_size)
-    del fa_s, fb_s
-    fragment, mst, _, _, (k2, survivor_alive) = _levels_loop(
-        fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
-    lv0, prefix_count, filter_count = _ints(stats0[0], stats0[1], filter_count)
+    # So on the card the head's span (the caller's) and the filter's close
+    # once their work is queued: the next finish span's first read waits
+    # for that work.
+    with BUS.span("solver.rank.finish", cat="solver", phase="prefix", step="_levels_loop"):
+        cfa, cfb, crank, _ = _compact_slots(fa, fb, _iota(prefix, ra.device), prefix_out)
+        fragment, mst, _, _, (k1, prefix_alive) = _levels_loop(
+            fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
+    with BUS.span("solver.rank.filter", cat="solver",
+                  steps=["_filter_suffix_ends", "_filter_compact"]):
+        fa_s, fb_s, filter_count = _filter_suffix_ends(fragment, ra, rb, prefix=prefix)
+        cfa, cfb, crank = _filter_compact(fa_s, fb_s, prefix, out_size=out_size)
+        del fa_s, fb_s
+    with BUS.span("solver.rank.finish", cat="solver", phase="survivors", step="_levels_loop"):
+        fragment, mst, _, _, (k2, survivor_alive) = _levels_loop(
+            fragment, mst, cfa, cfb, crank, chunk_levels=max_levels)
+        lv0, prefix_count, filter_count = _ints(stats0[0], stats0[1], filter_count)
     return fragment, mst, (lv0 + k1 + k2, prefix_count, prefix_alive, filter_count,
                            survivor_alive)
 
@@ -1215,20 +1295,29 @@ def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None, paren
     if use_filtered_path(family, ra.shape[0]):
         l2 = dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
         if n_pad >= _CENSUS_MIN_SPACE and parent12 is not None:
+            _note_route("filtered")
             return solve_rank_filtered(vmin0, ra, rb, parent1=parent1, **l2)
+        route = "filtered"
         if n_pad < _CENSUS_MIN_SPACE:
             # parent12 is for the speculative program's (mult-2) prefix:
             # the fallback below must not read it.
             result = solve_rank_filtered_speculative(vmin0, ra, rb, parent1=parent1, **l2)
             if result is not None:
+                _note_route("filtered-speculative")
                 return result
+            route = "filtered after a misprediction"
+        _note_route(route)
         return solve_rank_filtered(vmin0, ra, rb, parent1=_ensure_parent1(vmin0, ra, rb, parent1))
     parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
+    route = "staged"
     if family == "dense" and n_pad < _CENSUS_MIN_SPACE:
         out_size = max(_bucket_size(ra.shape[0] // 8), _COMPACT_MIN_SLOTS)
         result = solve_rank_speculative(vmin0, ra, rb, out_size=out_size, parent1=parent1)
         if result is not None:
+            _note_route("speculative")
             return result
+        route = "staged after a misprediction"
+    _note_route(route)
     return solve_rank_staged(vmin0, ra, rb, **_family_params(family), parent1=parent1)
 
 
@@ -1258,16 +1347,23 @@ def make_production_solver(graph: Graph, *, device=None):
     """
     device = resolve_device(device)
     family = _pick_family(graph)
+    m_pad = _bucket_size(graph.num_edges)
     if use_l2_path(family):
-        staged = prepare_rank_arrays_l2(graph, device=device)
+        route, prepare = "l2", prepare_rank_arrays_l2
+    elif use_filtered_path(family, m_pad):
+        route, prepare = "filtered", prepare_rank_arrays_filtered
+    else:
+        route, prepare = "full", prepare_rank_arrays_full
+    with _prep_step("solver.prep", family=family, route=route, m_pad=m_pad):
+        staged = prepare(graph, device=device)
+    if route == "l2":
 
         def solve(on_chunk=None):
+            _note_route("host-l2")
             return solve_rank_l2(*staged, on_chunk=on_chunk)
-    elif use_filtered_path(family, _bucket_size(graph.num_edges)):
-        vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = prepare_rank_arrays_filtered(
-            graph, device=device)
-        plan_prefix, _ = _prefix_plan(_bucket_size(graph.num_nodes),
-                                      _bucket_size(graph.num_edges))
+    elif route == "filtered":
+        vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = staged
+        plan_prefix, _ = _prefix_plan(_bucket_size(graph.num_nodes), m_pad)
         chunk_l2 = (dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
                     if parent12 is not None and l2_prefix == plan_prefix else {})
 
@@ -1276,14 +1372,16 @@ def make_production_solver(graph: Graph, *, device=None):
                 return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1,
                                        parent12=parent12, l2_ranks=l2_ranks,
                                        l2_prefix=l2_prefix)
+            _note_route("filtered")
             return solve_rank_filtered(vmin0, ra, rb, on_chunk=on_chunk, parent1=parent1,
                                        **chunk_l2)
     else:
-        vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
+        vmin0, ra, rb, parent1 = staged
 
         def solve(on_chunk=None):
             if on_chunk is None:
                 return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
+            _note_route("staged")
             return solve_rank_staged(vmin0, ra, rb, **_family_params(family),
                                      on_chunk=on_chunk, parent1=parent1)
     return _observed_solver(solve, family)
@@ -1291,7 +1389,8 @@ def make_production_solver(graph: Graph, *, device=None):
 
 def _observed_solver(inner, family: str):
     """``inner`` with event-bus telemetry: the solve is a
-    ``solver.rank.solve`` span (``family``, ``chunked``), and when the
+    ``solver.rank.solve`` span (``family``, ``chunked``, and ``route``, the
+    route that answered, named by :func:`_note_route`), and when the
     caller asks for chunk boundaries each one is also a ``solver.chunk``
     event (``level``, ``edges_alive``) before the caller's hook sees it. A
     caller that passes no hook gets none: a hook selects the chunked forms,
@@ -1311,8 +1410,12 @@ def _observed_solver(inner, family: str):
                 hook(level, fragment, mst, count)
 
         with BUS.span("solver.rank.solve", cat="solver", family=str(family),
-                      chunked=hook is not None):
-            return inner(on_chunk=on_chunk)
+                      chunked=hook is not None) as span:
+            token = _SOLVE_SPAN.set(span)
+            try:
+                return inner(on_chunk=on_chunk)
+            finally:
+                _SOLVE_SPAN.reset(token)
 
     return solve
 

@@ -26,6 +26,25 @@ degradations), ``parallel.*`` (sharded staging/collectives), ``trace.*``
 (CLI session phases), ``metrics.*`` (per-level fragment census),
 ``serve.*`` (query service: cache hits/misses, single-flight coalescing,
 queue-depth samples, incremental-vs-resolve update routing).
+
+Names this package emits beyond that registry, all from the rank route:
+
+* ``solver.prep`` (span: ``family``, ``route`` ``l2``/``filtered``/``full``,
+  ``m_pad``, ``cpu_s``) over the prep's steps ``solver.prep.rank_order``,
+  ``.endpoints``, ``.stage`` (one pinned copy issued: ``bytes``, ``pin_s``),
+  ``.first_ranks``, ``.level1``, ``.level2`` and ``.copy_wait``, each with
+  ``cpu_s``, the process's CPU seconds over it; the counter
+  ``solver.stage.h2d_bytes`` (bytes staged, its total also sampled on the
+  timeline at each copy).
+* ``solver.rank.solve`` gains ``route``, the route that answered; its phases
+  ``solver.rank.head``, ``solver.rank.finish`` (``phase``
+  ``prefix``/``survivors``/``staged``, ``step``) and ``solver.rank.filter``
+  (``steps``).
+* ``solver.harvest`` (span: ``forest_edges``) and ``api.components`` (span:
+  ``components``).
+
+:meth:`EventBus.perf_counter_s` puts a stamp on the host's
+``time.perf_counter`` clock.
 """
 
 from __future__ import annotations
@@ -94,16 +113,19 @@ class _Span:
     the span stamps ``trace``/``span``/``parent`` ids into its args and
     pushes itself as the context's parent, so spans opened inside —
     including on other processes that re-establish the context from the
-    wire — chain to it. Untraced code pays one contextvar read.
+    wire — chain to it. Untraced code pays one contextvar read. With
+    ``cpu`` the span also carries ``cpu_s``: the process's CPU seconds
+    over it (``time.process_time()``, every thread).
     """
 
-    __slots__ = ("_bus", "name", "cat", "args", "_t0", "_trace_token")
+    __slots__ = ("_bus", "name", "cat", "args", "_t0", "_c0", "_trace_token")
 
-    def __init__(self, bus: "EventBus", name: str, cat: str, args: dict):
+    def __init__(self, bus: "EventBus", name: str, cat: str, args: dict, cpu: bool = False):
         self._bus = bus
         self.name = name
         self.cat = cat
         self.args = args or None
+        self._c0 = time.process_time() if cpu else None
         self._t0 = bus.now_ns()
         self._trace_token = None
 
@@ -128,17 +150,20 @@ class _Span:
         return self
 
     def __exit__(self, *exc) -> bool:
+        bus = self._bus
+        dur_ns = bus.now_ns() - self._t0
+        if self._c0 is not None:
+            self.set(cpu_s=time.process_time() - self._c0)
         if self._trace_token is not None:
             tracing.pop(self._trace_token)
             self._trace_token = None
-        bus = self._bus
         bus._append(
             (
                 PH_COMPLETE,
                 self.name,
                 self.cat,
                 self._t0,
-                bus.now_ns() - self._t0,
+                dur_ns,
                 threading.get_ident(),
                 self.args,
             )
@@ -282,6 +307,12 @@ class EventBus:
         """Nanoseconds since this bus's epoch (clear() resets it)."""
         return time.perf_counter_ns() - self._epoch_ns
 
+    def perf_counter_s(self, ts_ns: int) -> float:
+        """An event timestamp of this bus (:meth:`now_ns`) on the host's
+        ``time.perf_counter`` clock, in seconds: the clock a caller's own
+        spans, and a profiler trace anchored to it, are on."""
+        return (ts_ns + self._epoch_ns) * 1e-9
+
     def epoch_unix_ns(self) -> int:
         """The bus epoch as a wall-clock unix timestamp (ns) — the anchor
         the multi-file trace merge uses to align per-process monotonic
@@ -296,11 +327,13 @@ class EventBus:
             self._buf[self._write % self.capacity] = rec
             self._write += 1
 
-    def span(self, name: str, cat: str = "app", **args):
-        """Context manager timing a region; no-op singleton when disabled."""
+    def span(self, name: str, cat: str = "app", *, cpu: bool = False, **args):
+        """Context manager timing a region; no-op singleton when disabled.
+        ``cpu=True`` adds the process's CPU seconds over the region as
+        ``cpu_s`` (read only when enabled)."""
         if not self.enabled:
             return NULL_SPAN
-        return _Span(self, name, cat, args)
+        return _Span(self, name, cat, args, cpu)
 
     def complete(
         self,

@@ -20,16 +20,24 @@ listed. Prints one JSON line, with the card's name and power limit.
 The phases of the flat and ELL strategies: the host arrays
 (``rank_arrays``, or ``ell_buckets`` for ``ell``), host-to-device copy,
 level loop, harvest of the edge ids. Those of ``rank`` are read off the
-route ``solve_graph`` takes, as it runs: ``first_ranks`` (taken first,
-alone), the staging (the level-1 and, on the host-L2 and filter routes,
-level-2 host passes under the copies, as in a solve; split into the rank
-endpoints, the host passes, ``pin_memory()``, issuing the copies and
-waiting for them), the head (levels 1-2, the level-3 entry of the host-L2
-route, or the filter route's prefix head; after a misprediction, the
-rejected speculation and the head that answered), each finish chunk, and
-on the filter route the prefix finish, the suffix filter and the
-survivors' finish, then the harvest. The profiled solve is a warm one, from
-the arrays the graph keeps staged.
+solver's own spans on the event bus as the route ``solve_graph`` takes
+runs, cold (the graph's rank order dropped first): ``first_ranks`` (the
+first-ranks pass alone, over the gathered endpoints), the rest of the prep
+(``stage_s``: the rank order, ``rank_order_s``; the endpoint gather; the
+level-1 and, on the host-L2 and filter routes, level-2 host passes under
+the copies; split into the rank endpoints, the host passes,
+``pin_memory()``, issuing the copies and waiting for them), the head
+(levels 1-2, the level-3 entry of the host-L2 route, or the filter
+route's prefix head; after a misprediction, the rejected speculation and
+the head that answered), each finish chunk, and on the filter route the
+prefix finish, the suffix filter and the survivors' finish, then the
+harvest. Each of these phases ends on a host read of its counts, except
+in the speculative filter program (route ``filtered-speculative``), which
+reads its head's and its filter's counts once, at its end: on the card
+their work is only queued when their spans close, so there ``head_s`` and
+``filter_s`` are null, and ``prefix_finish_s`` and ``survivor_finish_s``
+hold the head's and the filter's device work. The profiled solve is a warm one, from the arrays the graph
+keeps staged.
 
 ``--staging`` times the rank solver's prep head (``_prep_head``) with each
 way of staging the rank endpoints, in turns (A B, then B A,
@@ -46,7 +54,6 @@ equal.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 import time
@@ -58,6 +65,7 @@ from distributed_ghs_implementation_tpu_torch.device import card_description, re
 from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph, road_grid_graph
 from distributed_ghs_implementation_tpu_torch.models import boruvka
 from distributed_ghs_implementation_tpu_torch.models import rank_solver as rs
+from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 
 
 SCALE, EDGE_FACTOR, SEED = 18, 16, 1
@@ -79,137 +87,87 @@ def _drop_cached_buckets(graph) -> None:
     graph.__dict__.pop("ell_buckets", None)
 
 
-# The rank solver's steps that end a phase: a head, a finish chunk (a chunk
-# with a census ends in ``_shrink_and_run`` or ``_levels_loop``), a step of
-# the filter; the host passes and the staging's own steps, timed without a
-# sync (they run under the copies); the solves that decide the route.
-_RANK_HEADS = ("_rank_head", "_head_l2", "_filtered_head", "_filtered_head_l2")
+#: The steps a finish chunk's ``solver.rank.finish`` span names: the step
+#: that ran its levels (a chunk with a census ends in ``_shrink_and_run``
+#: or ``_levels_loop``).
 _RANK_CHUNKS = ("_finish_chunk", "_shrink_and_run", "_levels_loop")
-_RANK_FILTERS = ("_filter_suffix_fused", "_filter_suffix_ends", "_filter_compact",
-                 "_filter_suffix_chunked")
-_RANK_HOST = ("host_level1", "host_level2")
-_RANK_STAGING = ("_pinned", "_stage", "_sync")
-_RANK_ROUTES = ("solve_rank_speculative", "solve_rank_filtered_speculative",
-                "solve_rank_filtered")
-
-
-def rank_route(family: str, calls) -> str:
-    """The route that answered a rank solve, from its family and the calls
-    ``(name, answered)`` of ``_RANK_ROUTES`` it made, in order."""
-    names = [name for name, _ in calls]
-    if rs.use_l2_path(family):
-        return "host-l2"
-    if "solve_rank_filtered_speculative" in names:
-        return "filtered-speculative" if calls[-1] == (
-            "solve_rank_filtered_speculative", True) else "filtered after a misprediction"
-    if "solve_rank_filtered" in names:
-        return "filtered"
-    if names == ["solve_rank_speculative"] and calls[0][1]:
-        return "speculative"
-    return "staged after a misprediction" if names else "staged"
-
-
-@contextlib.contextmanager
-def _observed(owner, names, record):
-    """Wrap the functions ``names`` of ``owner`` (a module, or an object
-    such as a frozen ``Graph``, whose own dictionary takes the wrappers)
-    for the block: each call runs as before, then ``record(name, start,
-    out)`` sees it."""
-    saved = {name: getattr(owner, name) for name in names}
-    own = vars(owner)
-    had = {name for name in names if name in own}
-
-    def spy(name, fn):
-        def call(*args, **kwargs):
-            start = time.perf_counter()
-            out = fn(*args, **kwargs)
-            record(name, start, out)
-            return out
-        return call
-
-    for name, fn in saved.items():
-        own[name] = spy(name, fn)
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            if name in had:
-                own[name] = fn
-            else:
-                del own[name]
 
 
 def _rank_phases(graph, device) -> dict:
     """The rank route as ``solve_graph`` runs it (``make_production_solver``,
     its ``solve``, the harvest), with its phases read off the solver's own
-    steps, so the route is the solver's: the head, every finish chunk and
-    every filter step end on a host read of their counts, where the clock
-    stops. The graph's staged arrays are dropped first, so the prep runs as
-    in a cold solve; ``first_ranks`` is taken before it, out of the copies'
-    overlap."""
+    spans on the event bus (on for the call): the prep's ``solver.prep.*``
+    steps, the solve's ``route`` and its head, finish chunks and filter,
+    each of which ends on a host read of its counts but on the card's
+    ``filtered-speculative`` route (see the module's docstring). The
+    graph's rank order, first ranks and staged arrays are dropped first,
+    so the prep runs as in a cold solve."""
     def clock():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    host, marks, routes = [], [], []
-
-    def record(name, start, out):
-        if name in _RANK_HOST + _RANK_STAGING + ("rank_endpoints",):
-            host.append((name, time.perf_counter() - start))
-        elif name in _RANK_ROUTES:
-            routes.append((name, out is not None))
-        else:
-            end = clock()
-            while marks and marks[-1][1] >= start:  # ran inside this step
-                marks.pop()
-            marks.append((name, end))
-
-    for key in ("first_ranks", "_rank_stage_cache"):
+    for key in ("_rank_order", "first_ranks", "_rank_stage_cache"):
         graph.__dict__.pop(key, None)
-    family = rs._pick_family(graph)
-    names = _RANK_HOST + _RANK_STAGING + _RANK_HEADS + _RANK_CHUNKS + _RANK_FILTERS + _RANK_ROUTES
-    with _observed(rs, names, record):
+    enabled = BUS.enabled
+    BUS.enable()
+    mark = BUS.mark()
+    try:
         t0 = clock()
-        graph.first_ranks  # noqa: B018 -- the cached pass, timed alone
-        t1 = clock()
-        with _observed(graph, ("rank_endpoints",), record):
-            solve = rs.make_production_solver(graph, device=device)
+        solve = rs.make_production_solver(graph, device=device)
         t2 = clock()
         mst, _, levels = solve()
         t3 = clock()
         boruvka.fetch_mst_edge_ids(graph, mst)
         t4 = clock()
+    finally:
+        BUS.enabled = enabled
+    spans = [(name, BUS.perf_counter_s(ts), BUS.perf_counter_s(ts + dur), args or {})
+             for ph, name, _cat, ts, dur, _tid, args in BUS.events_since(mark)
+             if ph == "X"]
 
-    def took(*steps):
-        return sum(s for name, s in host if name in steps)
+    def took(name, key=None):
+        return sum(a.get(key, 0.0) if key else end - start
+                   for n, start, end, a in spans if n == name)
 
     # The last head is the one whose result stands (a misprediction runs
-    # another head): what runs before it is the head phase, the steps after
-    # it the finish; on the filter route the filter steps split the finish
-    # into the prefix's, the filter and the survivors'.
-    head = max(i for i, (name, _) in enumerate(marks) if name in _RANK_HEADS)
-    steps = [{"step": name, "s": t - prev} for (name, t), (_, prev) in
-             zip(marks[head + 1:], marks[head:])]
-    out = {"levels": levels, "route": rank_route(family, routes), "family": family,
-           "first_ranks_s": t1 - t0, "stage_s": t2 - t1,
-           "host_levels_s": took(*_RANK_HOST),
+    # another head): what runs before it is the head phase, the spans after
+    # it the finish; on the filter route the filter splits the finish into
+    # the prefix's, the filter and the survivors'.
+    head_end = max(end for name, _, end, _ in spans if name == "solver.rank.head")
+    after = [sp for sp in spans if sp[1] >= head_end]
+    solve_args = next(a for name, _, _, a in spans if name == "solver.rank.solve")
+    first_ranks = took("solver.prep.first_ranks")
+    stage = took("solver.prep.stage")
+    pinned = took("solver.prep.stage", "pin_s")
+    out = {"levels": levels, "route": solve_args["route"], "family": solve_args["family"],
+           "first_ranks_s": first_ranks, "stage_s": t2 - t0 - first_ranks,
+           "rank_order_s": took("solver.prep.rank_order"),
+           "host_levels_s": took("solver.prep.level1") + took("solver.prep.level2"),
            "stage_split": {
-               "rank_endpoints_s": took("rank_endpoints"),
-               "host_level1_s": took("host_level1"), "host_level2_s": took("host_level2"),
-               "pin_memory_s": took("_pinned"),
-               "copy_issue_s": took("_stage") - took("_pinned"),
-               "copy_wait_s": took("_sync")},
-           "head_s": marks[head][1] - t2, "finish_s": t3 - marks[head][1],
-           "finish_chunks": [c for c in steps if c["step"] in _RANK_CHUNKS],
+               "rank_endpoints_s": took("solver.prep.endpoints"),
+               "host_level1_s": took("solver.prep.level1"),
+               "host_level2_s": took("solver.prep.level2"),
+               "pin_memory_s": pinned, "copy_issue_s": stage - pinned,
+               "copy_wait_s": took("solver.prep.copy_wait")},
+           "head_s": head_end - t2, "finish_s": t3 - head_end,
+           "finish_chunks": [{"step": a["step"], "s": end - start}
+                             for name, start, end, a in after if name == "solver.rank.finish"],
            "harvest_s": t4 - t3, "total_s": t4 - t0}
-    filters = [i for i, c in enumerate(steps) if c["step"] in _RANK_FILTERS]
+    filters = [(start, end, a["steps"]) for name, start, end, a in after
+               if name == "solver.rank.filter"]
     if filters:
-        out["prefix_finish_s"] = sum(c["s"] for c in steps[:filters[0]])
-        out["filter_s"] = sum(c["s"] for c in steps[filters[0]:filters[-1] + 1])
-        out["filter_steps"] = [steps[i]["step"] for i in filters]
+        out["prefix_finish_s"] = filters[0][0] - head_end
+        out["filter_s"] = sum(end - start for start, end, _ in filters)
+        out["filter_steps"] = [step for _, _, steps in filters for step in steps]
         out["survivor_finish_s"] = (out["finish_s"] - out["prefix_finish_s"]
                                     - out["filter_s"])
+    if device.type == "cuda" and out["route"] == "filtered-speculative":
+        # No host read ends the head or the filter: each one's device work
+        # is waited for by the first read of the finish after it.
+        filter_start = filters[0][0]
+        out.update(head_s=None, filter_s=None, finish_s=t3 - t2,
+                   prefix_finish_s=filter_start - t2, survivor_finish_s=t3 - filter_start)
     return out
 
 
@@ -229,17 +187,12 @@ def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
         spans["host_s"] = time.perf_counter() - t
         return out
 
-    saved = rs._stage_endpoints
-    rs._stage_endpoints = stage
-    try:
-        rs._sync(device)
-        t0 = time.perf_counter()
-        head = rs._prep_head(graph, device)
-        t1 = time.perf_counter()
-        rs._sync(device)
-        t2 = time.perf_counter()
-    finally:
-        rs._stage_endpoints = saved
+    rs._sync(device)
+    t0 = time.perf_counter()
+    head = rs._prep_head(graph, device, stage_endpoints=stage)
+    t1 = time.perf_counter()
+    rs._sync(device)
+    t2 = time.perf_counter()
     return ({"host_s": spans["host_s"], "under_copies_s": t1 - t0 - spans["host_s"],
              "copy_wait_s": t2 - t1, "prep_s": t2 - t0}, head[-2:])
 

@@ -479,18 +479,3 @@ def test_profile_phases_read_the_filter_route(monkeypatch, census, route):
     assert split["host_level2_s"] > 0 and split["rank_endpoints_s"] > 0
     assert split["pin_memory_s"] == 0  # no page locking on the CPU
     assert "rank_endpoints" not in tg.__dict__  # unwrapped after
-
-
-@pytest.mark.parametrize("family,calls,route", [
-    ("grid", [], "host-l2"),
-    ("dense", [("solve_rank_speculative", True)], "speculative"),
-    ("dense", [("solve_rank_speculative", False)], "staged after a misprediction"),
-    ("dense", [], "staged"),
-    ("dense", [("solve_rank_filtered_speculative", True)], "filtered-speculative"),
-    ("dense", [("solve_rank_filtered_speculative", False), ("solve_rank_filtered", True)],
-     "filtered after a misprediction"),
-    ("dense", [("solve_rank_filtered", True)], "filtered")])
-def test_rank_route_names(family, calls, route):
-    from distributed_ghs_implementation_tpu_torch.profile_solve import rank_route
-
-    assert rank_route(family, calls) == route

@@ -146,11 +146,31 @@ def _args(args, port: bool):
     return out
 
 
+#: Events only the port emits: the rank route's prep steps and solve
+#: phases, the staging counter's timeline samples, the harvest and the
+#: API's components count. A port trail leaves them out, and the ``route``
+#: argument of its ``solver.rank.solve``, before it is compared with JAX's.
+PORT_ONLY_EVENTS = (
+    "solver.prep", "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
+    "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.level2",
+    "solver.prep.copy_wait", "solver.stage.h2d_bytes", "solver.rank.head",
+    "solver.rank.finish", "solver.rank.filter", "solver.harvest", "api.components",
+)
+
+
 def event_trail(bus, mark, *, port: bool, prefixes=("resilience.", "solver.", "metrics.")):
     """``(phase, name, args)`` of the events since ``mark`` whose names
-    start with ``prefixes``, in order, without their times."""
-    return [(rec[0], rec[1], _args(rec[6], port)) for rec in bus.events_since(mark)
-            if rec[1].startswith(prefixes)]
+    start with ``prefixes``, in order, without their times; on the port's
+    side without :data:`PORT_ONLY_EVENTS`."""
+    trail = []
+    for rec in bus.events_since(mark):
+        if not rec[1].startswith(prefixes) or (port and rec[1] in PORT_ONLY_EVENTS):
+            continue
+        args = _args(rec[6], port)
+        if port and rec[1] == "solver.rank.solve":
+            args.pop("route", None)
+        trail.append((rec[0], rec[1], args))
+    return trail
 
 
 def incident_trail(log):
