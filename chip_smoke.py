@@ -338,6 +338,25 @@ def _in_turns(timer, kern, library, iters: int = 10) -> dict:
             "library_ms": t["b_ms"], "library_ms_spread": t["b_spread_ms"]}
 
 
+def _skewed_rank_endpoints(torch, dev, scale: int, m_pad: int, m: int):
+    """Rank endpoints shaped like a Graph500 graph's, made on the card: each
+    endpoint's id bits set with probability 0.24 (the initiator's B + D and
+    C + D), the ids then permuted as Graph500 permutes its labels, so a few
+    hubs hold most ranks; ranks past ``m`` are pads (``ra == rb == 0``).
+    Returns ``(ra, rb, m, n_pad)`` with ``n_pad = 2**scale``."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    perm = torch.randperm(1 << scale, generator=gen, device=dev).to(torch.int32)
+    ends = []
+    for _ in range(2):
+        ids = torch.zeros(m_pad, dtype=torch.int32, device=dev)
+        for bit in range(scale):
+            ids |= (torch.rand(m_pad, generator=gen, device=dev) < 0.24).to(torch.int32) << bit
+        ids = perm[ids]
+        ids[m:] = 0
+        ends.append(ids)
+    return ends[0], ends[1], m, 1 << scale
+
+
 def _device_kernels(torch, fn, calls: int, attempts: int = 6) -> list:
     """``(name, us)`` of every device kernel that ``calls`` calls of ``fn``
     ran, by the profiler. The calls are warmed outside the session and sit
@@ -3459,7 +3478,7 @@ def main() -> int:
     t_rank = time.perf_counter()
     rank_solves, rank_k1_inputs = _rank_path(
         torch, kernels, rank_solver, boruvka, minimum_spanning_forest, deck, graphs, check)
-    rank_counts = read_counts("rank", ("hook_compress",))
+    rank_counts = read_counts("rank", ("hook_compress", "first_rank"))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
 
@@ -3702,12 +3721,28 @@ def main() -> int:
         view = gidx[offset:offset + 1001]
         err["gather"] = max(err["gather"], _max_abs_err(
             (kernels.gather(gtable, view),), (kernels.gather_torch(gtable, view),)))
+    # K6 at the filter route's shape on the benchmark's graphs (2^27 ranks,
+    # 2^23 vertices, RMAT's hubs), its pad ranks left out, and on RMAT-21's
+    # rank endpoints from offsets 0 and 1 (no 16-byte loads at 1).
+    fr_ra, fr_rb, fr_m, fr_n = _skewed_rank_endpoints(torch, dev, 23, 1 << 27, (1 << 27) - 4093)
+    err["first_rank"] = _max_abs_err((kernels.first_rank(fr_ra, fr_rb, fr_m, fr_n),),
+                                     (kernels.first_rank_torch(fr_ra, fr_rb, fr_m, fr_n),))
+    g21 = graphs["rmat21"]
+    ra21, rb21 = (put(a) for a in g21.rank_endpoints(pad_to=boruvka._bucket_size(g21.num_edges)))
+    n21 = boruvka._bucket_size(g21.num_nodes)
+    for offset in (0, 1):
+        a21, b21, m21 = ra21[offset:], rb21[offset:], g21.num_edges - offset
+        err["first_rank"] = max(err["first_rank"], _max_abs_err(
+            (kernels.first_rank(a21, b21, m21, n21),),
+            (kernels.first_rank_torch(a21, b21, m21, n21),)))
+    del ra21, rb21, a21, b21
     if any(err.values()):
         raise AssertionError(f"kernel and plain version disagree: {err}")
     print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 rounds "
           f"(forms, jumps and early exits as expected), 2 K4 blocks, {len(buckets)} RMAT-18 + "
           f"{2 * len(ell_cases)} random K3 buckets and 6 K3 levels, {len(k5_sizes)} K5 sizes "
-          f"and 3 K5 views at offsets 1-3")
+          f"and 3 K5 views at offsets 1-3, K6 at m={fr_m} n={fr_n} and on RMAT-21 from "
+          f"offsets 0-1")
 
     # The K4 wrapper's host time, split into the steps of the launch path.
     idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
@@ -3934,7 +3969,17 @@ def main() -> int:
          lambda: kernels.gather_torch(gtable, g24),
          lambda: torch.index_select(gtable, 0, g24),
          8 * g24.numel() + 4 * gtable.numel(), "table=2^20 idx=2^24"),
+        ("first_rank", "none: the JAX package's Graph.first_ranks, a host pass",
+         lambda: kernels.first_rank(fr_ra, fr_rb, fr_m, fr_n),
+         lambda: kernels.first_rank_torch(fr_ra, fr_rb, fr_m, fr_n),
+         lambda: torch.full((fr_n,), kernels.INT32_MAX, dtype=torch.int32,
+                            device=dev).scatter_reduce_(0, fr_idx, fr_val, "amin"),
+         8 * fr_m + 4 * fr_n, f"m={fr_m} of 2^27 ranks, n={fr_n}, RMAT hubs"),
     ]
+    # The library yardstick of K6: scatter_reduce_ "amin" alone, from its
+    # int64 indices made beforehand.
+    fr_idx = torch.cat([fr_ra[:fr_m], fr_rb[:fr_m]]).long()
+    fr_val = torch.arange(fr_m, dtype=torch.int32, device=dev).repeat(2)
     out = []
     for name, replaces, kern, plain, library, nbytes, shape in rows:
         rec = {
@@ -3959,7 +4004,7 @@ def main() -> int:
             "shape": shape,
         }
         if library:
-            iters = 100 if name == "probe" else 10
+            iters = {"probe": 100, "first_rank": 3}.get(name, 10)
             rec.update(_in_turns(cuda_time_in_turns_ms, kern, library, iters), turn_calls=iters)
         else:
             rec.update(ms=cuda_time_ms(kern), library_ms=None)
@@ -4042,6 +4087,7 @@ def main() -> int:
               f"(spread {rec['library_ms_spread']:.4f}), bound {rec['bound_ms']:.4f} ms, "
               f"L2 sectors {rec['l2_sector_tb_per_s']:.3f} TB/s")
     k5["at_2^26"] = at26
+    del fr_idx, fr_val
 
     # -- 4. result ----------------------------------------------------------
     print(json.dumps({"kernels": out}))

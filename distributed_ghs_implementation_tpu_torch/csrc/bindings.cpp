@@ -25,6 +25,8 @@ int ghs_ell_level(int device, const void* fragment, void* out, const void* desc,
                   long long tiles, int row_indexed, void* stream);
 int ghs_gather(int device, const void* table, const void* idx, void* out, long long count,
                void* stream);
+int ghs_first_rank(int device, const void* ra, const void* rb, void* vmin, long long m,
+                   void* stream);
 const char* ghs_error_string(int code);
 }
 
@@ -88,6 +90,12 @@ PyObject* gather(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   return PyLong_FromLong(ghs_gather((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].i, a[5].p));
 }
 
+PyObject* first_rank(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  Arg a[6];
+  if (!parse("first_rank", "ipppip", args, nargs, a)) return nullptr;
+  return PyLong_FromLong(ghs_first_rank((int)a[0].i, a[1].p, a[2].p, a[3].p, a[4].i, a[5].p));
+}
+
 PyObject* error_string(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   Arg a[1];
   if (!parse("error_string", "i", args, nargs, a)) return nullptr;
@@ -98,7 +106,8 @@ PyObject* error_string(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 
 PyMethodDef kMethods[] = {
     GHS_METHOD(gather_key), GHS_METHOD(hook_compress), GHS_METHOD(probe),
-    GHS_METHOD(ell_level), GHS_METHOD(gather), GHS_METHOD(error_string),
+    GHS_METHOD(ell_level), GHS_METHOD(gather), GHS_METHOD(first_rank),
+    GHS_METHOD(error_string),
     {nullptr, nullptr, 0, nullptr},
 };
 

@@ -5,14 +5,15 @@ Port of the JAX package's ``models/rank_solver.py``: the staged,
 speculative and host-L2 routes, and for dense graphs at ``_FILTER_MIN_RANKS``
 padded ranks and above the filter-Kruskal route.
 
-* **Level 1 runs on the host.** At the identity partition each vertex's
-  minimum outgoing edge is its minimum-rank incident edge
-  (``Graph.first_ranks``), and :func:`host_level1` hooks and compresses on
-  the host while the rank endpoints are copied to the card. Grid and sparse
-  graphs run level 2 on the host as well (:func:`host_level2`), and so do
-  dense graphs on the filter route, over the filter's prefix. The rank
-  order, the endpoints, the first ranks and level 2's first cross ranks run
-  in the native host library (``graphs/native.py``).
+* **Levels 1 and 2 before the solve.** At the identity partition each
+  vertex's minimum outgoing edge is its minimum-rank incident edge (its
+  first rank). Every prep copies the rank endpoints to the card and runs
+  the first ranks there (K6, ``kernels.first_rank``), then level 1 and,
+  for grid and sparse graphs and over the filter's prefix, level 2
+  through K1. The rank order and the endpoints run in the native host
+  library (``graphs/native.py``). :func:`host_level1` and
+  :func:`host_level2` are the same levels on the host, for the lanes and
+  the sharded solver.
 * **Rank space.** The state of undirected rank ``r`` is its two current
   fragment endpoints ``(fa[r], fb[r])``; the rank (or, after a compaction,
   the slot index) is the tie-break order, so weights never reach the card.
@@ -33,6 +34,7 @@ int32; the mask is uint8 (0/1).
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import time
 from typing import Tuple
@@ -42,7 +44,7 @@ import torch
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs import native as native_lib
-from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph, first_ranks_of
+from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
 from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     _COMPACT_MIN_SLOTS,
     _bucket_size,
@@ -52,6 +54,7 @@ from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     harvest,
 )
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+from distributed_ghs_implementation_tpu_torch.ops import kernels
 from distributed_ghs_implementation_tpu_torch.ops.segment_ops import INT32_MAX, segment_min
 from distributed_ghs_implementation_tpu_torch.ops.union_find import hook_and_compress
 
@@ -520,53 +523,73 @@ def _stage_endpoints_wire24(graph: Graph, m_pad: int, device: torch.device):
 _stage_endpoints = _stage_endpoints_int32
 
 
-def _prep_head(graph: Graph, device: torch.device, stage_endpoints=None):
-    """The shared head of the preps: the rank order (the graph's, filled
-    here if it has none), the rank endpoints, their copies issued first,
-    then ``vmin0`` (the first ranks, from these endpoints unless the graph
-    has them) and the level-1 partition computed on the host under the
-    copies. ``stage_endpoints`` replaces :data:`_stage_endpoints`. Returns
-    ``(m, m_pad, ra, rb, vmin0, parent1, sa, sb)``: host arrays and the
-    staged (in-flight) endpoints. Each step is a ``solver.prep.*`` span."""
-    n = graph.num_nodes
-    m = graph.num_edges
-    n_pad = _bucket_size(n)
-    m_pad = _bucket_size(m)
+@contextlib.contextmanager
+def _device_step(name: str, device: torch.device):
+    """A prep step that runs on the device: its ``solver.prep.*`` span
+    (``on="device"``) closes once the device has finished the step and
+    everything queued before it, so that its time is the device's."""
+    with _prep_step(name, on="device"):
+        yield
+        _sync(device)
+
+
+def _device_level2(parent1, ra, rb, prefix: int, m_pad: int):
+    """:func:`host_level2` over ranks ``[0, prefix)`` on the device, and
+    its ranks padded as :func:`_pad_l2_ranks` pads them: ``(parent12,
+    l2_ranks)``, element-equal to the host's. One host read: the count of
+    the level-2 ranks."""
+    if prefix:
+        parent12, _fa, _fb, has2, safe2, _count = _prefix_level2_core(
+            parent1, parent1[ra[:prefix]], parent1[rb[:prefix]])
+        l2r = torch.unique(safe2[has2])  # sorted; a mutual pair's two hooks share one rank
+    else:  # no rank to hook on: level 1's partition stands
+        parent12, l2r = parent1.clone(), parent1[:0]
+    l2_ranks = torch.full((_bucket_size(max(l2r.numel(), 1024)),), m_pad, dtype=torch.int32,
+                          device=ra.device)
+    l2_ranks[: l2r.numel()] = l2r
+    return parent12, l2_ranks
+
+
+def _prep_head(graph: Graph, device: torch.device, l2_prefix=None, stage_endpoints=None):
+    """The head every prep runs: the rank order (the graph's, filled here
+    if it has none), the rank endpoints and their copies to ``device``,
+    then on the device from those copies the first ranks (K6), the level-1
+    partition and, given ``l2_prefix``, level 2 over ranks ``[0,
+    l2_prefix)``, each a :func:`_device_step` (``solver.prep.first_ranks``,
+    ``.level1``, ``.level2``), equal element for element to the host's
+    :func:`host_level1` and :func:`host_level2`. ``stage_endpoints``
+    replaces :data:`_stage_endpoints`. Returns ``(m_pad, vmin0, ra, rb,
+    parent1, parent12, l2_ranks)`` on ``device``, the last two ``None``
+    without ``l2_prefix``. The graph's ``first_ranks`` is left unfilled."""
+    n_pad = _bucket_size(graph.num_nodes)
+    m_pad = _bucket_size(graph.num_edges)
     check_rank_envelope(n_pad, m_pad)
     with _prep_step("solver.prep.rank_order"):
         graph._rank_order  # noqa: B018 -- fills the cached property
-    ra, rb, sa, sb = (stage_endpoints or _stage_endpoints)(graph, m_pad, device)
-    # --- everything below overlaps the endpoint copies ---
-    with _prep_step("solver.prep.first_ranks"):
-        if "first_ranks" not in graph.__dict__:  # fill the cached property
-            graph.__dict__["first_ranks"] = first_ranks_of(n, ra[:m], rb[:m])
-        vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
-        vmin0[:n] = graph.first_ranks
-    with _prep_step("solver.prep.level1"):
-        parent1 = host_level1(vmin0, ra, rb)
-    return m, m_pad, ra, rb, vmin0, parent1, sa, sb
-
-
-def _prep_level2(parent1, ra, rb, m: int, m_pad: int):
-    """The preps' host level 2 over ranks ``[0, m)`` (``solver.prep.level2``):
-    ``(parent12, l2_ranks)``, the ranks padded for staging."""
-    with _prep_step("solver.prep.level2"):
-        parent12, l2r = host_level2(parent1, ra, rb, m)
-        return parent12, _pad_l2_ranks(l2r, m_pad)
+    _, _, ra, rb = (stage_endpoints or _stage_endpoints)(graph, m_pad, device)
+    with _device_step("solver.prep.first_ranks", device):
+        vmin0 = kernels.first_rank(ra, rb, graph.num_edges, n_pad)
+    with _device_step("solver.prep.level1", device):
+        parent1 = _device_level1(vmin0, ra, rb)
+    parent12 = l2_ranks = None
+    if l2_prefix is not None:
+        with _device_step("solver.prep.level2", device):
+            parent12, l2_ranks = _device_level2(parent1, ra, rb, l2_prefix, m_pad)
+    return m_pad, vmin0, ra, rb, parent1, parent12, l2_ranks
 
 
 def prepare_rank_arrays_full(graph: Graph, *, device=None):
-    """Host passes and staging: ``(vmin0, ra, rb, parent1)`` int32 tensors
-    on ``device`` (``None`` = CUDA), padded to ``_bucket_size`` steps, with
-    the level-1 partition from the host. Returns once the copies are done,
-    so a caller's prep clock includes them. Cached on the graph per
-    device."""
+    """The rank endpoints staged and the first ranks and level 1 computed
+    from them (:func:`_prep_head`): ``(vmin0, ra, rb, parent1)`` int32
+    tensors on ``device`` (``None`` = CUDA), padded to ``_bucket_size``
+    steps. Returns once the copies are done, so a caller's prep clock
+    includes them. Cached on the graph per device."""
     device = resolve_device(device)
     cached = _cache_get(graph, "full", device)
     if cached is not None:
         return cached
-    _, m_pad, _, _, vmin0, parent1, sa, sb = _prep_head(graph, device)
-    staged = (_stage(vmin0, device), sa, sb, _stage(parent1, device))
+    m_pad, vmin0, ra, rb, parent1, _, _ = _prep_head(graph, device)
+    staged = (vmin0, ra, rb, parent1)
     _wait_copies(device)
     _cache_put(graph, "full", device, staged, m_pad)
     return staged
@@ -578,18 +601,16 @@ def prepare_rank_arrays(graph: Graph, *, device=None):
 
 
 def prepare_rank_arrays_l2(graph: Graph, *, device=None):
-    """:func:`prepare_rank_arrays_full` with level 2 on the host as well
-    (the grid and sparse families): ``(vmin0, ra, rb, parent12, l2_ranks)``
-    on ``device``. ``l2_ranks`` is padded with ``m_pad``, which the head
-    drops, so an empty level 2 stays right."""
+    """:func:`prepare_rank_arrays_full` with level 2 over every rank as
+    well (the grid and sparse families): ``(vmin0, ra, rb, parent12,
+    l2_ranks)`` on ``device``. ``l2_ranks`` is padded with ``m_pad``, which
+    the head drops, so an empty level 2 stays right."""
     device = resolve_device(device)
     cached = _cache_get(graph, "l2", device)
     if cached is not None:
         return cached
-    m, m_pad, ra, rb, vmin0, parent1, sa, sb = _prep_head(graph, device)
-    parent12, l2_ranks = _prep_level2(parent1, ra, rb, m, m_pad)
-    staged = (_stage(vmin0, device), sa, sb, _stage(parent12, device),
-              _stage(l2_ranks, device))
+    m_pad, vmin0, ra, rb, _, parent12, l2_ranks = _prep_head(graph, device, graph.num_edges)
+    staged = (vmin0, ra, rb, parent12, l2_ranks)
     _wait_copies(device)
     _cache_put(graph, "l2", device, staged, m_pad)
     return staged
@@ -597,14 +618,14 @@ def prepare_rank_arrays_l2(graph: Graph, *, device=None):
 
 def prepare_rank_arrays_filtered(graph: Graph, *, device=None):
     """The filter route's staging: ``(vmin0, ra, rb, parent1, parent12,
-    l2_ranks, prefix)``, with the host level 2 over the prefix the
-    consuming solve runs. Under the census size that is the speculative
-    program's (mult-2) prefix, and ``parent1`` is staged too, for the
-    fallback after a misprediction; from the census size up it is
-    :func:`_prefix_plan`'s, and ``parent1`` is ``None`` (the level-2 head
-    never reads it). Where the split is degenerate (``2 * prefix > m_pad``)
-    or the graph is under the filter width, no solve reads a level 2: the
-    full staging, with ``parent12`` and ``l2_ranks`` ``None``."""
+    l2_ranks, prefix)``, with level 2 over the prefix the consuming solve
+    runs. Under the census size that is the speculative program's (mult-2)
+    prefix, and ``parent1`` is returned too, for the fallback after a
+    misprediction; from the census size up it is :func:`_prefix_plan`'s,
+    and ``parent1`` is ``None`` (the level-2 head never reads it). Where the
+    split is degenerate (``2 * prefix > m_pad``) or the graph is under the
+    filter width, no solve reads a level 2: the full staging, with
+    ``parent12`` and ``l2_ranks`` ``None``."""
     device = resolve_device(device)
     cached = _cache_get(graph, "filtered", device)
     if cached is not None:
@@ -617,10 +638,8 @@ def prepare_rank_arrays_filtered(graph: Graph, *, device=None):
     # The speculative prefix is the larger: its split degenerates first.
     if 2 * l2_prefix > m_pad or not use_filtered_path("dense", m_pad):
         return prepare_rank_arrays_full(graph, device=device) + (None, None, prefix)
-    _, m_pad, ra, rb, vmin0, parent1, sa, sb = _prep_head(graph, device)
-    parent12, l2_ranks = _prep_level2(parent1, ra, rb, l2_prefix, m_pad)
-    staged = (_stage(vmin0, device), sa, sb, _stage(parent1, device) if speculative else None,
-              _stage(parent12, device), _stage(l2_ranks, device), l2_prefix)
+    _, vmin0, ra, rb, parent1, parent12, l2_ranks = _prep_head(graph, device, l2_prefix)
+    staged = (vmin0, ra, rb, parent1 if speculative else None, parent12, l2_ranks, l2_prefix)
     _wait_copies(device)
     _cache_put(graph, "filtered", device, staged, m_pad)
     return staged

@@ -467,9 +467,49 @@ def gather(table, idx):
 
 gather.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K6 first_rank (csrc/first_rank.cu)
+# ---------------------------------------------------------------------------
+def first_rank_torch(ra, rb, m: int, n_pad: int):
+    """``vmin[x]``, the least rank ``r < m`` with ``ra[r] == x`` or ``rb[r]
+    == x``, over ``n_pad`` vertices; INT32_MAX where there is none. The
+    segment minimum of the ranks over both endpoints, exact."""
+    r = torch.arange(m, dtype=torch.int32, device=ra.device)
+    out = torch.full((n_pad,), INT32_MAX, dtype=torch.int32, device=ra.device)
+    return out.scatter_reduce_(0, torch.cat([ra[:m], rb[:m]]).long(), torch.cat([r, r]), "amin")
+
+
+def first_rank(ra, rb, m: int, n_pad: int):
+    """K6: each vertex's least incident rank over the first ``m`` ranks,
+    the rank route's level-1 input. Replaces no TPU kernel: the JAX
+    package runs this pass on the host (``Graph.first_ranks``). Pad ranks
+    ``r >= m`` are never read. Vertex ids must lie in ``[0, n_pad)``; the
+    kernel does not check them."""
+    if ra.is_cpu:
+        return first_rank_torch(ra, rb, m, n_pad)
+    device = _validate("first_rank", {"ra": ra, "rb": rb})
+    if ra.dim() != 1 or rb.shape != ra.shape or not 0 <= m <= ra.numel() or n_pad < 0:
+        raise ValueError(
+            f"first_rank: want ra/rb[m_pad], 0 <= m <= m_pad and n_pad >= 0, got "
+            f"{tuple(ra.shape)}, {tuple(rb.shape)}, m={m}, n_pad={n_pad}"
+        )
+    vmin = torch.full((n_pad,), INT32_MAX, dtype=torch.int32, device=ra.device)
+    if m and n_pad:
+        lib = _lib()
+        code = lib.first_rank(device, ra.data_ptr(), rb.data_ptr(), vmin.data_ptr(), m,
+                              _current_stream(device))
+        if code:
+            _fail("first_rank", lib, code)
+        first_rank.launches += 1
+    return vmin
+
+
+first_rank.launches = 0
+
 #: The wrapper that counts each kernel's launches, for code that reads or
 #: resets the counts.
-WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather)
+WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather, first_rank)
 
 
 # ---------------------------------------------------------------------------

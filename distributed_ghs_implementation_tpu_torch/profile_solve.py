@@ -21,12 +21,14 @@ The phases of the flat and ELL strategies: the host arrays
 (``rank_arrays``, or ``ell_buckets`` for ``ell``), host-to-device copy,
 level loop, harvest of the edge ids. Those of ``rank`` are read off the
 solver's own spans on the event bus as the route ``solve_graph`` takes
-runs, cold (the graph's rank order dropped first): ``first_ranks`` (the
-first-ranks pass alone, over the gathered endpoints), the rest of the prep
-(``stage_s``: the rank order, ``rank_order_s``; the endpoint gather; the
-level-1 and, on the host-L2 and filter routes, level-2 host passes under
-the copies; split into the rank endpoints, the host passes,
-``pin_memory()``, issuing the copies and waiting for them), the head
+runs, cold (the graph's rank order dropped first): ``first_ranks`` (K6
+on the card over the staged endpoints, with the wait for their copies),
+the rest of the prep (``stage_s``: the rank order, ``rank_order_s``; the
+endpoint gather; level 1 and, on the host-L2 and filter routes, level 2
+on the card; split into the rank endpoints, the levels (keys
+``host_level1_s`` and ``host_level2_s``, named when the levels ran on
+the host), ``pin_memory()``, issuing the copies and waiting for them),
+the head
 (levels 1-2, the level-3 entry of the host-L2 route, or the filter
 route's prefix head; after a misprediction, the rejected speculation and
 the head that answered), each finish chunk, and on the filter route the
@@ -45,10 +47,10 @@ way of staging the rank endpoints, in turns (A B, then B A,
 gather, two pinned int32 copies) and the 24-bit wire (``wire24``: the
 native pass that also packs the three low bytes of each endpoint, one
 pinned uint8 copy, the decode on the card). A turn reports the staging's
-host seconds (up to the copies being issued), the host passes under the
-copies, the wait for the copies, and the whole prep; the JSON line has each
-way's turns, medians and spreads, and whether the two staged pairs are
-equal.
+host seconds (up to the copies being issued), the first ranks and level 1
+on the card, which wait for the copies (``levels_s``), any wait left after
+them, and the whole prep; the JSON line has each way's turns, medians and
+spreads, and whether the two staged pairs are equal.
 """
 
 from __future__ import annotations
@@ -100,14 +102,14 @@ def _rank_phases(graph, device) -> dict:
     steps, the solve's ``route`` and its head, finish chunks and filter,
     each of which ends on a host read of its counts but on the card's
     ``filtered-speculative`` route (see the module's docstring). The
-    graph's rank order, first ranks and staged arrays are dropped first,
-    so the prep runs as in a cold solve."""
+    graph's rank order and staged arrays are dropped first, so the prep
+    runs as in a cold solve."""
     def clock():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    for key in ("_rank_order", "first_ranks", "_rank_stage_cache"):
+    for key in ("_rank_order", "_rank_stage_cache"):
         graph.__dict__.pop(key, None)
     enabled = BUS.enabled
     BUS.enable()
@@ -176,9 +178,9 @@ STAGING_TURNS = 5
 
 
 def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
-    """One prep head (``_prep_head``) with the endpoints staged ``how``,
-    from a graph that keeps only its rank order: ``(times, (sa, sb))``."""
-    graph.__dict__.pop("first_ranks", None)
+    """One prep head (``_prep_head``: the endpoints staged ``how``, then
+    the first ranks and level 1 on the device) from a graph that keeps
+    only its rank order: ``(times, (ra, rb))``."""
     spans = {}
 
     def stage(*args):
@@ -193,8 +195,8 @@ def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
     t1 = time.perf_counter()
     rs._sync(device)
     t2 = time.perf_counter()
-    return ({"host_s": spans["host_s"], "under_copies_s": t1 - t0 - spans["host_s"],
-             "copy_wait_s": t2 - t1, "prep_s": t2 - t0}, head[-2:])
+    return ({"host_s": spans["host_s"], "levels_s": t1 - t0 - spans["host_s"],
+             "copy_wait_s": t2 - t1, "prep_s": t2 - t0}, head[2:4])
 
 
 def _summary(values) -> dict:

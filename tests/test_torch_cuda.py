@@ -246,6 +246,10 @@ def _wrapper_inputs(name, device):
         plan = kernels.ell_plan([tuple(_t(a).to(device) for a in b) for b in buckets])
         frag = _t(fragment).to(device)
         return [frag, plan, torch.full_like(frag, kernels.INT32_MAX)]
+    elif name == "first_rank":
+        rng = np.random.default_rng(3)
+        ra, rb = rng.integers(0, 5000, (2, 1 << 16), dtype=np.int32)
+        return [_t(ra).to(device), _t(rb).to(device), (1 << 16) - 5, 5000]
     else:
         rng = np.random.default_rng(3)
         arrays = (rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32),
@@ -290,15 +294,17 @@ def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
     CUDA tensor, where the plain version would have taken them."""
     for w in kernels.WRAPPERS:
         args = _wrapper_inputs(w.__name__, cuda)
-        last = args[-1]
-        wide = args[:-1] + [last.to(torch.int64)]
+        # The last tensor argument (first_rank ends with two sizes).
+        k = max(i for i, a in enumerate(args) if isinstance(a, torch.Tensor))
+        last = args[k]
+        wide = args[:k] + [last.to(torch.int64)] + args[k + 1:]
         with pytest.raises(TypeError, match="int32"):
             w(*wide)
         strided = torch.empty(last.shape[:-1] + (2 * last.shape[-1],), dtype=last.dtype,
                               device=cuda)[..., ::2]
         strided.copy_(last)
         with pytest.raises(ValueError, match="contiguous"):
-            w(*args[:-1], strided)
+            w(*args[:k], strided, *args[k + 1:])
     wide = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError, match="int32"):
         kernels.gather_key(wide, wide, wide, wide)
@@ -445,6 +451,55 @@ def test_rank_stage_cache_is_not_reused_across_devices_on_card(cuda):
                        boruvka.solve_graph(g, strategy="rank", device=cuda))
 
 
+def _first_rank_cases():
+    """``(name, ra, rb, m, n_pad)``: RMAT-18's rank endpoints (hubs of
+    thousands of ranks), padded; and a graph with isolated vertices, vertex
+    0 among them, whose pad ranks (``ra == rb == 0``) must stay out."""
+    g = generators.rmat_graph(18, 16, seed=1)
+    ra, rb = g.rank_endpoints(pad_to=boruvka._bucket_size(g.num_edges))
+    cases = [("rmat18", ra, rb, g.num_edges, boruvka._bucket_size(g.num_nodes))]
+    rng = np.random.default_rng(9)
+    a, b = rng.integers(1, 40_000, (2, 300_001))
+    h = edgelist.Graph.from_arrays(50_000, a, b, rng.integers(1, 255, a.size))
+    ra, rb = h.rank_endpoints(pad_to=boruvka._bucket_size(h.num_edges))
+    return cases + [("isolated", ra, rb, h.num_edges, boruvka._bucket_size(h.num_nodes))]
+
+
+@pytest.mark.gpu
+def test_first_rank_kernel_matches_plain_on_card(cuda):
+    """K6 against its torch form, element for element: on RMAT-18 (hubs)
+    and on a graph with isolated vertices and pad ranks; from the start and
+    from an offset of one element (no 16-byte loads there); at ``m`` of
+    every remainder mod 4."""
+    for name, ra, rb, m, n_pad in _first_rank_cases():
+        for offset in (0, 1):
+            a, b = _t(ra).to(cuda)[offset:], _t(rb).to(cuda)[offset:]
+            for mm in (m - offset, m - offset - 1, m - offset - 2, m - offset - 3, 1, 0):
+                launches = kernels.first_rank.launches
+                got = kernels.first_rank(a, b, mm, n_pad)
+                torch.cuda.synchronize()
+                assert kernels.first_rank.launches == launches + (mm > 0), name
+                assert torch.equal(got, kernels.first_rank_torch(a, b, mm, n_pad)), (name, mm)
+        if name == "isolated":
+            got = kernels.first_rank(_t(ra).to(cuda), _t(rb).to(cuda), m, n_pad)
+            assert int(got[0]) == kernels.INT32_MAX and ra.shape[0] > m
+
+
+@pytest.mark.gpu
+def test_filtered_prep_on_card_equals_cpu(cuda, monkeypatch):
+    """The filtered prep's device levels (K6, K1) on the card give the CPU
+    prep's arrays, in both regimes."""
+    monkeypatch.setattr(rank_solver, "_FILTER_MIN_RANKS", 1024)
+    for census in (1 << 21, 64):
+        monkeypatch.setattr(rank_solver, "_CENSUS_MIN_SPACE", census)
+        g = generators.rmat_graph(14, 16, seed=2)
+        on_card = rank_solver.prepare_rank_arrays_filtered(g, device=cuda)
+        on_cpu = rank_solver.prepare_rank_arrays_filtered(g, device="cpu")
+        assert on_card[6] == on_cpu[6] and (on_card[3] is None) == (census == 64)
+        for a, b in zip(on_card[:6], on_cpu[:6]):
+            assert (a is None and b is None) or torch.equal(a.cpu(), b)
+
+
 @pytest.fixture(scope="module")
 def rmat19():
     """RMAT-19 ef 16 seed 1 (native stream): 7.7 M edges, 2^23 padded
@@ -489,12 +544,12 @@ _FILTER_CALLS = ("solve_rank_filtered_speculative", "solve_rank_filtered",
 
 @pytest.mark.gpu
 def test_filter_route_on_card_equals_oracle(cuda, rmat19, monkeypatch):
-    """``auto`` on RMAT-19: the speculative filtered program from the host
-    level 2; K1 launches."""
+    """``auto`` on RMAT-19: the speculative filtered program from the
+    prep's level 2; K6 launches once (the prep's first ranks) and K1."""
     g, oracle = rmat19
-    k1 = kernels.hook_compress.launches
+    k1, k6 = kernels.hook_compress.launches, kernels.first_rank.launches
     got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
-    assert kernels.hook_compress.launches > k1
+    assert kernels.hook_compress.launches > k1 and kernels.first_rank.launches == k6 + 1
     assert log[-1] == ("solve_rank_filtered_speculative", True)
     np.testing.assert_array_equal(got[0], oracle)
 

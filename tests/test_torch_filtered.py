@@ -7,8 +7,10 @@ mask, fragment labels and level count: the speculative program (accepted
 from the host level 2 and from the device head, and mispredicted), the
 filtered solve (host level 2, device head, the fused filter overflowing to
 the two-step one, the chunked filter), the degenerate split, the resume's
-wide branch. The JAX package's native library stays out: its ``get_lib`` is
-patched to report none, so its host passes take their NumPy branches.
+wide branch. The filtered prep's first ranks and levels 1-2, which run on
+the device from the staged endpoints, must also equal the host passes. The
+JAX package's native library stays out: its ``get_lib`` is patched to
+report none, so its host passes take their NumPy branches.
 """
 
 import numpy as np
@@ -218,6 +220,127 @@ def test_prepare_rank_arrays_filtered_matches_jax(monkeypatch, census, name):
     assert (got[3] is None) == (want[3] is None) == (census == SMALL_CENSUS)
     _same(tuple(t for t in got[:6] if t is not None), tuple(w for w in want[:6] if w is not None))
     assert trs.prepare_rank_arrays_filtered(tg, device=CPU) is got  # cached
+
+
+def _isolated_zero(edge_mod, gen):
+    """3,000 random edges over vertices 1-299: vertex 0 has no edge, and
+    the 3,072 padded ranks hold 72 pad ranks (``ra == rb == 0``), which must
+    not reach vertex 0's first rank."""
+    rng = np.random.default_rng(7)
+    a, b = rng.integers(1, 300, (2, 3_200))
+    g = edge_mod.Graph.from_arrays(300, a, b, rng.integers(1, 1_000, a.size))
+    return edge_mod.Graph.from_arrays(300, g.u[:3_000], g.v[:3_000], g.w[:3_000])
+
+
+def _edgeless_inside(edge_mod, gen):
+    """RMAT-10 with every edge of vertices 137 and 1,023 (the last) cut:
+    two vertices below ``n`` with no edge."""
+    g = gen.rmat_graph(10, 16, seed=3)
+    keep = ~np.isin(g.u, (137, 1023)) & ~np.isin(g.v, (137, 1023))
+    return edge_mod.Graph.from_arrays(1024, g.u[keep], g.v[keep], g.w[keep])
+
+
+def _one_hub(edge_mod, gen):
+    """Every vertex's lightest edge goes to vertex 0, so level 1 leaves one
+    fragment and level 2 hooks nothing; 2,000 heavier edges among the
+    others."""
+    rng = np.random.default_rng(5)
+    a, b = rng.integers(1, 200, (2, 2_000))
+    u = np.concatenate([np.zeros(199, dtype=np.int64), a])
+    v = np.concatenate([np.arange(1, 200), b])
+    w = np.concatenate([rng.integers(1, 10, 199), rng.integers(100, 1_000, a.size)])
+    return edge_mod.Graph.from_arrays(200, u, v, w)
+
+
+#: Dense graphs at the edges of the device levels' input.
+EDGE_CASES = {"isolated-zero": _isolated_zero, "edgeless-inside": _edgeless_inside,
+              "one-hub": _one_hub}
+
+
+def _host_levels(g, l2_prefix: int):
+    """``(vmin0, parent1, parent12, l2_ranks)`` as the host passes compute
+    them (the native first ranks padded, :func:`host_level1`,
+    :func:`host_level2` with :func:`_pad_l2_ranks`), for the device levels
+    to equal."""
+    vmin0, ra, rb, parent1 = _host(g)
+    parent12, l2r = trs.host_level2(parent1, ra, rb, l2_prefix)
+    return vmin0, parent1, parent12, trs._pad_l2_ranks(l2r, ra.size)
+
+
+@pytest.mark.parametrize("census", [BIG_CENSUS, SMALL_CENSUS])
+@pytest.mark.parametrize("name", list(GRAPHS) + list(EDGE_CASES))
+def test_filtered_prep_device_levels_equal_the_host_passes(monkeypatch, census, name):
+    """The filtered prep's first ranks, level 1 and level 2 (K6 and K1's
+    torch forms here) equal the host passes element for element, in both
+    regimes, and JAX's prep; its solve gives the oracle's forest."""
+    _set(monkeypatch, _CENSUS_MIN_SPACE=census)
+    make = GRAPHS.get(name) or EDGE_CASES[name]
+    tg = make(tedge, tgen)
+    vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = trs.prepare_rank_arrays_filtered(
+        tg, device=CPU)
+    want = _host_levels(tg, l2_prefix)
+    _same((vmin0, parent12, l2_ranks), (want[0], want[2], want[3]))
+    if census == BIG_CENSUS:
+        _same(parent1, want[1])
+    else:
+        assert parent1 is None
+        _same(trs._device_level1(vmin0, ra, rb), want[1])
+    if name == "isolated-zero":
+        assert ra.shape[0] > tg.num_edges and int(vmin0[0]) == INT32_MAX
+    elif name == "edgeless-inside":
+        assert (vmin0[[137, 1023]] == INT32_MAX).all() and tg.num_nodes == 1024
+    elif name == "one-hub":
+        assert (parent12[: tg.num_nodes] == 0).all() and (l2_ranks == ra.shape[0]).all()
+    jg = make(jedge, jgen)
+    jwant = jrs.prepare_rank_arrays_filtered(jg)
+    _same(tuple(t for t in (vmin0, ra, rb, parent1, parent12, l2_ranks) if t is not None),
+          tuple(w for w in jwant[:6] if w is not None))
+    np.testing.assert_array_equal(tapi.minimum_spanning_forest(tg, device=CPU).edge_ids,
+                                  rank_oracle_edge_ids(tg))
+
+
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_first_rank_plain_version_equals_the_host_pass(name):
+    """``kernels.first_rank`` (its torch form on the CPU) against
+    ``first_ranks_of``, NumPy and native, over the first ``m`` ranks; pad
+    ranks past ``m`` and pad vertices stay out."""
+    from distributed_ghs_implementation_tpu_torch.ops import kernels
+
+    g = EDGE_CASES[name](tedge, tgen)
+    n, m = g.num_nodes, g.num_edges
+    ra, rb = g.rank_endpoints(pad_to=tb._bucket_size(m))
+    got = kernels.first_rank(*_t(ra, rb), m, tb._bucket_size(n)).numpy()
+    for native in (True, False):
+        np.testing.assert_array_equal(got[:n], tedge.first_ranks_of(n, ra[:m], rb[:m],
+                                                                    native=native))
+    assert (got[n:] == INT32_MAX).all()
+    assert (kernels.first_rank(*_t(ra, rb), 0, 8).numpy() == INT32_MAX).all()
+
+
+def _edgeless(edge_mod, gen):
+    """Five vertices and no edge: one pad rank, nothing to hook."""
+    none = np.zeros(0, dtype=np.int64)
+    return edge_mod.Graph.from_arrays(5, none, none, none)
+
+
+@pytest.mark.parametrize("route", ["full", "l2"])
+@pytest.mark.parametrize("name", ["rmat10", "isolated-zero", "edgeless-inside", "one-hub",
+                                  "edgeless"])
+def test_full_and_l2_preps_equal_the_host_passes(route, name):
+    """The full and host-L2 preps run the filtered prep's device levels
+    (the host-L2 one its level 2 over every rank): element for element the
+    host passes, and JAX's prep."""
+    make = {**GRAPHS, **EDGE_CASES, "edgeless": _edgeless}[name]
+    tg, jg = make(tedge, tgen), make(jedge, jgen)
+    want = _host_levels(tg, tg.num_edges)
+    if route == "full":
+        got = trs.prepare_rank_arrays_full(tg, device=CPU)
+        _same((got[0], got[3]), want[:2])
+        _same(got, tuple(jrs.prepare_rank_arrays_full(jg)))
+    else:
+        got = trs.prepare_rank_arrays_l2(tg, device=CPU)
+        _same((got[0], got[3], got[4]), (want[0], want[2], want[3]))
+        _same(got, tuple(jrs.prepare_rank_arrays_l2(jg)))
 
 
 def test_prepare_rank_arrays_filtered_under_the_filter_width_matches_jax(monkeypatch):

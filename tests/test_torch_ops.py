@@ -225,6 +225,7 @@ def _meta_args(name):
         "probe": (meta, meta),
         "ell_row_min": (meta, meta, meta.view(2, 4), meta.view(2, 4)),
         "gather": (meta, meta),
+        "first_rank": (meta, meta, 8, 8),
     }[name]
 
 
@@ -413,6 +414,9 @@ int ghs_ell_level(int d, const void* a, void* b, const void* c, long long count,
 int ghs_gather(int d, const void* a, const void* b, void* c, long long n, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 23 * (uint64_t)n + 29 * H(s));
 }
+int ghs_first_rank(int d, const void* a, const void* b, void* c, long long m, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 41 * (uint64_t)m + 29 * H(s));
+}
 static char message[64];
 const char* ghs_error_string(int code) {
   snprintf(message, sizeof message, "stub error %d", code);
@@ -462,6 +466,8 @@ def test_binding_passes_each_launcher_its_arguments(monkeypatch, stub_binding):
             *h(*ptr[:6]), 23 << 18, 31 * 18, 37 * form, 29 * stream)
     for fn in (mod.probe, mod.gather):
         assert fn(2, *ptr[:3], big, 0) == _mix(22, *h(*ptr[:3]), 23 * big)
+    assert mod.first_rank(1, *ptr[:3], big, stream) == _mix(11, *h(*ptr[:3]), 41 * big,
+                                                           29 * stream)
     for row_indexed in (0, 1):
         assert mod.ell_level(0, *ptr[:3], 15, 4203, row_indexed, stream) == _mix(
             *h(*ptr[:3]), 23 * 15, 31 * 4203, 37 * row_indexed, 29 * stream)
@@ -495,7 +501,7 @@ def test_build_without_nvcc_says_so(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = {p.name for p in _build.SOURCES}
-    assert names == {"ell_row_min.cu", "gather.cu", "gather_key.cu", "hook_compress.cu",
-                     "probe.cu"}
+    assert names == {"ell_row_min.cu", "first_rank.cu", "gather.cu", "gather_key.cu",
+                     "hook_compress.cu", "probe.cu"}
     assert _build.library_path().parent.name == _build.cache_key()
     assert _build.library_path().is_relative_to(_build.BUILD_ROOT)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from distributed_ghs_implementation_tpu_torch import api as tapi
+from distributed_ghs_implementation_tpu_torch.graphs import edgelist as tedge
 from distributed_ghs_implementation_tpu_torch.graphs import generators as tgen
 from distributed_ghs_implementation_tpu_torch.models import boruvka as tb
 from distributed_ghs_implementation_tpu_torch.models import rank_solver as trs
@@ -141,13 +142,21 @@ def test_each_route_names_itself_and_orders_its_phases(monkeypatch, route):
                                                       device=CPU)[0])
 
 
-#: graph -> (prep route, how it is reached, the staged arrays after the
-#: endpoints, in order).
+#: graph -> (prep route, how it is reached). Every prep copies the two
+#: rank endpoints alone.
 PREPS = {
-    "grid": ("l2", None, ["vmin0", "parent12", "l2_ranks"]),
-    "rmat": ("full", None, ["vmin0", "parent1"]),
-    "rmat11": ("filtered", _filter_route(1 << 21), ["vmin0", "parent1", "parent12", "l2_ranks"]),
+    "grid": ("l2", None),
+    "rmat": ("full", None),
+    "rmat11": ("filtered", _filter_route(1 << 21)),
 }
+
+#: route -> the fields of its prep's tuple, in order.
+FIELDS = {
+    "l2": ("vmin0", "ra", "rb", "parent12", "l2_ranks"),
+    "full": ("vmin0", "ra", "rb", "parent1"),
+    "filtered": ("vmin0", "ra", "rb", "parent1", "parent12", "l2_ranks", "prefix"),
+}
+LEVEL_STEPS = ("solver.prep.first_ranks", "solver.prep.level1", "solver.prep.level2")
 
 
 @pytest.mark.parametrize("name", list(PREPS))
@@ -156,7 +165,7 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     the prep runs them; they never overlap and lie inside it; each carries
     its CPU seconds; the stage spans' bytes are the staged tensors' and
     the counter's."""
-    route, arm, staged = PREPS[name]
+    route, arm = PREPS[name]
     if arm is not None:
         arm(monkeypatch)
     graph = GRAPHS[name]()
@@ -166,7 +175,7 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     assert _children(spans, "solver.prep") == [
         "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
         "solver.prep.stage", "solver.prep.first_ranks", "solver.prep.level1", *level2,
-        *["solver.prep.stage"] * len(staged), "solver.prep.copy_wait"]
+        "solver.prep.copy_wait"]
     prep = next(sp for sp in spans if sp[0] == "solver.prep")
     assert {k: prep[3][k] for k in ("family", "route", "m_pad")} == {
         "family": trs._pick_family(graph), "route": route,
@@ -177,13 +186,40 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     assert all(sp[3]["cpu_s"] >= 0 for sp in leaves + [prep])
     stages = [sp[3] for sp in leaves if sp[0] == "solver.prep.stage"]
     assert all(a["pin_s"] == 0.0 for a in stages)  # no page locking on the CPU
-    arrays = trs._cache_get(graph, route, torch.device(CPU))
-    tensors = [t for t in arrays if isinstance(t, torch.Tensor)]
-    assert len(tensors) == 2 + len(staged)
+    arrays = dict(zip(FIELDS[route], trs._cache_get(graph, route, torch.device(CPU))))
+    tensors = [arrays["ra"], arrays["rb"]]
+    assert all(isinstance(t, torch.Tensor) for t in tensors)
     assert sum(a["bytes"] for a in stages) == sum(t.nbytes for t in tensors)
     assert BUS.counters()[COUNTER] - before == sum(t.nbytes for t in tensors)
     samples = [rec[6]["value"] for rec in BUS.events() if rec[1] == COUNTER]
     assert samples[-1] == BUS.counters()[COUNTER]
+
+
+@pytest.mark.parametrize("name", list(PREPS))
+def test_prep_levels_run_on_the_device(monkeypatch, name):
+    """Every route's first ranks and levels run on the device (K6 and K1
+    from the staged endpoints): their spans say ``on="device"``, K6's
+    wrapper runs once a fresh prep and not for a cached one, no host pass
+    runs, and the graph's ``first_ranks`` stays unfilled."""
+    route, arm = PREPS[name]
+    if arm is not None:
+        arm(monkeypatch)
+    ran = []
+    for mod, fn in ((tedge, "first_ranks_of"), (trs, "host_level1"), (trs, "host_level2"),
+                    (trs.kernels, "first_rank")):
+        def spy(*a, _fn=getattr(mod, fn), _name=fn, **k):
+            ran.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, fn, spy)
+    steps = []
+    for graph in (GRAPHS[name](), GRAPHS[name]()):
+        for _ in range(2):  # the second prep of a graph is its cached one
+            spans, _ = _solve(graph)
+            steps.append([(n, a.get("on")) for n, _, _, a in spans if n in LEVEL_STEPS])
+        assert "first_ranks" not in graph.__dict__
+    fresh = [(n, "device") for n in (LEVEL_STEPS[:2] if route == "full" else LEVEL_STEPS)]
+    assert steps == [fresh, [], fresh, []]
+    assert ran == ["first_rank", "first_rank"]
 
 
 def test_a_cached_prep_says_so_and_runs_no_step():

@@ -394,5 +394,5 @@ def test_staging_turns_time_both_ways_and_name_the_one_taken(graphs):
     assert trs._stage_endpoints is trs._stage_endpoints_int32
     for how in ("int32", "wire24"):
         assert len(out[how]["turns"]) == 2
-        for key in ("host_s", "under_copies_s", "copy_wait_s", "prep_s"):
+        for key in ("host_s", "levels_s", "copy_wait_s", "prep_s"):
             assert 0 <= out[how][key]["min"] <= out[how][key]["median"] <= out[how][key]["max"]
