@@ -69,8 +69,13 @@ def _iota(size: int, device) -> torch.Tensor:
 
 
 def _ints(*scalars) -> list:
-    """Small device tensors as Python ints: one host sync."""
-    return torch.stack([s.long() for s in scalars]).tolist()
+    """Small device tensors as Python ints: one host sync, counted by the
+    ``solver.rank.host_reads`` counter (its total also sampled on the bus's
+    timeline)."""
+    out = torch.stack([s.long() for s in scalars]).tolist()
+    BUS.count("solver.rank.host_reads")
+    BUS.counter_sample("solver.rank.host_reads", cat="solver")
+    return out
 
 
 #: The ``solver.rank.solve`` span open in this context (None when the bus
@@ -867,7 +872,10 @@ def _finish_to_fixpoint(
     the slot compactions, the shrink chain and the final replay. Returns
     ``(mst, fragment, levels)`` with ``fragment`` in the vertex space. Each
     chunk is a ``solver.rank.finish`` span (``phase``; ``step``, the step
-    that ran its levels), which closes before ``on_chunk`` sees it."""
+    that ran its levels), which closes before ``on_chunk`` sees it; the
+    final replay after a shrink chain is a ``solver.rank.replay`` span
+    (``stages``, the shrinks replayed), which closes once the device has
+    run it."""
     frag_state = fragment  # the vertex partition until the first shrink, then compact
     vertex_fragment = fragment  # frozen at the first shrink, for the replay
     rep = None  # current space -> original root (None: the original space)
@@ -931,7 +939,10 @@ def _finish_to_fixpoint(
 
     if pending is not None:
         stages.append((*pending, frag_state))
-        return mst, _replay_stages(vertex_fragment, stages), lv
+        with BUS.span("solver.rank.replay", cat="solver", stages=len(stages), on="device"):
+            fragment = _replay_stages(vertex_fragment, stages)
+            _sync(fragment.device)
+        return mst, fragment, lv
     return mst, frag_state, lv
 
 

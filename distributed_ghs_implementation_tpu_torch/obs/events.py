@@ -41,8 +41,11 @@ Names this package emits beyond that registry, all from the rank route:
   also sampled on the timeline at each copy).
 * ``solver.rank.solve`` gains ``route``, the route that answered; its phases
   ``solver.rank.head``, ``solver.rank.finish`` (``phase``
-  ``prefix``/``survivors``/``staged``, ``step``) and ``solver.rank.filter``
-  (``steps``).
+  ``prefix``/``survivors``/``staged``, ``step``), ``solver.rank.filter``
+  (``steps``) and ``solver.rank.replay`` (``stages``, ``on="device"``: the
+  vertex relabel after a shrink chain, closed after a device synchronize).
+  The counter ``solver.rank.host_reads`` (one a host read of the solve's
+  small device tensors, its total sampled on the timeline at each read).
 * ``solver.harvest`` (span: ``forest_edges``) and ``api.components`` (span:
   ``components``).
 
