@@ -242,6 +242,8 @@ RMAT20_ORACLE_WEIGHT = 35_737_768
 FILTER_GRAPHS = ("rmat20", "rmat21")
 JAX_OPS = "distributed_ghs_implementation_tpu/ops"
 PORT = "distributed_ghs_implementation_tpu_torch"
+#: The source of a kernel whose wrapper's name is not its file's.
+SOURCE_OF = {"rank_endpoints": "rank_order"}
 
 
 def _fixture_deck(Graph, gen):
@@ -3112,8 +3114,8 @@ def _surface_path(torch, kernels, graphs, oracle, oracle_w, card) -> dict:
        native Kruskal pass (``native``), ``ok``, timed beside SciPy's
        weight of the same graph (on two threads under the rest of the
        phase); SciPy's weight of RMAT-18 equal to its native weight;
-    d. RMAT-20's rank endpoints staged both ways, the int32 copies and the
-       24-bit wire, equal on the card.
+    d. RMAT-20's rank endpoints both ways the prep can get them, equal on
+       the card: the device order (K7 and its gather) and the host order.
     """
     from distributed_ghs_implementation_tpu_torch import (
         minimum_spanning_forest,
@@ -3196,21 +3198,23 @@ def _surface_path(torch, kernels, graphs, oracle, oracle_w, card) -> dict:
                               "weight": v.expected_weight}
             if v.oracle != "native" or not v.ok:
                 raise AssertionError(f"surface: verify_result on {name}: {v}")
-        # d. RMAT-20's endpoints staged both ways.
+        # d. RMAT-20's rank endpoints both ways the prep can get them: the
+        # device order and the host order, each from a graph that holds no
+        # order.
         rs = models.rank_solver
         g20 = graphs["rmat20"]
         m_pad = models.boruvka._bucket_size(g20.num_edges)
         staged = {}
-        for how, stage in (("int32", rs._stage_endpoints_int32),
-                           ("wire24", rs._stage_endpoints_wire24)):
+        for how, endpoints in (("device", rs._device_endpoints), ("host", rs._host_endpoints)):
+            fresh = pgraphs.Graph(g20.num_nodes, g20.u, g20.v, g20.w)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            _, _, sa, sb = stage(g20, m_pad, dev)
+            pair = endpoints(fresh, m_pad, dev)
             issued = time.perf_counter() - t
             torch.cuda.synchronize()
-            staged[how] = ((sa, sb), {"host_s": issued, "total_s": time.perf_counter() - t})
-        if not all(torch.equal(a, b) for a, b in zip(staged["int32"][0], staged["wire24"][0])):
-            raise AssertionError("surface: the int32 and 24-bit stagings of RMAT-20 differ")
+            staged[how] = (pair, {"host_s": issued, "total_s": time.perf_counter() - t})
+        if not all(torch.equal(a, b) for a, b in zip(staged["device"][0], staged["host"][0])):
+            raise AssertionError("surface: RMAT-20's rank endpoints differ between the ways")
         out["staging_rmat20"] = {how: rec for how, (_, rec) in staged.items()}
         for name, f in scipy_f.items():
             weight, seconds = f.result()
@@ -3478,9 +3482,29 @@ def main() -> int:
     t_rank = time.perf_counter()
     rank_solves, rank_k1_inputs = _rank_path(
         torch, kernels, rank_solver, boruvka, minimum_spanning_forest, deck, graphs, check)
-    rank_counts = read_counts("rank", ("hook_compress", "first_rank"))
+    rank_counts = read_counts("rank", ("hook_compress", "first_rank", "rank_order",
+                                       "rank_endpoints"))
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
+    # The smallest graph on the rank route, 2^17 edges: ``auto`` takes the
+    # rank route, one K7 sort and one gather; its prep head with the device
+    # order against the host order's, in turns.
+    from distributed_ghs_implementation_tpu_torch import profile_solve
+
+    g17 = gen.gnm_random_graph(60_000, 1 << 17, seed=17)
+    if g17.num_edges < boruvka.ELL_AUTO_EDGE_THRESHOLD:
+        raise AssertionError(f"the 2^17-edge graph has {g17.num_edges} edges: auto runs fused")
+    k7 = kernels.rank_order.launches
+    r17 = minimum_spanning_forest(g17)
+    if not np.array_equal(r17.edge_ids, rank_oracle_edge_ids(g17)):
+        raise AssertionError("the 2^17-edge graph: forest differs from the rank oracle")
+    if kernels.rank_order.launches != k7 + 1 or "_rank_order" in g17.__dict__:
+        raise AssertionError(f"the 2^17-edge graph: {kernels.rank_order.launches - k7} K7 "
+                             f"launches, host order filled: {'_rank_order' in g17.__dict__}")
+    heads17 = profile_solve.staging_turns(g17, torch.device("cuda"), 5)
+    print(f"main path, rank at 2^17 edges ({g17.num_edges}): one K7 launch, forest equals the "
+          "rank oracle; prep head ms, median of 5 in turns: " + json.dumps(
+              {how: heads17[how]["prep_s"]["median"] * 1e3 for how in profile_solve.STAGINGS}))
 
     # 2e. supervision, checkpoint and resume, per-level metrics
     zero_counts()
@@ -3736,13 +3760,47 @@ def main() -> int:
             (kernels.first_rank(a21, b21, m21, n21),),
             (kernels.first_rank_torch(a21, b21, m21, n21),)))
     del ra21, rb21, a21, b21
+    # K7 against NumPy's stable argsort at sizes around its 4,096-key tile,
+    # over one, two and three digit passes, equal weights and exactly 2^22
+    # values; its gather against the plain version, pad ranks zero.
+    k7_cases = 0
+    for m in (1, 33, 4095, 4096, 4097, 1_000_003):
+        for lo, span in ((1, 255), (42, 1), (-3, 11_600), (1000, 70_000), (1 << 33, 1 << 22)):
+            w = rng.integers(lo, lo + span, m, dtype=np.int64)
+            w[0], w[m // 2] = lo, lo + span - 1
+            order = kernels.rank_order(put(w), lo, lo + span - 1)
+            want = put(np.argsort(w, kind="stable").astype(np.int32))
+            err["rank_order"] = max(err["rank_order"], _max_abs_err((order,), (want,)))
+            args = (order, *(put(rng.integers(0, max(2, m // 3), m).astype(np.int32))
+                             for _ in range(2)), m + 37)
+            err["rank_endpoints"] = max(err["rank_endpoints"], _max_abs_err(
+                kernels.rank_endpoints(*args), kernels.rank_endpoints_torch(*args)))
+            k7_cases += 1
+    # At the cells' shapes: a scale-23 Graph500 graph's 129,337,845 edges
+    # (weights 1..255, one pass; edge ids ascending in u, as the canonical
+    # list has them) and the DIMACS USA road network's 29,166,672 (lengths
+    # 1..11,600, two passes), with u and v int32, as the prep stages them.
+    k7_shapes = {}
+    for key, m, span, n in (("graph500-23", 129_337_845, 255, 1 << 23),
+                            ("usa-road", 29_166_672, 11_600, 23_947_347)):
+        w = torch.randint(1, 1 + span, (m,), dtype=torch.int64, device=dev)
+        u = torch.sort(torch.randint(0, n, (m,), dtype=torch.int32, device=dev)).values
+        v = torch.randint(0, n, (m,), dtype=torch.int32, device=dev)
+        order = kernels.rank_order(w, 1, span)
+        err["rank_order"] = max(err["rank_order"], _max_abs_err(
+            (order,), (kernels.rank_order_torch(w, 1, span),)))
+        m_pad = boruvka._bucket_size(m)
+        err["rank_endpoints"] = max(err["rank_endpoints"], _max_abs_err(
+            kernels.rank_endpoints(order, u, v, m_pad),
+            kernels.rank_endpoints_torch(order, u, v, m_pad)))
+        k7_shapes[key] = (w, u, v, order, span, m_pad)
     if any(err.values()):
         raise AssertionError(f"kernel and plain version disagree: {err}")
     print(f"kernels vs plain: element-exact over 4 K2 sizes, {len(cases)} K1 rounds "
           f"(forms, jumps and early exits as expected), 2 K4 blocks, {len(buckets)} RMAT-18 + "
           f"{2 * len(ell_cases)} random K3 buckets and 6 K3 levels, {len(k5_sizes)} K5 sizes "
           f"and 3 K5 views at offsets 1-3, K6 at m={fr_m} n={fr_n} and on RMAT-21 from "
-          f"offsets 0-1")
+          f"offsets 0-1, K7 and its gather in {k7_cases} cases and at both cells' shapes")
 
     # The K4 wrapper's host time, split into the steps of the launch path.
     idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
@@ -3976,16 +4034,35 @@ def main() -> int:
                             device=dev).scatter_reduce_(0, fr_idx, fr_val, "amin"),
          8 * fr_m + 4 * fr_n, f"m={fr_m} of 2^27 ranks, n={fr_n}, RMAT hubs"),
     ]
+    # K7 and its gather at each cell's shape: the sort against
+    # torch.sort(stable=True), which the port never calls; bytes: w read
+    # and order written once (sort), order, u, v read and ra, rb written
+    # once (gather: 12 bytes an edge read, 8 a padded rank written).
+    k7_rows = {}
+    for key, (w7, u7, v7, o7, span, m_pad7) in k7_shapes.items():
+        m7 = w7.numel()
+        shape = f"{key}: m={m7}, weights 1..{span}, {kernels.rank_order_passes(1, span)} pass(es)"
+        k7_rows[key] = [
+            ("rank_order", "none: the JAX package's Graph._rank_order, a host counting sort",
+             lambda w7=w7, span=span: kernels.rank_order(w7, 1, span),
+             lambda w7=w7, span=span: kernels.rank_order_torch(w7, 1, span),
+             lambda w7=w7: torch.sort(w7, stable=True), 12 * m7, shape),
+            ("rank_endpoints", "none: the JAX package's Graph.rank_endpoints, a host gather",
+             lambda o7=o7, u7=u7, v7=v7, p=m_pad7: kernels.rank_endpoints(o7, u7, v7, p),
+             lambda o7=o7, u7=u7, v7=v7, p=m_pad7: kernels.rank_endpoints_torch(o7, u7, v7, p),
+             None, 12 * m7 + 8 * m_pad7, f"{shape}, int32 tables, m_pad={m_pad7}"),
+        ]
+    rows += k7_rows["graph500-23"]
     # The library yardstick of K6: scatter_reduce_ "amin" alone, from its
     # int64 indices made beforehand.
     fr_idx = torch.cat([fr_ra[:fr_m], fr_rb[:fr_m]]).long()
     fr_val = torch.arange(fr_m, dtype=torch.int32, device=dev).repeat(2)
-    out = []
-    for name, replaces, kern, plain, library, nbytes, shape in rows:
+
+    def timed_row(name, replaces, kern, plain, library, nbytes, shape):
         rec = {
             "name": name,
             "route": "cuda",
-            "source": f"{PORT}/csrc/{name}.cu",
+            "source": f"{PORT}/csrc/{SOURCE_OF.get(name, name)}.cu",
             "replaces": replaces,
             "launches": launches[name],
             "launches_batch_serve": batch_counts[name],
@@ -4004,13 +4081,19 @@ def main() -> int:
             "shape": shape,
         }
         if library:
-            iters = {"probe": 100, "first_rank": 3}.get(name, 10)
+            iters = {"probe": 100, "first_rank": 3, "rank_order": 3}.get(name, 10)
             rec.update(_in_turns(cuda_time_in_turns_ms, kern, library, iters), turn_calls=iters)
         else:
             rec.update(ms=cuda_time_ms(kern), library_ms=None)
-        out.append(rec)
         print(f"time {name} ({shape}): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"library {rec['library_ms']}, bound {rec['bound_ms']:.4f} ms")
+        return rec
+
+    out = [timed_row(*row) for row in rows]
+    for rec, row in zip(out[-2:], k7_rows["usa-road"]):
+        rec["at_usa_road"] = {k: v for k, v in timed_row(*row).items() if not k.startswith(
+            ("launches", "name", "route", "source", "replaces"))}
+    del k7_shapes, k7_rows
     k1, k3 = out[1], out[3]
     out[0]["stream_window"] = window_k["gather_key"]
     k1["stream_window"] = window_k["hook_compress"]

@@ -505,6 +505,38 @@ def harvest(graph: Graph, mst_ranks: torch.Tensor, fragment: torch.Tensor,
 
 def fetch_mst_edge_ids(graph: Graph, mst_ranks: torch.Tensor) -> np.ndarray:
     """Forest mask over ranks -> sorted edge ids: ``torch.nonzero`` on the
-    device, then only the forest's ranks cross to the host."""
-    ranks = torch.nonzero(mst_ranks).flatten().cpu().numpy()
-    return np.sort(graph.edge_id_of_rank(ranks))
+    device, then :func:`edge_ids_of_ranks`."""
+    return edge_ids_of_ranks(graph, torch.nonzero(mst_ranks).flatten())
+
+
+def hold_rank_order(graph: Graph, order: torch.Tensor, *, keep: bool = True) -> None:
+    """Keep ``order`` (int32 edge ids by rank, as the rank route's prep
+    computes them on a device) on the graph, keyed by its device, for the
+    harvest: for the graph's life with ``keep``, else until the first
+    :func:`edge_ids_of_ranks` on that device reads it. ``Graph`` is a frozen
+    dataclass: it goes into ``__dict__``, as a ``cached_property`` does."""
+    graph.__dict__.setdefault("_device_rank_order", {})[order.device] = (order, keep)
+
+
+def held_rank_order(graph: Graph, device=None):
+    """The rank order :func:`hold_rank_order` kept for ``device`` (any
+    device's when ``None``), or ``None``."""
+    held = graph.__dict__.get("_device_rank_order", {})
+    entry = next(iter(held.values()), None) if device is None else held.get(device)
+    return None if entry is None else entry[0]
+
+
+def edge_ids_of_ranks(graph: Graph, ranks: torch.Tensor) -> np.ndarray:
+    """Forest ranks -> sorted edge ids (int64). Where the graph holds a rank
+    order on the ranks' device (:func:`hold_rank_order`), the ids are taken
+    there and only they cross to the host, and an order held until its
+    first read is dropped; else the ranks cross and the host order maps
+    them."""
+    held = graph.__dict__.get("_device_rank_order", {})
+    entry = held.get(ranks.device)
+    if entry is None:
+        return np.sort(graph.edge_id_of_rank(ranks.cpu().numpy()))
+    order, keep = entry
+    if not keep:
+        del held[ranks.device]
+    return np.sort(order[ranks].cpu().numpy()).astype(np.int64)

@@ -7,13 +7,15 @@ padded ranks and above the filter-Kruskal route.
 
 * **Levels 1 and 2 before the solve.** At the identity partition each
   vertex's minimum outgoing edge is its minimum-rank incident edge (its
-  first rank). Every prep copies the rank endpoints to the card and runs
+  first rank). Every prep puts the rank endpoints on the card and runs
   the first ranks there (K6, ``kernels.first_rank``), then level 1 and,
   for grid and sparse graphs and over the filter's prefix, level 2
-  through K1. The rank order and the endpoints run in the native host
-  library (``graphs/native.py``). :func:`host_level1` and
-  :func:`host_level2` are the same levels on the host, for the lanes and
-  the sharded solver.
+  through K1. For integer weights within 2^22 values the raw edge arrays
+  are copied to the card, and the rank order (K7, ``kernels.rank_order``)
+  and the endpoint gather run there; for the others the native host
+  library (``graphs/native.py``) sorts and gathers. :func:`host_level1`
+  and :func:`host_level2` are the same levels on the host, for the lanes
+  and the sharded solver.
 * **Rank space.** The state of undirected rank ``r`` is its two current
   fragment endpoints ``(fa[r], fb[r])``; the rank (or, after a compaction,
   the slot index) is the tie-break order, so weights never reach the card.
@@ -50,8 +52,11 @@ from distributed_ghs_implementation_tpu_torch.models.boruvka import (
     _bucket_size,
     _mark,
     _max_levels,
+    edge_ids_of_ranks,
     fetch_mst_edge_ids,  # noqa: F401 -- a name of the JAX module's, used by callers
     harvest,
+    held_rank_order,
+    hold_rank_order,
 )
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 from distributed_ghs_implementation_tpu_torch.ops import kernels
@@ -429,24 +434,25 @@ def _prep_step(name: str, **args):
     return BUS.span(name, cat="solver", cpu=True, **args)
 
 
-def _stage(a: np.ndarray, device: torch.device, dtype=np.int32) -> torch.Tensor:
+def _stage(a: np.ndarray, device: torch.device, dtype=torch.int32) -> torch.Tensor:
     """A ``dtype`` copy of ``a`` on ``device``. To the card it goes from
-    pinned memory with ``non_blocking=True``: the call returns once the copy
-    is queued, and host work after it overlaps the transfer. One
-    ``solver.prep.stage`` span (``bytes``; ``pin_s``, the page locking's
-    share), whose bytes go to the ``solver.stage.h2d_bytes`` counter, and
-    the counter's total onto the timeline."""
+    pinned memory with ``non_blocking=True``: one parallel pass fills the
+    pinned buffer, narrowing where ``dtype`` is narrower than ``a``, and the
+    call returns once the copy is queued, so host work after it overlaps the
+    transfer. One ``solver.prep.stage`` span (``bytes``; ``pin_s``, the
+    pinned buffer's allocation and fill), whose bytes go to the
+    ``solver.stage.h2d_bytes`` counter, and the counter's total onto the
+    timeline."""
     with _prep_step("solver.prep.stage") as span:
-        host = np.ascontiguousarray(a, dtype=dtype)
-        t = torch.from_numpy(host)
+        src = torch.from_numpy(np.ascontiguousarray(a))
         pin_s = 0.0
         if device.type == "cuda":
             t0 = time.perf_counter()
-            t = t.pin_memory()
+            host = torch.empty(src.shape, dtype=dtype, pin_memory=True).copy_(src)
             pin_s = time.perf_counter() - t0
-            out = t.to(device, non_blocking=True)
+            out = host.to(device, non_blocking=True)
         else:
-            out = t.clone()
+            host = out = src.to(dtype, copy=True)
         span.set(bytes=host.nbytes, pin_s=pin_s)
     BUS.count("solver.stage.h2d_bytes", host.nbytes)
     BUS.counter_sample("solver.stage.h2d_bytes", cat="solver")
@@ -493,7 +499,7 @@ def pack_planes24(ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
 def _stage_planes24(planes: np.ndarray, device: torch.device):
     """One copy of the wire buffer (from pinned memory to the card, issued
     without waiting), then its decode there."""
-    return decode_planes24(_stage(planes, device, np.uint8))
+    return decode_planes24(_stage(planes, device, torch.uint8))
 
 
 def stage_pair_packed24(ra: np.ndarray, rb: np.ndarray, device=None):
@@ -512,30 +518,76 @@ def _stage_endpoints_int32(graph: Graph, m_pad: int, device: torch.device):
     return ra, rb, _stage(ra, device), _stage(rb, device)
 
 
-def _stage_endpoints_wire24(graph: Graph, m_pad: int, device: torch.device):
-    """:func:`_stage_endpoints_int32` over the 24-bit wire: one native pass
-    writes the host endpoints and the wire buffer, whose one copy is issued
-    and decoded on ``device``. Endpoint ids must be below 2^24."""
-    with _prep_step("solver.prep.endpoints"):
-        ra, rb, planes = native_lib.rank_endpoints_i32_planes(graph._rank_order, graph.u,
-                                                              graph.v, m_pad)
-    return (ra, rb, *_stage_planes24(planes, device))
-
-
-#: How ``_prep_head`` stages the rank endpoints. The int32 copies and the
-#: 24-bit wire were timed against each other in turns on the card
-#: (``profile_solve --staging``; ``PERF.md`` §6); this is the one that won.
-_stage_endpoints = _stage_endpoints_int32
-
-
 @contextlib.contextmanager
-def _device_step(name: str, device: torch.device):
+def _device_step(name: str, device: torch.device, **args):
     """A prep step that runs on the device: its ``solver.prep.*`` span
-    (``on="device"``) closes once the device has finished the step and
-    everything queued before it, so that its time is the device's."""
-    with _prep_step(name, on="device"):
-        yield
+    (``on="device"``, and ``args``), yielded, closes once the device has
+    finished the step and everything queued before it, so that its time is
+    the device's."""
+    with _prep_step(name, on="device", **args) as span:
+        yield span
         _sync(device)
+
+
+def _stage_edges(graph: Graph, device: torch.device):
+    """``w`` as it is (int64) and ``u``, ``v`` narrowed to int32 as they fill
+    their pinned buffers, copied to ``device``, each copy issued without
+    waiting; ``w`` first, since the sort needs only it."""
+    return (_stage(graph.w, device, torch.int64), _stage(graph.u, device),
+            _stage(graph.v, device))
+
+
+def _device_endpoints(graph: Graph, m_pad: int, device: torch.device):
+    """The rank order and the rank endpoints on the device, from the raw
+    edge arrays (:func:`_stage_edges`), for integer weights: ``(ra, rb)``
+    int32 on ``device``, padded with zeros to ``m_pad``, or ``None`` where
+    the weights span more than ``kernels.RANK_ORDER_MAX_RANGE`` values (the
+    graph's host order is then filled, under the same span). After the copies
+    (``solver.prep.copy_wait``), the span ``solver.prep.rank_order``
+    (``where``: ``"device"``, or ``"host"`` for a range too wide) holds the
+    weights' device minimum and maximum, one host read, and K7
+    (``kernels.rank_order``); ``solver.prep.endpoints`` the gather
+    (``kernels.rank_endpoints``). The order stays on the graph for the
+    harvest (``boruvka.hold_rank_order``), for as long as the stage cache
+    would keep the prep (up to ``_STAGE_CACHE_MAX_RANKS`` padded ranks),
+    else until the first harvest reads it; the staged edges are freed."""
+    w, u, v = _stage_edges(graph, device)
+    _wait_copies(device)
+    with _device_step("solver.prep.rank_order", device, where="device") as span:
+        wlow, whigh = torch.stack(torch.aminmax(w)).tolist()
+        if whigh - wlow >= kernels.RANK_ORDER_MAX_RANGE:
+            span.set(where="host")
+            graph._rank_order  # noqa: B018 -- fills the cached property
+            return None
+        order = kernels.rank_order(w, wlow, whigh)
+    del w
+    with _device_step("solver.prep.endpoints", device):
+        ra, rb = kernels.rank_endpoints(order, u, v, m_pad)
+    hold_rank_order(graph, order, keep=m_pad <= _STAGE_CACHE_MAX_RANKS)
+    return ra, rb
+
+
+def _host_endpoints(graph: Graph, m_pad: int, device: torch.device):
+    """The host rank order (``solver.prep.rank_order``, ``where="host"``)
+    and the host endpoint gather, whose int32 copies are issued to
+    ``device``: ``(ra, rb)`` on ``device``."""
+    with _prep_step("solver.prep.rank_order", where="host"):
+        graph._rank_order  # noqa: B018 -- fills the cached property
+    return _stage_endpoints_int32(graph, m_pad, device)[2:]
+
+
+def _rank_endpoints(graph: Graph, m_pad: int, device: torch.device):
+    """``(ra, rb)`` on ``device``: from the device rank order where the
+    weights are integers within ``kernels.RANK_ORDER_MAX_RANGE`` values
+    (:func:`_device_endpoints`), else from the host's (float weights,
+    :func:`_host_endpoints`; a wider range, the host order that
+    :func:`_device_endpoints` filled)."""
+    if graph.w.dtype.kind == "i" and graph.num_edges:
+        staged = _device_endpoints(graph, m_pad, device)
+        if staged is not None:
+            return staged
+        return _stage_endpoints_int32(graph, m_pad, device)[2:]
+    return _host_endpoints(graph, m_pad, device)
 
 
 def _device_level2(parent1, ra, rb, prefix: int, m_pad: int):
@@ -555,23 +607,22 @@ def _device_level2(parent1, ra, rb, prefix: int, m_pad: int):
     return parent12, l2_ranks
 
 
-def _prep_head(graph: Graph, device: torch.device, l2_prefix=None, stage_endpoints=None):
-    """The head every prep runs: the rank order (the graph's, filled here
-    if it has none), the rank endpoints and their copies to ``device``,
-    then on the device from those copies the first ranks (K6), the level-1
-    partition and, given ``l2_prefix``, level 2 over ranks ``[0,
-    l2_prefix)``, each a :func:`_device_step` (``solver.prep.first_ranks``,
-    ``.level1``, ``.level2``), equal element for element to the host's
-    :func:`host_level1` and :func:`host_level2`. ``stage_endpoints``
-    replaces :data:`_stage_endpoints`. Returns ``(m_pad, vmin0, ra, rb,
-    parent1, parent12, l2_ranks)`` on ``device``, the last two ``None``
-    without ``l2_prefix``. The graph's ``first_ranks`` is left unfilled."""
+def _prep_head(graph: Graph, device: torch.device, l2_prefix=None, endpoints=None):
+    """The head every prep runs: the rank endpoints on ``device``
+    (:func:`_rank_endpoints`: the rank order and the endpoint gather, on
+    the device for integer weights), then on the device the first ranks
+    (K6), the level-1 partition and, given ``l2_prefix``, level 2 over ranks
+    ``[0, l2_prefix)``, each a :func:`_device_step`
+    (``solver.prep.first_ranks``, ``.level1``, ``.level2``), equal element
+    for element to the host's :func:`host_level1` and :func:`host_level2`.
+    ``endpoints`` replaces :func:`_rank_endpoints`. Returns ``(m_pad,
+    vmin0, ra, rb, parent1, parent12, l2_ranks)`` on ``device``, the last
+    two ``None`` without ``l2_prefix``. The graph's ``first_ranks`` is left
+    unfilled, and so is its host rank order where the device computed it."""
     n_pad = _bucket_size(graph.num_nodes)
     m_pad = _bucket_size(graph.num_edges)
     check_rank_envelope(n_pad, m_pad)
-    with _prep_step("solver.prep.rank_order"):
-        graph._rank_order  # noqa: B018 -- fills the cached property
-    _, _, ra, rb = (stage_endpoints or _stage_endpoints)(graph, m_pad, device)
+    ra, rb = (endpoints or _rank_endpoints)(graph, m_pad, device)
     with _device_step("solver.prep.first_ranks", device):
         vmin0 = kernels.first_rank(ra, rb, graph.num_edges, n_pad)
     with _device_step("solver.prep.level1", device):
@@ -1475,9 +1526,15 @@ def packbits(mask: torch.Tensor) -> torch.Tensor:
 
 def packed_to_edge_ids(graph: Graph, packed: np.ndarray, count: int) -> np.ndarray:
     """Host decode of a bit-packed rank mask (big-endian bit order, NumPy's
-    default) to sorted edge ids: the sharded multi-process harvest."""
+    default) to sorted edge ids: the sharded multi-process harvest. Where
+    the rank route's prep left the graph a device rank order, the ranks map
+    to edge ids there (:func:`boruvka.edge_ids_of_ranks`)."""
     mask = np.unpackbits(np.asarray(packed, dtype=np.uint8), count=count).astype(bool)
-    return np.sort(graph.edge_id_of_rank(np.nonzero(mask)[0]))
+    ranks = np.nonzero(mask)[0]
+    order = held_rank_order(graph)
+    if order is None:
+        return np.sort(graph.edge_id_of_rank(ranks))
+    return edge_ids_of_ranks(graph, torch.from_numpy(ranks).to(order.device))
 
 
 def solve_graph_kruskal_host(graph: Graph) -> Tuple[np.ndarray, np.ndarray, int]:

@@ -507,9 +507,109 @@ def first_rank(ra, rb, m: int, n_pad: int):
 
 first_rank.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K7 rank_order and its endpoint gather (csrc/rank_order.cu)
+# ---------------------------------------------------------------------------
+#: The widest weight range the sort takes: ``whigh - wlow + 1`` values at
+#: most, the host's counting-sort rule (``native.rank_order_counting``).
+RANK_ORDER_MAX_RANGE = 1 << 22
+
+
+def rank_order_passes(wlow: int, whigh: int) -> int:
+    """The 8-bit digit passes that sort keys in ``[0, whigh - wlow]``: at
+    least one."""
+    return max(1, -(-(whigh - wlow).bit_length() // 8))
+
+
+def _check_rank_order(w, wlow: int, whigh: int) -> None:
+    if w.dim() != 1 or not 0 <= whigh - wlow < RANK_ORDER_MAX_RANGE:
+        raise ValueError(
+            f"rank_order: want w[m] and a weight range of 1 to {RANK_ORDER_MAX_RANGE} values, "
+            f"got {tuple(w.shape)}, [{wlow}, {whigh}]"
+        )
+
+
+def rank_order_torch(w, wlow: int, whigh: int):
+    """The edge ids by ``(w, edge id)``, int32: a stable sort of ``w -
+    wlow``."""
+    _check_rank_order(w, wlow, whigh)
+    return torch.sort(w - wlow, stable=True).indices.to(torch.int32)
+
+
+def rank_order(w, wlow: int, whigh: int):
+    """K7: the rank order of int64 weights ``w`` whose values lie in
+    ``[wlow, whigh]``, a range of at most ``RANK_ORDER_MAX_RANGE`` values:
+    ``order[r]``, the edge of rank ``r``, int32. Replaces no TPU kernel: the
+    JAX package sorts on the host (``Graph._rank_order``). One launch runs
+    every digit pass (:func:`rank_order_passes`); the kernel does not check
+    that the weights lie in the range."""
+    if w.is_cpu:
+        return rank_order_torch(w, wlow, whigh)
+    device = _validate("rank_order", {"w": w}, {"w": torch.int64})
+    _check_rank_order(w, wlow, whigh)
+    m = w.numel()
+    order = torch.empty(m, dtype=torch.int32, device=w.device)
+    if m:
+        lib = _lib()
+        passes = rank_order_passes(wlow, whigh)
+        scratch = torch.empty(lib.rank_order_scratch(m, passes), dtype=torch.int32,
+                              device=w.device)
+        code = lib.rank_order(device, w.data_ptr(), wlow, passes, order.data_ptr(),
+                              scratch.data_ptr(), scratch.numel(), m, _current_stream(device))
+        if code:
+            _fail("rank_order", lib, code)
+        rank_order.launches += 1
+    return order
+
+
+rank_order.launches = 0
+
+
+def rank_endpoints_torch(order, u, v, m_pad: int):
+    """``(u[order], v[order])`` as int32, zero-padded to ``m_pad``."""
+    m = order.numel()
+    ra = torch.zeros(m_pad, dtype=torch.int32, device=order.device)
+    rb = torch.zeros_like(ra)
+    idx = order.long()
+    ra[:m] = u[idx].to(torch.int32)
+    rb[:m] = v[idx].to(torch.int32)
+    return ra, rb
+
+
+def rank_endpoints(order, u, v, m_pad: int):
+    """The endpoint gather after K7: ``ra[r] = u[order[r]]``, ``rb[r] =
+    v[order[r]]`` for ``r < len(order)``, int32, and 0 up to ``m_pad``, from
+    int32 tables ``u`` and ``v``. Replaces no TPU kernel: the JAX package
+    gathers on the host (``Graph.rank_endpoints``). Edge ids must lie in
+    ``[0, len(u))``; the kernel does not check them."""
+    m = order.numel()
+    if order.dim() != 1 or u.dim() != 1 or u.shape != v.shape or m_pad < m:
+        raise ValueError(
+            f"rank_endpoints: want order[m], u/v[n] and m_pad >= m, got "
+            f"{tuple(order.shape)}, {tuple(u.shape)}, {tuple(v.shape)}, m_pad={m_pad}"
+        )
+    if order.is_cpu:
+        return rank_endpoints_torch(order, u, v, m_pad)
+    device = _validate("rank_endpoints", {"order": order, "u": u, "v": v})
+    ra = torch.empty(m_pad, dtype=torch.int32, device=order.device)
+    rb = torch.empty_like(ra)
+    if m_pad:
+        lib = _lib()
+        code = lib.rank_endpoints(device, order.data_ptr(), u.data_ptr(), v.data_ptr(),
+                                  ra.data_ptr(), rb.data_ptr(), m, m_pad, _current_stream(device))
+        if code:
+            _fail("rank_endpoints", lib, code)
+        rank_endpoints.launches += 1
+    return ra, rb
+
+
+rank_endpoints.launches = 0
+
 #: The wrapper that counts each kernel's launches, for code that reads or
 #: resets the counts.
-WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather, first_rank)
+WRAPPERS = (gather_key, hook_compress, probe, ell_row_min, gather, first_rank, rank_order,
+            rank_endpoints)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,21 @@
 """Where one solve's time goes on the card.
 
     python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
-        [--strategy fused|stepped|ell|rank] [--graph rmat|road-grid|rmat20|rmat21|rmat24]
+        [--strategy fused|stepped|ell|rank]
+        [--graph rmat|road-grid|rmat20|rmat21|rmat23|rmat24|road-usa]
     python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
         --staging [--graph ...]
 
 Solves a graph once to warm up (``--graph rmat``: RMAT-18, edge factor 16,
 seed 1, the default; ``road-grid``: ``road_grid_graph(2048, 2048,
 seed=1)``; ``rmat20``: RMAT-20 ef 16 seed 24, ``rmat21``: RMAT-21 ef 16
-seed 1 and ``rmat24``: RMAT-24 ef 16 seed 24 (the benchmark's default
-graph), the dense graphs of the filter route, for ``--strategy rank``),
+seed 1, ``rmat23``: RMAT-23 ef 16 seed 24 (the shape of the benchmark's
+``rmat24-fresh`` graphs) and ``rmat24``: RMAT-24 ef 16 seed 24, the dense
+graphs of the filter route; ``road-usa``: ``random_road_network(5100,
+5100, seed=1, weight_scale=4000)``, about the DIMACS USA road network's
+23.9M vertices, 29M edges and lengths up to about 11,000 (the shape of
+``usa-road-fresh``), on the host-L2 route; these for ``--strategy
+rank``),
 then once more split into its phases, timed on the host clock
 around ``torch.cuda.synchronize()``, then once more under
 ``torch.profiler``: the device's busy time is the union of its kernel and
@@ -21,13 +27,14 @@ The phases of the flat and ELL strategies: the host arrays
 (``rank_arrays``, or ``ell_buckets`` for ``ell``), host-to-device copy,
 level loop, harvest of the edge ids. Those of ``rank`` are read off the
 solver's own spans on the event bus as the route ``solve_graph`` takes
-runs, cold (the graph's rank order dropped first): ``first_ranks`` (K6
-on the card over the staged endpoints, with the wait for their copies),
-the rest of the prep (``stage_s``: the rank order, ``rank_order_s``; the
-endpoint gather; level 1 and, on the host-L2 and filter routes, level 2
-on the card; split into the rank endpoints, the levels (keys
-``host_level1_s`` and ``host_level2_s``, named when the levels ran on
-the host), ``pin_memory()``, issuing the copies and waiting for them),
+runs, cold (the graph's rank orders dropped first): ``first_ranks`` (K6
+on the card over the rank endpoints), the rest of the prep (``stage_s``:
+the rank order, ``rank_order_s``, on the card for integer weights within
+2^22 values; the endpoint gather; level 1 and, on the host-L2 and filter
+routes, level 2 on the card; split into the rank endpoints, the levels
+(keys ``host_level1_s`` and ``host_level2_s``, named when the levels ran
+on the host), filling the pinned buffers, issuing the copies and waiting
+for them),
 the head
 (levels 1-2, the level-3 entry of the host-L2 route, or the filter
 route's prefix head; after a misprediction, the rejected speculation and
@@ -42,15 +49,17 @@ hold the head's and the filter's device work. The profiled solve is a warm one, 
 keeps staged.
 
 ``--staging`` times the rank solver's prep head (``_prep_head``) with each
-way of staging the rank endpoints, in turns (A B, then B A,
-``STAGING_TURNS`` times each): the int32 copies (``int32``: the endpoints from the native
-gather, two pinned int32 copies) and the 24-bit wire (``wire24``: the
-native pass that also packs the three low bytes of each endpoint, one
-pinned uint8 copy, the decode on the card). A turn reports the staging's
-host seconds (up to the copies being issued), the first ranks and level 1
-on the card, which wait for the copies (``levels_s``), any wait left after
-them, and the whole prep; the JSON line has each way's turns, medians and
-spreads, and whether the two staged pairs are equal.
+way of getting the rank endpoints, in turns (the order rotated each turn,
+``STAGING_TURNS`` times each): the device rank order and gather from
+``w``, ``u`` and ``v`` staged (``device``, the prep's way for integer
+weights within 2^22 values), and the host rank order with the host
+endpoint gather and two int32 copies (``host``). Each turn starts from a
+graph that holds no rank order.
+A turn reports, from the head's spans, filling the pinned buffers and
+issuing the copies (``stage_s``), the wait for them, the rank order, the
+endpoint gather, the first ranks and level 1 on the card (``levels_s``),
+and the whole head; the JSON line has each way's turns, medians and
+spreads, and whether the two pairs are equal.
 """
 
 from __future__ import annotations
@@ -64,7 +73,11 @@ from collections import defaultdict
 import torch
 
 from distributed_ghs_implementation_tpu_torch.device import card_description, resolve_device
-from distributed_ghs_implementation_tpu_torch.graphs.generators import rmat_graph, road_grid_graph
+from distributed_ghs_implementation_tpu_torch.graphs.generators import (
+    random_road_network,
+    rmat_graph,
+    road_grid_graph,
+)
 from distributed_ghs_implementation_tpu_torch.models import boruvka
 from distributed_ghs_implementation_tpu_torch.models import rank_solver as rs
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS
@@ -79,7 +92,12 @@ GRAPHS = {
     "rmat20": ("rmat-20 ef 16 seed 24", lambda: rmat_graph(20, 16, seed=24)),
     "rmat21": ("rmat-21 ef 16 seed 1", lambda: rmat_graph(21, 16, seed=1)),
     "rmat24": ("rmat-24 ef 16 seed 24", lambda: rmat_graph(24, 16, seed=24)),
+    "rmat23": ("rmat-23 ef 16 seed 24", lambda: rmat_graph(23, 16, seed=24)),
+    "road-usa": ("random_road_network(5100, 5100, seed=1, weight_scale=4000)",
+                 lambda: random_road_network(5100, 5100, seed=1, weight_scale=4000)),
 }
+#: The graphs of the rank route alone.
+RANK_GRAPHS = ("rmat20", "rmat21", "rmat23", "rmat24", "road-usa")
 
 
 def _drop_cached_buckets(graph) -> None:
@@ -109,7 +127,7 @@ def _rank_phases(graph, device) -> dict:
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
-    for key in ("_rank_order", "_rank_stage_cache"):
+    for key in ("_rank_order", "_device_rank_order", "_rank_stage_cache"):
         graph.__dict__.pop(key, None)
     enabled = BUS.enabled
     BUS.enable()
@@ -173,30 +191,41 @@ def _rank_phases(graph, device) -> dict:
     return out
 
 
-STAGINGS = {"int32": rs._stage_endpoints_int32, "wire24": rs._stage_endpoints_wire24}
+#: The prep heads ``--staging`` times in turns: the device rank order and
+#: gather, and the host rank order with the host endpoint gather.
+STAGINGS = {"device": rs._device_endpoints, "host": rs._host_endpoints}
 STAGING_TURNS = 5
+#: The prep spans a staging turn reads, and the key each goes under.
+_STAGING_SPANS = {"solver.prep.stage": "stage_s", "solver.prep.copy_wait": "copy_wait_s",
+                  "solver.prep.rank_order": "rank_order_s",
+                  "solver.prep.endpoints": "endpoints_s",
+                  "solver.prep.first_ranks": "levels_s", "solver.prep.level1": "levels_s"}
 
 
 def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
-    """One prep head (``_prep_head``: the endpoints staged ``how``, then
-    the first ranks and level 1 on the device) from a graph that keeps
-    only its rank order: ``(times, (ra, rb))``."""
-    spans = {}
-
-    def stage(*args):
-        t = time.perf_counter()
-        out = STAGINGS[how](*args)
-        spans["host_s"] = time.perf_counter() - t
-        return out
-
-    rs._sync(device)
-    t0 = time.perf_counter()
-    head = rs._prep_head(graph, device, stage_endpoints=stage)
-    t1 = time.perf_counter()
-    rs._sync(device)
-    t2 = time.perf_counter()
-    return ({"host_s": spans["host_s"], "levels_s": t1 - t0 - spans["host_s"],
-             "copy_wait_s": t2 - t1, "prep_s": t2 - t0}, head[2:4])
+    """One prep head (``_prep_head``: the rank endpoints ``how``, then the
+    first ranks and level 1 on the device) from a graph that holds no rank
+    order, on the host or on the device: ``(times, (ra, rb))``. The times
+    are the head's steps, read off its spans on the event bus (on for the
+    turn), and the whole head up to the device's end (``prep_s``)."""
+    for key in ("_rank_order", "_device_rank_order"):
+        graph.__dict__.pop(key, None)
+    enabled = BUS.enabled
+    BUS.enable()
+    mark = BUS.mark()
+    try:
+        rs._sync(device)
+        t0 = time.perf_counter()
+        head = rs._prep_head(graph, device, endpoints=STAGINGS[how])
+        rs._sync(device)
+        prep_s = time.perf_counter() - t0
+    finally:
+        BUS.enabled = enabled
+    times = dict.fromkeys(_STAGING_SPANS.values(), 0.0)
+    for ph, name, _cat, _ts, dur, _tid, _args in BUS.events_since(mark):
+        if ph == "X" and name in _STAGING_SPANS:
+            times[_STAGING_SPANS[name]] += dur * 1e-9
+    return {**times, "prep_s": prep_s}, head[2:4]
 
 
 def _summary(values) -> dict:
@@ -206,19 +235,20 @@ def _summary(values) -> dict:
 
 
 def staging_turns(graph, device, turns: int) -> dict:
-    """Both stagings in turns; ``int32`` first in even turns, ``wire24``
-    first in odd ones."""
-    graph._rank_order  # noqa: B018 -- the shared rank order, outside the turns
-    runs = {how: [] for how in STAGINGS}
+    """The heads of :data:`STAGINGS` in turns, the order rotated by one each
+    turn, so that each goes first as often as the others; whether all give
+    the same pair."""
+    names = list(STAGINGS)
+    runs = {how: [] for how in names}
     staged = {}
     for i in range(turns):
-        for how in (("int32", "wire24") if i % 2 == 0 else ("wire24", "int32")):
+        for how in names[i % len(names):] + names[:i % len(names)]:
             times, pair = _staging_turn(graph, device, how)
             runs[how].append(times)
             staged[how] = pair
-    equal = all(torch.equal(a, b) for a, b in zip(staged["int32"], staged["wire24"]))
+    equal = all(torch.equal(a, b) for how in names[1:]
+                for a, b in zip(staged[names[0]], staged[how]))
     return {"turns": turns, "equal": equal,
-            "chosen": next(h for h, fn in STAGINGS.items() if fn is rs._stage_endpoints),
             **{how: {"turns": r, **{k: _summary([t[k] for t in r]) for k in r[0]}}
                for how, r in runs.items()}}
 
@@ -288,10 +318,9 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", choices=("fused", "stepped", "ell", "rank"), default="fused")
     ap.add_argument("--graph", choices=tuple(GRAPHS), default="rmat")
     ap.add_argument("--staging", action="store_true",
-                    help="time the rank endpoints' two stagings in turns instead")
+                    help="time the prep head's rank order and endpoint stagings in turns instead")
     args = ap.parse_args(argv)
-    if args.graph in ("rmat20", "rmat21", "rmat24") and args.strategy != "rank" and not (
-            args.staging):
+    if args.graph in RANK_GRAPHS and args.strategy != "rank" and not args.staging:
         ap.error(f"--graph {args.graph} is for --strategy rank")
     device = resolve_device(None)
     card = card_description()

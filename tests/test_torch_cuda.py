@@ -250,6 +250,14 @@ def _wrapper_inputs(name, device):
         rng = np.random.default_rng(3)
         ra, rb = rng.integers(0, 5000, (2, 1 << 16), dtype=np.int32)
         return [_t(ra).to(device), _t(rb).to(device), (1 << 16) - 5, 5000]
+    elif name == "rank_order":
+        w = np.random.default_rng(3).integers(1, 300, 70_001, dtype=np.int64)
+        return [_t(w).to(device), 1, 299]
+    elif name == "rank_endpoints":
+        rng = np.random.default_rng(3)
+        order = rng.permutation(70_001).astype(np.int32)
+        u, v = rng.integers(0, 5000, (2, 70_001), dtype=np.int32)
+        return [_t(order).to(device), _t(u).to(device), _t(v).to(device), 70_100]
     else:
         rng = np.random.default_rng(3)
         arrays = (rng.integers(0, 1 << 30, 1 << 20, dtype=np.int32),
@@ -297,9 +305,10 @@ def test_kernel_wrappers_raise_rather_than_fall_back_on_card(cuda):
         # The last tensor argument (first_rank ends with two sizes).
         k = max(i for i, a in enumerate(args) if isinstance(a, torch.Tensor))
         last = args[k]
-        wide = args[:k] + [last.to(torch.int64)] + args[k + 1:]
-        with pytest.raises(TypeError, match="int32"):
-            w(*wide)
+        other = torch.int32 if last.dtype is torch.int64 else torch.int64
+        wrong = args[:k] + [last.to(other)] + args[k + 1:]
+        with pytest.raises(TypeError, match=str(last.dtype).removeprefix("torch.")):
+            w(*wrong)
         strided = torch.empty(last.shape[:-1] + (2 * last.shape[-1],), dtype=last.dtype,
                               device=cuda)[..., ::2]
         strided.copy_(last)
@@ -483,6 +492,63 @@ def test_first_rank_kernel_matches_plain_on_card(cuda):
         if name == "isolated":
             got = kernels.first_rank(_t(ra).to(cuda), _t(rb).to(cuda), m, n_pad)
             assert int(got[0]) == kernels.INT32_MAX and ra.shape[0] > m
+
+
+def _rank_order_cases():
+    """``(name, w)``: weights of one, two and three digit passes, all equal,
+    exactly 2^22 values, at sizes around K7's 4,096-key tile."""
+    rng = np.random.default_rng(23)
+    cases = []
+    for m in (1, 2, 33, 4095, 4096, 4097, 70_001, 1_000_003):
+        for lo, span in ((1, 255), (42, 1), (-3, 11_600), (1000, 70_000), (1 << 33, 1 << 22)):
+            w = rng.integers(lo, lo + span, m, dtype=np.int64)
+            w[0], w[m // 2] = lo, lo + span - 1
+            cases.append((f"m={m} range={span}", w))
+    return cases
+
+
+@pytest.mark.gpu
+def test_rank_order_kernel_matches_plain_on_card(cuda):
+    """K7 against NumPy's stable argsort, element for element, one launch a
+    sort; its gather against the plain version, pad ranks zero."""
+    for name, w in _rank_order_cases():
+        wd = _t(w).to(cuda)
+        launches = kernels.rank_order.launches
+        got = kernels.rank_order(wd, int(w.min()), int(w.max()))
+        torch.cuda.synchronize()
+        assert kernels.rank_order.launches == launches + 1, name
+        np.testing.assert_array_equal(got.cpu().numpy(), np.argsort(w, kind="stable"), name)
+        rng = np.random.default_rng(w.size)
+        u, v = rng.integers(0, max(2, w.size // 3), (2, w.size), dtype=np.int32)
+        ud, vd = _t(u).to(cuda), _t(v).to(cuda)
+        pair = kernels.rank_endpoints(got, ud, vd, w.size + 37)
+        want = kernels.rank_endpoints_torch(got, ud, vd, w.size + 37)
+        assert all(torch.equal(a, b) for a, b in zip(pair, want)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["integer", "wide", "float"])
+def test_prep_rank_endpoints_on_card_equal_cpu(cuda, kind):
+    """The prep's rank endpoints on the card equal the CPU's and the host's:
+    integer weights through K7 and the gather (the order held on the graph,
+    the host order unfilled), a range over 2^22 values and float weights
+    through the host order."""
+    g = generators.rmat_graph(16, 16, seed=4)
+    w = {"integer": g.w, "wide": g.w * 40_000, "float": g.w + 0.5}[kind]
+    graph = edgelist.Graph(g.num_nodes, g.u, g.v, w)
+    m_pad = boruvka._bucket_size(graph.num_edges)
+    k7 = kernels.rank_order.launches
+    ra, rb = rank_solver._rank_endpoints(graph, m_pad, cuda)
+    torch.cuda.synchronize()
+    device = kind == "integer"
+    assert kernels.rank_order.launches == k7 + device
+    assert ("_rank_order" in graph.__dict__) is not device
+    assert (boruvka.held_rank_order(graph, ra.device) is not None) is device
+    want = edgelist.Graph(g.num_nodes, g.u, g.v, w).rank_endpoints(pad_to=m_pad)
+    np.testing.assert_array_equal(ra.cpu().numpy(), want[0])
+    np.testing.assert_array_equal(rb.cpu().numpy(), want[1])
+    ids, _, _ = rank_solver.solve_graph_rank(graph, device=cuda)
+    np.testing.assert_array_equal(ids, rank_oracle_edge_ids(g))
 
 
 @pytest.mark.gpu

@@ -226,6 +226,8 @@ def _meta_args(name):
         "ell_row_min": (meta, meta, meta.view(2, 4), meta.view(2, 4)),
         "gather": (meta, meta),
         "first_rank": (meta, meta, 8, 8),
+        "rank_order": (torch.empty(8, dtype=torch.int64, device="meta"), 1, 255),
+        "rank_endpoints": (meta, meta, meta, 8),
     }[name]
 
 
@@ -417,6 +419,17 @@ int ghs_gather(int d, const void* a, const void* b, void* c, long long n, void* 
 int ghs_first_rank(int d, const void* a, const void* b, void* c, long long m, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 41 * (uint64_t)m + 29 * H(s));
 }
+long long ghs_rank_order_scratch(long long m, int passes) { return 43 * m + passes; }
+int ghs_rank_order(int d, const void* a, long long wlow, int passes, void* b, void* c,
+                   long long words, long long m, void* s) {
+  return mix(11 * d + 3 * H(a) + 47 * (uint64_t)wlow + 37 * (uint64_t)passes + 5 * H(b) +
+             7 * H(c) + 31 * (uint64_t)words + 41 * (uint64_t)m + 29 * H(s));
+}
+int ghs_rank_endpoints(int d, const void* a, const void* b, const void* c, void* e, void* f,
+                       long long m, long long m_pad, void* s) {
+  return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) +
+             41 * (uint64_t)m + 31 * (uint64_t)m_pad + 29 * H(s));
+}
 static char message[64];
 const char* ghs_error_string(int code) {
   snprintf(message, sizeof message, "stub error %d", code);
@@ -468,6 +481,13 @@ def test_binding_passes_each_launcher_its_arguments(monkeypatch, stub_binding):
         assert fn(2, *ptr[:3], big, 0) == _mix(22, *h(*ptr[:3]), 23 * big)
     assert mod.first_rank(1, *ptr[:3], big, stream) == _mix(11, *h(*ptr[:3]), 41 * big,
                                                            29 * stream)
+    assert mod.rank_order_scratch(big, 3) == 43 * big + 3
+    for wlow in (-(1 << 40), 0, 7):
+        assert mod.rank_order(1, ptr[0], wlow, 2, ptr[1], ptr[2], big + 1, big, stream) == _mix(
+            11, 3 * ptr[0], 47 * wlow, 37 * 2, 5 * ptr[1], 7 * ptr[2], 31 * (big + 1), 41 * big,
+            29 * stream)
+    assert mod.rank_endpoints(2, *ptr[:5], big, big + 3, stream) == _mix(
+        22, *h(*ptr[:5]), 41 * big, 31 * (big + 3), 29 * stream)
     for row_indexed in (0, 1):
         assert mod.ell_level(0, *ptr[:3], 15, 4203, row_indexed, stream) == _mix(
             *h(*ptr[:3]), 23 * 15, 31 * 4203, 37 * row_indexed, 29 * stream)
@@ -502,6 +522,6 @@ def test_build_without_nvcc_says_so(monkeypatch, tmp_path):
 def test_build_cache_key_covers_every_source():
     names = {p.name for p in _build.SOURCES}
     assert names == {"ell_row_min.cu", "first_rank.cu", "gather.cu", "gather_key.cu",
-                     "hook_compress.cu", "probe.cu"}
+                     "hook_compress.cu", "probe.cu", "rank_order.cu"}
     assert _build.library_path().parent.name == _build.cache_key()
     assert _build.library_path().is_relative_to(_build.BUILD_ROOT)

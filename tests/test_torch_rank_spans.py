@@ -142,8 +142,8 @@ def test_each_route_names_itself_and_orders_its_phases(monkeypatch, route):
                                                       device=CPU)[0])
 
 
-#: graph -> (prep route, how it is reached). Every prep copies the two
-#: rank endpoints alone.
+#: graph -> (prep route, how it is reached). Every prep of these integer
+#: graphs copies the raw edge arrays, ``w``, ``u`` and ``v``, alone.
 PREPS = {
     "grid": ("l2", None),
     "rmat": ("full", None),
@@ -162,9 +162,10 @@ LEVEL_STEPS = ("solver.prep.first_ranks", "solver.prep.level1", "solver.prep.lev
 @pytest.mark.parametrize("name", list(PREPS))
 def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     """The prep's leaf steps are ``solver.prep``'s children, in the order
-    the prep runs them; they never overlap and lie inside it; each carries
-    its CPU seconds; the stage spans' bytes are the staged tensors' and
-    the counter's."""
+    the prep runs them: the edges staged, the wait for them, the rank order
+    and the endpoint gather on the device, the levels; they never overlap
+    and lie inside it; each carries its CPU seconds; the stage spans' bytes
+    are the staged edges' and the counter's."""
     route, arm = PREPS[name]
     if arm is not None:
         arm(monkeypatch)
@@ -173,9 +174,9 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     spans, _ = _solve(graph)
     level2 = [] if route == "full" else ["solver.prep.level2"]
     assert _children(spans, "solver.prep") == [
-        "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
-        "solver.prep.stage", "solver.prep.first_ranks", "solver.prep.level1", *level2,
-        "solver.prep.copy_wait"]
+        "solver.prep.stage", "solver.prep.stage", "solver.prep.stage", "solver.prep.copy_wait",
+        "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.first_ranks",
+        "solver.prep.level1", *level2, "solver.prep.copy_wait"]
     prep = next(sp for sp in spans if sp[0] == "solver.prep")
     assert {k: prep[3][k] for k in ("family", "route", "m_pad")} == {
         "family": trs._pick_family(graph), "route": route,
@@ -184,13 +185,14 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     assert all(a[2] <= b[1] for a, b in zip(leaves, leaves[1:]))  # no overlap
     assert prep[1] <= leaves[0][1] and leaves[-1][2] <= prep[2]
     assert all(sp[3]["cpu_s"] >= 0 for sp in leaves + [prep])
+    order = next(sp[3] for sp in leaves if sp[0] == "solver.prep.rank_order")
+    assert order["where"] == "device" and order["on"] == "device"
     stages = [sp[3] for sp in leaves if sp[0] == "solver.prep.stage"]
     assert all(a["pin_s"] == 0.0 for a in stages)  # no page locking on the CPU
-    arrays = dict(zip(FIELDS[route], trs._cache_get(graph, route, torch.device(CPU))))
-    tensors = [arrays["ra"], arrays["rb"]]
-    assert all(isinstance(t, torch.Tensor) for t in tensors)
-    assert sum(a["bytes"] for a in stages) == sum(t.nbytes for t in tensors)
-    assert BUS.counters()[COUNTER] - before == sum(t.nbytes for t in tensors)
+    m = graph.num_edges
+    uv = 4 * m  # u and v narrowed to int32
+    assert [a["bytes"] for a in stages] == [8 * m, uv, uv]
+    assert BUS.counters()[COUNTER] - before == 8 * m + 2 * uv
     samples = [rec[6]["value"] for rec in BUS.events() if rec[1] == COUNTER]
     assert samples[-1] == BUS.counters()[COUNTER]
 

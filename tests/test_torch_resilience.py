@@ -351,21 +351,26 @@ def test_a_kernel_build_failure_is_fatal(monkeypatch, cause):
 @pytest.mark.parametrize("cause", BUILD_FAILURES, ids=lambda e: type(e).__name__)
 def test_a_native_build_failure_is_fatal_in_every_rung(monkeypatch, cause):
     """The native host library that cannot be built or loaded raises
-    :class:`KernelBuildError` in the device rung (which ranks the edges
-    with it) and in the host rung alike: fatal, not transient and not
-    "unavailable"."""
+    :class:`KernelBuildError` in the device rung where it ranks the edges
+    with it (integer weights over 2^22 values, which the device order does
+    not take) and in the host rung alike: fatal, not transient and not
+    "unavailable". The device rung of weights within 2^22 values sorts on
+    the device and never needs the library."""
     def build_library():
         raise cause
 
     g = pair("road")[1]
+    wide = type(g)(g.num_nodes, g.u, g.v, g.w << 23)
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "build_library", build_library)
-    for entry in ("device", "host"):
+    for entry, graph in (("device", wide), ("host", g)):
         mark = TBUS.mark()
         with pytest.raises(_build.KernelBuildError) as info:
-            tres.Supervisor().solve(g, entry=entry, device=CPU)
+            tres.Supervisor().solve(graph, entry=entry, device=CPU)
         assert info.value.__cause__ is cause
         assert _attempts(mark) == [(entry, "fatal")]
+    edge_ids = tres.Supervisor().solve(g, entry="device", device=CPU)[0]
+    np.testing.assert_array_equal(edge_ids, rank_oracle_edge_ids(g))
 
 
 @pytest.mark.parametrize("entry", ["device", "stepped"])

@@ -21,8 +21,9 @@
 * ``make_sharded_solver`` and ``make_sharded_ell_solver`` on 2 CPU shards
   equal JAX's factories on 2 devices and the rank oracle.
 * The 24-bit wire: the encode and ``decode_planes24`` equal JAX's
-  ``_stage_pair_packed24`` and ``_decode_planes24``, and both stagings of
-  the rank endpoints give the same pair.
+  ``_stage_pair_packed24`` and ``_decode_planes24``. The prep's ways of
+  getting the rank endpoints (the device rank order, the host order) give
+  JAX's pair.
 
 Every integer result is held exactly (tolerance 0).
 """
@@ -376,23 +377,27 @@ def test_native_planes_equal_the_numpy_encode():
 
 @pytest.mark.parametrize("name", ["rmat13", "road40", "high-ids"])
 def test_both_stagings_give_the_same_pair(graphs, name):
-    tg = _high_ids()[1] if name == "high-ids" else graphs[name][1]
+    """The device rank order and gather and the host order give one pair
+    of rank endpoints, JAX's."""
+    from distributed_ghs_implementation_tpu_torch import profile_solve
+
+    jg, tg = _high_ids() if name == "high-ids" else graphs[name]
     m_pad = trs._bucket_size(tg.num_edges)
-    cpu = torch.device(CPU)
-    int32 = trs._stage_endpoints_int32(tg, m_pad, cpu)
-    wire = trs._stage_endpoints_wire24(tg, m_pad, cpu)
-    _same_arrays(int32[:2], wire[:2])
-    for a, b in zip(int32[2:], wire[2:]):
-        assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+    want = jg.rank_endpoints(pad_to=m_pad)
+    for how, endpoints in profile_solve.STAGINGS.items():
+        pair = endpoints(tedge.Graph(tg.num_nodes, tg.u, tg.v, tg.w), m_pad, torch.device(CPU))
+        assert all(t.dtype == torch.int32 for t in pair), how
+        _same_arrays([t.numpy() for t in pair], want)
 
 
 def test_staging_turns_time_both_ways_and_name_the_one_taken(graphs):
     from distributed_ghs_implementation_tpu_torch import profile_solve
 
     out = profile_solve.staging_turns(graphs["rmat13"][1], torch.device(CPU), 2)
-    assert out["equal"] and out["chosen"] == "int32" and out["turns"] == 2
-    assert trs._stage_endpoints is trs._stage_endpoints_int32
-    for how in ("int32", "wire24"):
+    assert out["equal"] and out["turns"] == 2
+    for how in ("device", "host"):
         assert len(out[how]["turns"]) == 2
-        for key in ("host_s", "levels_s", "copy_wait_s", "prep_s"):
+        for key in ("stage_s", "copy_wait_s", "rank_order_s", "endpoints_s", "levels_s",
+                    "prep_s"):
             assert 0 <= out[how][key]["min"] <= out[how][key]["median"] <= out[how][key]["max"]
+        assert 0 < out[how]["rank_order_s"]["min"] <= out[how]["prep_s"]["min"]
