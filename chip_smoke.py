@@ -531,8 +531,8 @@ def _rank_path(torch, kernels, rank_solver, boruvka, msf, deck, graphs, check) -
     census, trace, finishes, prefixes = [], [], [], []
     k1_inputs, current = {}, []
     saved = {name: getattr(rank_solver, name) for name in (
-        "_shrink_and_run", "_finish_to_fixpoint", "_filtered_head", "_filtered_head_l2",
-        "_speculative_tail", "hook_and_compress")}
+        "_shrink_and_run", "_finish_to_fixpoint", "_filtered_head", "_speculative_tail",
+        "hook_and_compress")}
     hook = saved["hook_and_compress"]
 
     def spy(name):
@@ -3113,9 +3113,7 @@ def _surface_path(torch, kernels, graphs, oracle, oracle_w, card) -> dict:
     c. ``utils.verify_result(oracle="auto")`` on RMAT-20 and RMAT-21: the
        native Kruskal pass (``native``), ``ok``, timed beside SciPy's
        weight of the same graph (on two threads under the rest of the
-       phase); SciPy's weight of RMAT-18 equal to its native weight;
-    d. RMAT-20's rank endpoints both ways the prep can get them, equal on
-       the card: the device order (K7 and its gather) and the host order.
+       phase); SciPy's weight of RMAT-18 equal to its native weight.
     """
     from distributed_ghs_implementation_tpu_torch import (
         minimum_spanning_forest,
@@ -3198,24 +3196,6 @@ def _surface_path(torch, kernels, graphs, oracle, oracle_w, card) -> dict:
                               "weight": v.expected_weight}
             if v.oracle != "native" or not v.ok:
                 raise AssertionError(f"surface: verify_result on {name}: {v}")
-        # d. RMAT-20's rank endpoints both ways the prep can get them: the
-        # device order and the host order, each from a graph that holds no
-        # order.
-        rs = models.rank_solver
-        g20 = graphs["rmat20"]
-        m_pad = models.boruvka._bucket_size(g20.num_edges)
-        staged = {}
-        for how, endpoints in (("device", rs._device_endpoints), ("host", rs._host_endpoints)):
-            fresh = pgraphs.Graph(g20.num_nodes, g20.u, g20.v, g20.w)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            pair = endpoints(fresh, m_pad, dev)
-            issued = time.perf_counter() - t
-            torch.cuda.synchronize()
-            staged[how] = (pair, {"host_s": issued, "total_s": time.perf_counter() - t})
-        if not all(torch.equal(a, b) for a, b in zip(staged["device"][0], staged["host"][0])):
-            raise AssertionError("surface: RMAT-20's rank endpoints differ between the ways")
-        out["staging_rmat20"] = {how: rec for how, (_, rec) in staged.items()}
         for name, f in scipy_f.items():
             weight, seconds = f.result()
             verified[name]["scipy_s"] = seconds
@@ -3487,10 +3467,7 @@ def main() -> int:
     print(f"main path, rank: {time.perf_counter() - t_rank:.2f} s, all forests equal the rank "
           f"oracle; {json.dumps({**rank_solves, 'launches': rank_counts})}")
     # The smallest graph on the rank route, 2^17 edges: ``auto`` takes the
-    # rank route, one K7 sort and one gather; its prep head with the device
-    # order against the host order's, in turns.
-    from distributed_ghs_implementation_tpu_torch import profile_solve
-
+    # rank route, one K7 sort and one gather.
     g17 = gen.gnm_random_graph(60_000, 1 << 17, seed=17)
     if g17.num_edges < boruvka.ELL_AUTO_EDGE_THRESHOLD:
         raise AssertionError(f"the 2^17-edge graph has {g17.num_edges} edges: auto runs fused")
@@ -3501,10 +3478,8 @@ def main() -> int:
     if kernels.rank_order.launches != k7 + 1 or "_rank_order" in g17.__dict__:
         raise AssertionError(f"the 2^17-edge graph: {kernels.rank_order.launches - k7} K7 "
                              f"launches, host order filled: {'_rank_order' in g17.__dict__}")
-    heads17 = profile_solve.staging_turns(g17, torch.device("cuda"), 5)
     print(f"main path, rank at 2^17 edges ({g17.num_edges}): one K7 launch, forest equals the "
-          "rank oracle; prep head ms, median of 5 in turns: " + json.dumps(
-              {how: heads17[how]["prep_s"]["median"] * 1e3 for how in profile_solve.STAGINGS}))
+          "rank oracle")
 
     # 2e. supervision, checkpoint and resume, per-level metrics
     zero_counts()
@@ -3630,7 +3605,7 @@ def main() -> int:
           f"with no accepted query lost; "
           f"{json.dumps({'runs': drill_runs, 'launches': drill_counts})}")
     # 2n. the public surface: the package exports, the native oracle, the
-    # sharded solver factory, both stagings of the rank endpoints
+    # sharded solver factory
     zero_counts()
     t_surface = time.perf_counter()
     surface = _surface_path(torch, kernels, graphs, oracle, oracle_w, card_description())
@@ -3823,19 +3798,19 @@ def main() -> int:
         return st, (s0, d0, r0, a0, b0), (h, d, f1), ran
 
     def level3_hook(graph):
-        """K1's inputs at the first card level of the host-L2 route, taken
-        in the vertex space (n = n_pad) instead of the census space the
-        route shrinks to first: the level over ``parent12``'s fragments."""
-        _, ra_d, rb_d, parent12, _ = rank_solver.prepare_rank_arrays_l2(graph)
-        fa, fb = parent12[ra_d], parent12[rb_d]
-        n = parent12.numel()
+        """K1's inputs at level 3 of the host-L2 route, taken in the vertex
+        space (n = n_pad) instead of the census space the route shrinks to
+        first: the level over the fragments of its head's level 2."""
+        fragment2, _, fa, fb, _ = rank_solver._rank_head(
+            *rank_solver.prepare_rank_arrays_full(graph), compact_after=2)
+        n = fragment2.numel()
         slot = torch.arange(fa.numel(), dtype=torch.int32, device=dev)
         moe = rank_solver._moe_over(fa, fb, torch.where(fa != fb, slot, kernels.INT32_MAX), n)
         has = moe < kernels.INT32_MAX
         safe = torch.where(has, moe, 0)
         wa, wb = fa[safe], fb[safe]
         ids = torch.arange(n, dtype=torch.int32, device=dev)
-        return has, torch.where(has, torch.where(wa == ids, wb, wa), ids), parent12
+        return has, torch.where(has, torch.where(wa == ids, wb, wa), ids), fragment2
 
     state, arrays18, (has1, d1, frag1), k1_levels = level1(rmat18)
     src, dst, rank, ra, rb = arrays18

@@ -61,7 +61,6 @@ SIGNATURES = {
     "first_rank64": (None, [_N, _N, _I64, _I64, _I64]),
     "first_rank_i32": (None, [_N, _N, _I32, _I32, _I32]),
     "first_rank_i32e64": (None, [_N, _N, _I32, _I32, _I64]),
-    "first_cross_rank": (None, [_N, _N, _I32, _I32, _I32, _I32]),
     "rank_endpoints_i32": (None, [_N, _N, _I64, _I64, _I64, _I32, _I32]),
     "rank_endpoints_i32_planes": (None, [_N, _N, _I64, _I64, _I64, _I32, _I32, _U8]),
     "kruskal_msf_solve": (_N, [_N, _N, _I64, _I64, _I64, _I64, _I64, _I64]),
@@ -290,19 +289,6 @@ def first_rank_i32_out64(num_nodes: int, ra: np.ndarray, rb: np.ndarray) -> np.n
     _check(ra.shape == rb.shape, "first_rank_i32_out64 needs len(ra) == len(rb)")
     out = np.empty(num_nodes, dtype=np.int64)
     lib.first_rank_i32e64(num_nodes, ra.shape[0], _p32(ra), _p32(rb), _p64(out))
-    return out
-
-
-def first_cross_rank(num_nodes: int, ra: np.ndarray, rb: np.ndarray,
-                     parent1: np.ndarray) -> np.ndarray:
-    """Each level-1 fragment's minimum rank among the edges that leave it,
-    with the relabel ``parent1[ra]`` fused in (INT32_MAX where none)."""
-    lib = get_lib()
-    ra, rb, parent1 = _i32(ra), _i32(rb), _i32(parent1)
-    _check(ra.shape == rb.shape and parent1.shape == (num_nodes,),
-           "first_cross_rank needs len(ra) == len(rb) and len(parent1) == num_nodes")
-    out = np.empty(num_nodes, dtype=np.int32)
-    lib.first_cross_rank(num_nodes, ra.shape[0], _p32(ra), _p32(rb), _p32(parent1), _p32(out))
     return out
 
 

@@ -51,13 +51,16 @@ class BoruvkaState(NamedTuple):
 def _mark(mst_ranks: torch.Tensor, has_moe: torch.Tensor, moe_rank: torch.Tensor) -> torch.Tensor:
     """``mst_ranks[moe_rank] = 1`` for every fragment with an MOE.
 
-    Fragments without one scatter to rank 0 with value 0, and rank 0 (the
-    global minimum edge) is always in the forest: a plain indexed store with
-    duplicate indices could let such a 0 land after another fragment's 1.
-    A max-scatter keeps the 1 whatever the order.
+    A fragment without one scatters a 0 to a slot of its own (its index,
+    wrapped to the mask's width), which the max-scatter never keeps, also
+    where it lands on another fragment's 1. Sent all to one slot, they
+    would serialize on the card's atomics: level 2's marks on a road
+    network of 24M vertices, about 3 in 4 of them with no level-2 edge,
+    took 15.6 ms that way and 1.2 ms spread (H100 80GB HBM3).
     """
-    safe = torch.where(has_moe, moe_rank, 0).long()
-    return mst_ranks.scatter_reduce_(0, safe, has_moe.to(torch.uint8), "amax")
+    spare = torch.arange(has_moe.shape[0], device=has_moe.device) % mst_ranks.shape[0]
+    idx = torch.where(has_moe, moe_rank.long(), spare)
+    return mst_ranks.scatter_reduce_(0, idx, has_moe.to(torch.uint8), "amax")
 
 
 def boruvka_level(

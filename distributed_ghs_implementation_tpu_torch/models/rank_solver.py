@@ -5,17 +5,18 @@ Port of the JAX package's ``models/rank_solver.py``: the staged,
 speculative and host-L2 routes, and for dense graphs at ``_FILTER_MIN_RANKS``
 padded ranks and above the filter-Kruskal route.
 
-* **Levels 1 and 2 before the solve.** At the identity partition each
-  vertex's minimum outgoing edge is its minimum-rank incident edge (its
-  first rank). Every prep puts the rank endpoints on the card and runs
-  the first ranks there (K6, ``kernels.first_rank``), then level 1 and,
-  for grid and sparse graphs and over the filter's prefix, level 2
-  through K1. For integer weights within 2^22 values the raw edge arrays
-  are copied to the card, and the rank order (K7, ``kernels.rank_order``)
-  and the endpoint gather run there; for the others the native host
-  library (``graphs/native.py``) sorts and gathers. :func:`host_level1`
-  and :func:`host_level2` are the same levels on the host, for the lanes
-  and the sharded solver.
+* **Level 1 before the solve, level 2 in its head.** At the identity
+  partition each vertex's minimum outgoing edge is its minimum-rank
+  incident edge (its first rank). The one prep puts the rank endpoints on
+  the card and runs the first ranks there (K6, ``kernels.first_rank``),
+  then level 1 through K1. For integer weights within 2^22 values the raw
+  edge arrays are copied to the card, and the rank order (K7,
+  ``kernels.rank_order``) and the endpoint gather run there; for the others
+  the native host library (``graphs/native.py``) sorts and gathers. Each
+  solve's head runs level 2 (:func:`_prefix_level2_core`): over the
+  filter's prefix on the filter route, over every rank on the others.
+  :func:`host_level1` is level 1 on the host, for the lanes and the
+  sharded solver.
 * **Rank space.** The state of undirected rank ``r`` is its two current
   fragment endpoints ``(fa[r], fb[r])``; the rank (or, after a compaction,
   the slot index) is the tie-break order, so weights never reach the card.
@@ -121,7 +122,9 @@ def _level1_hook(vmin0, ra, rb):
 def host_level1(vmin0: np.ndarray, ra: np.ndarray, rb: np.ndarray) -> np.ndarray:
     """The level-1 partition on the host, equal to :func:`_device_level1`:
     the same hooks, the mutual-pair break (the smaller id becomes the root)
-    and pointer jumping to the fixpoint."""
+    and pointer jumping, bounded: a hook forest whose only cycles are
+    mutual pairs converges in ``ceil(log2 n) + 1`` jumps, so input that
+    does not converge raises instead of hanging the host."""
     n = vmin0.shape[0]
     ids = np.arange(n, dtype=np.int32)
     has1 = vmin0 < np.iinfo(vmin0.dtype).max
@@ -129,15 +132,6 @@ def host_level1(vmin0: np.ndarray, ra: np.ndarray, rb: np.ndarray) -> np.ndarray
     a = ra[safe1]
     b = rb[safe1]
     parent = np.where(has1, np.where(a == ids, b, a), ids).astype(np.int32)
-    return _host_break_and_jump(parent, "host_level1")
-
-
-def _host_break_and_jump(parent: np.ndarray, what: str) -> np.ndarray:
-    """Mutual-pair break and pointer jumping, bounded: a hook forest whose
-    only cycles are mutual pairs converges in ``ceil(log2 n) + 1`` jumps, so
-    input that does not converge raises instead of hanging the host."""
-    n = parent.shape[0]
-    ids = np.arange(n, dtype=np.int32)
     mutual = parent[parent] == ids
     parent = np.where(mutual & (ids < parent), ids, parent)
     for _ in range(max(int(np.ceil(np.log2(max(n, 2)))) + 1, 1)):
@@ -146,49 +140,9 @@ def _host_break_and_jump(parent: np.ndarray, what: str) -> np.ndarray:
             return parent
         parent = p2
     raise ValueError(
-        f"{what} did not converge: hook input is not a true per-vertex/"
-        f"per-fragment minimum (hook graph has a cycle longer than 2)"
+        "host_level1 did not converge: hook input is not a true per-vertex/"
+        "per-fragment minimum (hook graph has a cycle longer than 2)"
     )
-
-
-def host_level2(parent1: np.ndarray, ra: np.ndarray, rb: np.ndarray, m: int, *,
-                native: bool = True):
-    """Level 2 on the host, equal to the card's level over the level-1
-    fragments: each fragment's first cross rank (one native pass, or with
-    ``native=False`` its NumPy form), the hook with the mutual-pair break,
-    pointer jumping. Returns ``(parent12, l2_ranks)``, the composed
-    two-level vertex partition and the sorted ranks level 2 chose. Ranks
-    ``[0, m)`` take part: the true edge count, or the filter's prefix."""
-    n = parent1.shape[0]
-    if native:
-        moe2 = native_lib.first_cross_rank(n, ra[:m], rb[:m], parent1)
-    else:
-        fa = parent1[ra[:m]]
-        fb = parent1[rb[:m]]
-        cross = np.nonzero(fa != fb)[0]
-        arr = np.empty(2 * cross.size, dtype=np.int64)
-        arr[0::2] = fa[cross]
-        arr[1::2] = fb[cross]
-        frags, first_pos = np.unique(arr, return_index=True)
-        moe2 = np.full(n, INT32_MAX, dtype=np.int32)
-        moe2[frags] = cross[first_pos // 2].astype(np.int32)
-    has = moe2 < INT32_MAX
-    safe = np.where(has, moe2, 0)
-    wa = parent1[ra[safe]]
-    wb = parent1[rb[safe]]
-    ids = np.arange(n, dtype=np.int32)
-    parent = np.where(has, np.where(wa == ids, wb, wa), ids).astype(np.int32)
-    parent = _host_break_and_jump(parent, "host_level2")
-    return parent[parent1], np.unique(moe2[has])
-
-
-def _pad_l2_ranks(l2r: np.ndarray, m_pad: int) -> np.ndarray:
-    """The level-2 ranks padded for staging with ``m_pad``, above every real
-    rank, which every consumer drops; at least 1,024 entries."""
-    l2_pad = _bucket_size(max(int(l2r.size), 1024))
-    out = np.full(l2_pad, m_pad, dtype=np.int32)
-    out[: l2r.size] = l2r
-    return out
 
 
 def _device_level1(vmin0, ra, rb):
@@ -230,7 +184,9 @@ def _level_core(fragment, fa, fb, key_of_slot, n: int):
 def _rank_head(vmin0, ra, rb, parent1, *, compact_after: int = 2):
     """Levels 1 (from the level-1 partition ``parent1``) and, with
     ``compact_after >= 2``, 2 at full width. Returns ``(fragment, mst, fa,
-    fb, (levels, alive_count))``."""
+    fb, (levels, alive_count))``; a level counts where it hooked some
+    vertex, so a graph with no edge runs none (as the JAX package's
+    host-L2 head counts them)."""
     mp = ra.shape[0]
     has1 = vmin0 < INT32_MAX
     safe1 = torch.where(has1, vmin0, 0)
@@ -242,8 +198,8 @@ def _rank_head(vmin0, ra, rb, parent1, *, compact_after: int = 2):
     if compact_after >= 2:
         fragment, fa, fb, has2, safe2, count = _prefix_level2_core(parent1, fa, fb)
         _mark(mst, has2, safe2)
-        any2, count = _ints(has2.any(), count)
-        lv = 1 + any2
+        any1, any2, count = _ints(has1.any(), has2.any(), count)
+        lv = any1 + any2
     else:
         fragment = parent1
         lv, count = _ints(has1.any(), (fa != fb).sum())
@@ -415,16 +371,16 @@ def _device_key(device: torch.device) -> torch.device:
     return device
 
 
-def _cache_get(graph: Graph, kind: str, device):
-    return graph.__dict__.get("_rank_stage_cache", {}).get((kind, _device_key(device)))
+def _cache_get(graph: Graph, device):
+    return graph.__dict__.get("_rank_stage_cache", {}).get(_device_key(device))
 
 
-def _cache_put(graph: Graph, kind: str, device, staged, m_pad: int) -> None:
-    """Keep ``staged`` on the graph, keyed by kind and device. ``Graph`` is
-    a frozen dataclass: the cache goes into ``__dict__``, as a
-    ``cached_property`` does."""
+def _cache_put(graph: Graph, device, staged, m_pad: int) -> None:
+    """Keep ``staged`` on the graph, keyed by device. ``Graph`` is a frozen
+    dataclass: the cache goes into ``__dict__``, as a ``cached_property``
+    does."""
     if m_pad <= _STAGE_CACHE_MAX_RANKS:
-        graph.__dict__.setdefault("_rank_stage_cache", {})[(kind, _device_key(device))] = staged
+        graph.__dict__.setdefault("_rank_stage_cache", {})[_device_key(device)] = staged
 
 
 def _prep_step(name: str, **args):
@@ -590,115 +546,47 @@ def _rank_endpoints(graph: Graph, m_pad: int, device: torch.device):
     return _host_endpoints(graph, m_pad, device)
 
 
-def _device_level2(parent1, ra, rb, prefix: int, m_pad: int):
-    """:func:`host_level2` over ranks ``[0, prefix)`` on the device, and
-    its ranks padded as :func:`_pad_l2_ranks` pads them: ``(parent12,
-    l2_ranks)``, element-equal to the host's. One host read: the count of
-    the level-2 ranks."""
-    if prefix:
-        parent12, _fa, _fb, has2, safe2, _count = _prefix_level2_core(
-            parent1, parent1[ra[:prefix]], parent1[rb[:prefix]])
-        l2r = torch.unique(safe2[has2])  # sorted; a mutual pair's two hooks share one rank
-    else:  # no rank to hook on: level 1's partition stands
-        parent12, l2r = parent1.clone(), parent1[:0]
-    l2_ranks = torch.full((_bucket_size(max(l2r.numel(), 1024)),), m_pad, dtype=torch.int32,
-                          device=ra.device)
-    l2_ranks[: l2r.numel()] = l2r
-    return parent12, l2_ranks
-
-
-def _prep_head(graph: Graph, device: torch.device, l2_prefix=None, endpoints=None):
-    """The head every prep runs: the rank endpoints on ``device``
+def _prep_head(graph: Graph, device: torch.device):
+    """The prep's steps: the rank endpoints on ``device``
     (:func:`_rank_endpoints`: the rank order and the endpoint gather, on
     the device for integer weights), then on the device the first ranks
-    (K6), the level-1 partition and, given ``l2_prefix``, level 2 over ranks
-    ``[0, l2_prefix)``, each a :func:`_device_step`
-    (``solver.prep.first_ranks``, ``.level1``, ``.level2``), equal element
-    for element to the host's :func:`host_level1` and :func:`host_level2`.
-    ``endpoints`` replaces :func:`_rank_endpoints`. Returns ``(m_pad,
-    vmin0, ra, rb, parent1, parent12, l2_ranks)`` on ``device``, the last
-    two ``None`` without ``l2_prefix``. The graph's ``first_ranks`` is left
-    unfilled, and so is its host rank order where the device computed it."""
+    (K6) and the level-1 partition, each a :func:`_device_step`
+    (``solver.prep.first_ranks``, ``.level1``), equal element for element
+    to the host's first ranks and :func:`host_level1`. Returns ``(m_pad,
+    vmin0, ra, rb, parent1)`` on ``device``. The graph's ``first_ranks`` is
+    left unfilled, and so is its host rank order where the device computed
+    it."""
     n_pad = _bucket_size(graph.num_nodes)
     m_pad = _bucket_size(graph.num_edges)
     check_rank_envelope(n_pad, m_pad)
-    ra, rb = (endpoints or _rank_endpoints)(graph, m_pad, device)
+    ra, rb = _rank_endpoints(graph, m_pad, device)
     with _device_step("solver.prep.first_ranks", device):
         vmin0 = kernels.first_rank(ra, rb, graph.num_edges, n_pad)
     with _device_step("solver.prep.level1", device):
         parent1 = _device_level1(vmin0, ra, rb)
-    parent12 = l2_ranks = None
-    if l2_prefix is not None:
-        with _device_step("solver.prep.level2", device):
-            parent12, l2_ranks = _device_level2(parent1, ra, rb, l2_prefix, m_pad)
-    return m_pad, vmin0, ra, rb, parent1, parent12, l2_ranks
+    return m_pad, vmin0, ra, rb, parent1
 
 
 def prepare_rank_arrays_full(graph: Graph, *, device=None):
-    """The rank endpoints staged and the first ranks and level 1 computed
-    from them (:func:`_prep_head`): ``(vmin0, ra, rb, parent1)`` int32
-    tensors on ``device`` (``None`` = CUDA), padded to ``_bucket_size``
-    steps. Returns once the copies are done, so a caller's prep clock
-    includes them. Cached on the graph per device."""
+    """The rank route's one prep: the rank endpoints staged and the first
+    ranks and level 1 computed from them (:func:`_prep_head`): ``(vmin0,
+    ra, rb, parent1)`` int32 tensors on ``device`` (``None`` = CUDA),
+    padded to ``_bucket_size`` steps. Returns once the copies are done, so
+    a caller's prep clock includes them. Cached on the graph per device."""
     device = resolve_device(device)
-    cached = _cache_get(graph, "full", device)
+    cached = _cache_get(graph, device)
     if cached is not None:
         return cached
-    m_pad, vmin0, ra, rb, parent1, _, _ = _prep_head(graph, device)
+    m_pad, vmin0, ra, rb, parent1 = _prep_head(graph, device)
     staged = (vmin0, ra, rb, parent1)
     _wait_copies(device)
-    _cache_put(graph, "full", device, staged, m_pad)
+    _cache_put(graph, device, staged, m_pad)
     return staged
 
 
 def prepare_rank_arrays(graph: Graph, *, device=None):
     """``(vmin0, ra, rb)`` of :func:`prepare_rank_arrays_full`."""
     return prepare_rank_arrays_full(graph, device=device)[:3]
-
-
-def prepare_rank_arrays_l2(graph: Graph, *, device=None):
-    """:func:`prepare_rank_arrays_full` with level 2 over every rank as
-    well (the grid and sparse families): ``(vmin0, ra, rb, parent12,
-    l2_ranks)`` on ``device``. ``l2_ranks`` is padded with ``m_pad``, which
-    the head drops, so an empty level 2 stays right."""
-    device = resolve_device(device)
-    cached = _cache_get(graph, "l2", device)
-    if cached is not None:
-        return cached
-    m_pad, vmin0, ra, rb, _, parent12, l2_ranks = _prep_head(graph, device, graph.num_edges)
-    staged = (vmin0, ra, rb, parent12, l2_ranks)
-    _wait_copies(device)
-    _cache_put(graph, "l2", device, staged, m_pad)
-    return staged
-
-
-def prepare_rank_arrays_filtered(graph: Graph, *, device=None):
-    """The filter route's staging: ``(vmin0, ra, rb, parent1, parent12,
-    l2_ranks, prefix)``, with level 2 over the prefix the consuming solve
-    runs. Under the census size that is the speculative program's (mult-2)
-    prefix, and ``parent1`` is returned too, for the fallback after a
-    misprediction; from the census size up it is :func:`_prefix_plan`'s,
-    and ``parent1`` is ``None`` (the level-2 head never reads it). Where the
-    split is degenerate (``2 * prefix > m_pad``) or the graph is under the
-    filter width, no solve reads a level 2: the full staging, with
-    ``parent12`` and ``l2_ranks`` ``None``."""
-    device = resolve_device(device)
-    cached = _cache_get(graph, "filtered", device)
-    if cached is not None:
-        return cached
-    n_pad = _bucket_size(graph.num_nodes)
-    m_pad = _bucket_size(graph.num_edges)
-    prefix, _ = _prefix_plan(n_pad, m_pad)
-    speculative = n_pad < _CENSUS_MIN_SPACE
-    l2_prefix = _prefix_size(n_pad, m_pad, 2) if speculative else prefix
-    # The speculative prefix is the larger: its split degenerates first.
-    if 2 * l2_prefix > m_pad or not use_filtered_path("dense", m_pad):
-        return prepare_rank_arrays_full(graph, device=device) + (None, None, prefix)
-    _, vmin0, ra, rb, parent1, parent12, l2_ranks = _prep_head(graph, device, l2_prefix)
-    staged = (vmin0, ra, rb, parent1 if speculative else None, parent12, l2_ranks, l2_prefix)
-    _wait_copies(device)
-    _cache_put(graph, "filtered", device, staged, m_pad)
-    return staged
 
 
 # ---------------------------------------------------------------------------
@@ -748,8 +636,9 @@ def use_filtered_path(family: str, num_ranks: int) -> bool:
 
 
 def use_l2_path(family: str) -> bool:
-    """Whether a graph takes the host-L2 route (level 3 is the card's
-    first)."""
+    """Whether a graph takes the host-L2 route: the staged solve with level
+    2 at full width in its head, two levels a finish chunk and the census,
+    whatever its family's own knobs."""
     return family in ("grid", "sparse")
 
 
@@ -814,41 +703,6 @@ def solve_rank_speculative(vmin0, ra, rb, *, out_size: int, parent1=None):
     if count2 == 0:
         return mst, fragment, lv + extra
     return None
-
-
-def _head_l2(vmin0, ra, rb, parent12, l2_ranks):
-    """Level-3 entry from the host's two-level partition: one relabel and
-    the level-1 and level-2 marks, no segment minimum. Returns ``(mst, fa,
-    fb, (levels, alive_count))``. The pads of ``l2_ranks`` (``m_pad``) are
-    dropped as JAX drops them: they mark rank 0 with 0, which changes
-    nothing."""
-    mp = ra.shape[0]
-    fa = parent12[ra]
-    fb = parent12[rb]
-    has1 = vmin0 < INT32_MAX
-    mst = torch.zeros(mp, dtype=torch.uint8, device=ra.device)
-    _mark(mst, has1, vmin0)
-    has2 = l2_ranks < mp
-    _mark(mst, has2, l2_ranks)
-    lv1, lv2, count = _ints(has1.any(), has2.any(), (fa != fb).sum())
-    return mst, fa, fb, (lv1 + lv2, count)
-
-
-def solve_rank_l2(vmin0, ra, rb, parent12, l2_ranks, *, chunk_levels: int = 2,
-                  compact_space: bool = True, on_chunk=None):
-    """Solve from the host's two-level partition
-    (:func:`prepare_rank_arrays_l2`): equal to :func:`solve_rank_staged`,
-    without the full-width level 2 on the card. ``on_chunk`` as there."""
-    n_pad = vmin0.shape[0]
-    with BUS.span("solver.rank.head", cat="solver"):
-        mst, fa, fb, (lv, count) = _head_l2(vmin0, ra, rb, parent12, l2_ranks)
-    if on_chunk is not None:
-        on_chunk(lv, parent12, mst, count)
-    return _finish_to_fixpoint(
-        parent12, mst, fa, fb, _iota(ra.shape[0], ra.device),
-        lv=lv, count=count, space=n_pad, max_levels=lv + _max_levels(n_pad),
-        chunk_levels=chunk_levels, compact_space=compact_space, on_chunk=on_chunk,
-    )
 
 
 def solve_rank_staged(
@@ -1025,20 +879,6 @@ def _filtered_head(vmin0, ra, rb, parent1, *, prefix: int):
     return fragment, mst, fa, fb, (1 + has2.any().int(), count)
 
 
-def _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, *, prefix: int):
-    """:func:`_filtered_head` from the host's level 2 over the prefix
-    (:func:`host_level2` over ``prefix`` ranks): one prefix relabel and the
-    level-1 and level-2 marks. The pads of ``l2_ranks`` (``m_pad``), which
-    JAX's scatter drops, mark rank 0 with 0 here, which changes nothing."""
-    mst = torch.zeros(ra.shape[0], dtype=torch.uint8, device=ra.device)
-    _mark(mst, vmin0 < INT32_MAX, vmin0)
-    has2 = l2_ranks < prefix
-    _mark(mst, has2, l2_ranks)
-    fa = parent12[ra[:prefix]]
-    fb = parent12[rb[:prefix]]
-    return parent12, mst, fa, fb, (1 + has2.any().int(), (fa != fb).sum())
-
-
 def _filter_suffix_ends(fragment, ra, rb, *, prefix: int):
     """The suffix endpoints relabeled to the current fragments, and the
     survivor count (0-d). Pad ranks (``ra == rb == 0``) are dead."""
@@ -1143,24 +983,12 @@ def _prefix_size(n_pad: int, m_pad: int, mult: int = 2) -> int:
 
 
 def _prefix_plan(n_pad: int, m_pad: int) -> Tuple[int, bool]:
-    """``(prefix, force_chunked)`` of the filtered solve, one place for the
-    prep and the solver: ``mult=1`` where the single-pass filter fits,
-    ``mult=2`` where the filter runs in chunks."""
+    """``(prefix, force_chunked)`` of the filtered solve: ``mult=1`` where
+    the single-pass filter fits, ``mult=2`` where the filter runs in
+    chunks."""
     suffix1 = m_pad - _prefix_size(n_pad, m_pad, 1)
     force_chunked = 8 * suffix1 > _FILTER_CHUNK_BYTES
     return _prefix_size(n_pad, m_pad, 2 if force_chunked else 1), force_chunked
-
-
-def _check_l2_prefix(l2_prefix, prefix: int, who: str) -> None:
-    """A host level 2 computed for another prefix would silently drop the
-    level-2 marks past the smaller one: refuse it."""
-    if l2_prefix != prefix:
-        raise ValueError(
-            f"parent12/l2_ranks were computed for prefix {l2_prefix} but {who} runs "
-            f"prefix {prefix}: in the speculative regime the prep computes them for "
-            f"the mult-2 prefix, which only the speculative program may read; route "
-            f"through solve_rank_auto or make_production_solver, or pass parent1 alone"
-        )
 
 
 def solve_rank_filtered(
@@ -1172,38 +1000,25 @@ def solve_rank_filtered(
     prefix_mult: int | None = None,
     on_chunk=None,
     parent1=None,
-    parent12=None,
-    l2_ranks=None,
-    l2_prefix: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The filter-Kruskal solve: the head and finish over the prefix, one
-    filter pass over the suffix (fused with its compaction; in chunks
-    above ``_FILTER_CHUNK_BYTES``), the survivors' finish. Returns what
-    :func:`solve_rank_staged` returns, element for element.
-
-    ``parent12``/``l2_ranks`` (:func:`prepare_rank_arrays_filtered`) carry
-    the host's level 2 over the prefix, and ``l2_prefix`` the prefix it was
-    computed for, which must be this call's. ``on_chunk`` as in
-    :func:`solve_rank_staged` (``count`` is the alive count of the current
-    phase's slots)."""
+    """The filter-Kruskal solve: the head (level 2 over the prefix) and
+    finish over the prefix, one filter pass over the suffix (fused with its
+    compaction; in chunks above ``_FILTER_CHUNK_BYTES``), the survivors'
+    finish. Returns what :func:`solve_rank_staged` returns, element for
+    element. ``on_chunk`` as in :func:`solve_rank_staged` (``count`` is
+    the alive count of the current phase's slots)."""
     n_pad = vmin0.shape[0]
     m_pad = ra.shape[0]
     if prefix_mult is None:
         prefix, force_chunked = _prefix_plan(n_pad, m_pad)
     else:
         prefix, force_chunked = _prefix_size(n_pad, m_pad, prefix_mult), False
-    if parent12 is not None:
-        _check_l2_prefix(l2_prefix, prefix, "this call")
     if 2 * prefix > m_pad:  # too little suffix to split: the staged solve
         return solve_rank_staged(vmin0, ra, rb, chunk_levels=chunk_levels, on_chunk=on_chunk,
                                  parent1=parent1)
     with BUS.span("solver.rank.head", cat="solver"):
-        if parent12 is not None:
-            head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
-        else:
-            head = _filtered_head(vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1),
-                                  prefix=prefix)
-        fragment, mst, fa, fb, stats = head
+        fragment, mst, fa, fb, stats = _filtered_head(
+            vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1), prefix=prefix)
         lv, count = _ints(*stats)
     if on_chunk is not None:
         on_chunk(lv, fragment, mst, count)
@@ -1253,16 +1068,6 @@ def _filtered_speculative_program(vmin0, ra, rb, parent1, *, prefix: int, prefix
                              out_size=out_size, max_levels=max_levels)
 
 
-def _filtered_speculative_program_l2(vmin0, ra, rb, parent12, l2_ranks, *, prefix: int,
-                                     prefix_out: int, out_size: int, max_levels: int):
-    """:func:`_filtered_speculative_program` from the host's level 2 over
-    this program's prefix."""
-    with BUS.span("solver.rank.head", cat="solver"):
-        head = _filtered_head_l2(vmin0, ra, rb, parent12, l2_ranks, prefix=prefix)
-    return _speculative_tail(*head, ra, rb, prefix=prefix, prefix_out=prefix_out,
-                             out_size=out_size, max_levels=max_levels)
-
-
 def _speculative_tail(fragment, mst, fa, fb, stats0, ra, rb, *, prefix: int, prefix_out: int,
                       out_size: int, max_levels: int):
     """The speculative programs after their head. The levels loops read
@@ -1297,35 +1102,25 @@ def solve_rank_filtered_speculative(
     prefix_out: int | None = None,
     out_size: int | None = None,
     parent1=None,
-    parent12=None,
-    l2_ranks=None,
-    l2_prefix: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int] | None:
     """The filtered solve as one speculative program: ``(mst, fragment,
     levels)``, equal to :func:`solve_rank_filtered`'s, or ``None`` when a
     prediction missed (the caller then runs :func:`solve_rank_filtered`).
     Default widths: ``prefix / 8`` prefix survivors, ``m_pad / 128`` filter
-    survivors. ``parent12``/``l2_ranks``/``l2_prefix`` as in
-    :func:`solve_rank_filtered`, for this program's prefix."""
+    survivors."""
     n_pad = vmin0.shape[0]
     m_pad = ra.shape[0]
     prefix = _prefix_size(n_pad, m_pad, prefix_mult)
     if 2 * prefix > m_pad:
         return None
-    if parent12 is not None:
-        _check_l2_prefix(l2_prefix, prefix, f"the speculative program (prefix_mult={prefix_mult})")
     if prefix_out is None:
         prefix_out = max(_bucket_size(prefix // 8), _COMPACT_MIN_SLOTS)
     if out_size is None:
         out_size = _filter_width(m_pad)
     widths = dict(prefix=prefix, prefix_out=prefix_out, out_size=out_size,
                   max_levels=_max_levels(n_pad))
-    if parent12 is not None:
-        fragment, mst, stats = _filtered_speculative_program_l2(
-            vmin0, ra, rb, parent12, l2_ranks, **widths)
-    else:
-        fragment, mst, stats = _filtered_speculative_program(
-            vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1), **widths)
+    fragment, mst, stats = _filtered_speculative_program(
+        vmin0, ra, rb, _ensure_parent1(vmin0, ra, rb, parent1), **widths)
     lv, prefix_count, prefix_alive, filter_count, survivor_alive = stats
     if (prefix_count <= prefix_out and filter_count <= out_size
             and prefix_alive == 0 and survivor_alive == 0):
@@ -1361,35 +1156,26 @@ def solve_rank_resume(vmin0, ra, rb, initial_state, *, family: str = "dense", on
     )
 
 
-def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None, parent12=None,
-                    l2_ranks=None, l2_prefix=None):
+def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None):
     """The routing of a staged solve by family. Dense graphs at the filter
-    width take the filter route: from the census size up
-    :func:`solve_rank_filtered` with the host level 2, under it the
-    speculative filtered program, and on a misprediction (or with no host
-    level 2) :func:`solve_rank_filtered` from ``parent1``. Other dense
-    graphs under the census size try the speculative finish (survivors
-    predicted at m/8) and run the staged solve on a misprediction; every
-    other graph runs the staged solve. ``parent12``/``l2_ranks``/
-    ``l2_prefix`` come from :func:`prepare_rank_arrays_filtered`."""
+    width take the filter route: under the census size the speculative
+    filtered program, then on a misprediction (and from the census size
+    up) :func:`solve_rank_filtered`. Other dense graphs under the census
+    size try the speculative finish (survivors predicted at m/8) and run
+    the staged solve on a misprediction; every other graph runs the staged
+    solve."""
     n_pad = vmin0.shape[0]
+    parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
     if use_filtered_path(family, ra.shape[0]):
-        l2 = dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
-        if n_pad >= _CENSUS_MIN_SPACE and parent12 is not None:
-            _note_route("filtered")
-            return solve_rank_filtered(vmin0, ra, rb, parent1=parent1, **l2)
         route = "filtered"
         if n_pad < _CENSUS_MIN_SPACE:
-            # parent12 is for the speculative program's (mult-2) prefix:
-            # the fallback below must not read it.
-            result = solve_rank_filtered_speculative(vmin0, ra, rb, parent1=parent1, **l2)
+            result = solve_rank_filtered_speculative(vmin0, ra, rb, parent1=parent1)
             if result is not None:
                 _note_route("filtered-speculative")
                 return result
             route = "filtered after a misprediction"
         _note_route(route)
-        return solve_rank_filtered(vmin0, ra, rb, parent1=_ensure_parent1(vmin0, ra, rb, parent1))
-    parent1 = _ensure_parent1(vmin0, ra, rb, parent1)
+        return solve_rank_filtered(vmin0, ra, rb, parent1=parent1)
     route = "staged"
     if family == "dense" and n_pad < _CENSUS_MIN_SPACE:
         out_size = max(_bucket_size(ra.shape[0] // 8), _COMPACT_MIN_SLOTS)
@@ -1403,26 +1189,26 @@ def solve_rank_auto(vmin0, ra, rb, *, family: str = "dense", parent1=None, paren
 
 
 def make_production_solver(graph: Graph, *, device=None):
-    """Stage the graph for its route (the host passes and copies run here,
-    so a caller can time the prep apart) and return ``solve(on_chunk=None)
-    -> (mst, fragment, levels)``. The one place the route is chosen, for
-    ``solve_graph_rank``, the checkpointed, instrumented and supervised
-    solves alike:
+    """Stage the graph (:func:`prepare_rank_arrays_full`; the host passes
+    and copies run here, so a caller can time the prep apart) and return
+    ``solve(on_chunk=None) -> (mst, fragment, levels)``. The one place the
+    route is chosen, for ``solve_graph_rank``, the checkpointed,
+    instrumented and supervised solves alike:
 
-    * grid and sparse graphs take the host-L2 route
-      (:func:`solve_rank_l2`, which passes ``on_chunk`` on);
-    * dense graphs at the filter width stage for the filter route
-      (:func:`prepare_rank_arrays_filtered`): without a hook
+    * grid and sparse graphs take the host-L2 route: the staged solve with
+      level 2 at full width in its head, two-level chunks and the census
+      (:func:`solve_rank_staged`, which passes ``on_chunk`` on);
+    * dense graphs at the filter width: without a hook
       :func:`solve_rank_auto`, with one the chunked
-      :func:`solve_rank_filtered`, which gets the host level 2 only when
-      the prep computed it for that solve's prefix (in the speculative
-      regime it was computed for the mult-2 prefix);
+      :func:`solve_rank_filtered`;
     * every other graph: without a hook :func:`solve_rank_auto`, with one
       the staged solve, whose chunk boundaries the hook sees.
 
-    Without a hook the route is exactly the unhooked one: asking for
-    chunk boundaries selects the chunked forms, so only a caller that
-    passes ``on_chunk`` leaves the speculative programs.
+    Every head computes its own level 2 from the prep's ``parent1``, over
+    the prefix of the solve that runs it on the filter route. Without a
+    hook the route is exactly the unhooked one: asking for chunk
+    boundaries selects the chunked forms, so only a caller that passes
+    ``on_chunk`` leaves the speculative programs.
     ``on_chunk(level, vertex_fragment, mst, count)`` gets live tensors
     that the solve goes on updating: a hook that keeps them copies them.
     """
@@ -1430,38 +1216,27 @@ def make_production_solver(graph: Graph, *, device=None):
     family = _pick_family(graph)
     m_pad = _bucket_size(graph.num_edges)
     if use_l2_path(family):
-        route, prepare = "l2", prepare_rank_arrays_l2
+        route = "l2"
     elif use_filtered_path(family, m_pad):
-        route, prepare = "filtered", prepare_rank_arrays_filtered
+        route = "filtered"
     else:
-        route, prepare = "full", prepare_rank_arrays_full
+        route = "full"
     with _prep_step("solver.prep", family=family, route=route, m_pad=m_pad):
-        staged = prepare(graph, device=device)
+        vmin0, ra, rb, parent1 = prepare_rank_arrays_full(graph, device=device)
     if route == "l2":
 
         def solve(on_chunk=None):
             _note_route("host-l2")
-            return solve_rank_l2(*staged, on_chunk=on_chunk)
-    elif route == "filtered":
-        vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = staged
-        plan_prefix, _ = _prefix_plan(_bucket_size(graph.num_nodes), m_pad)
-        chunk_l2 = (dict(parent12=parent12, l2_ranks=l2_ranks, l2_prefix=l2_prefix)
-                    if parent12 is not None and l2_prefix == plan_prefix else {})
-
-        def solve(on_chunk=None):
-            if on_chunk is None:
-                return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1,
-                                       parent12=parent12, l2_ranks=l2_ranks,
-                                       l2_prefix=l2_prefix)
-            _note_route("filtered")
-            return solve_rank_filtered(vmin0, ra, rb, on_chunk=on_chunk, parent1=parent1,
-                                       **chunk_l2)
+            return solve_rank_staged(vmin0, ra, rb, compact_after=2, chunk_levels=2,
+                                     compact_space=True, parent1=parent1, on_chunk=on_chunk)
     else:
-        vmin0, ra, rb, parent1 = staged
 
         def solve(on_chunk=None):
             if on_chunk is None:
                 return solve_rank_auto(vmin0, ra, rb, family=family, parent1=parent1)
+            if route == "filtered":
+                _note_route("filtered")
+                return solve_rank_filtered(vmin0, ra, rb, on_chunk=on_chunk, parent1=parent1)
             _note_route("staged")
             return solve_rank_staged(vmin0, ra, rb, **_family_params(family),
                                      on_chunk=on_chunk, parent1=parent1)

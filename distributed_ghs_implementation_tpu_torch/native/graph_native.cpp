@@ -2,9 +2,10 @@
 // and the rank solver's host passes.
 //
 // The port's copy of the JAX package's native/graph_native.cpp; the code is
-// the same, only this note differs. The host-side graph construction and the
-// rank solver's host passes run here at RMAT-24 scale, where NumPy is the
-// bottleneck. Exposed through a C ABI for ctypes, with no pybind11 dependency.
+// the same but for this note and the JAX package's level-2 pass (each
+// fragment's first cross rank), which the port runs on the card instead. The
+// host-side graph construction and the rank solver's host passes run here at
+// RMAT-24 scale, where NumPy is the bottleneck. Exposed through a C ABI for ctypes, with no pybind11 dependency.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC graph_native.cpp -o libgraph_native.so
 // (distributed_ghs_implementation_tpu_torch/graphs/native.py compiles it at
@@ -229,23 +230,6 @@ void first_rank_i32e64(int64_t n, int64_t m, const int32_t* ra,
   for (int64_t r = 0; r < m; ++r) {
     if (out[ra[r]] == kMax) out[ra[r]] = r;
     if (out[rb[r]] == kMax) out[rb[r]] = r;
-  }
-}
-
-// Level-2 MOE on the host: per-FRAGMENT first cross rank, fused with the
-// fragment relabel (fa = parent1[ra]) so the m-sized relabeled arrays never
-// materialize. One O(m) pass over rank-ascending endpoints.
-void first_cross_rank(int64_t n, int64_t m, const int32_t* ra,
-                      const int32_t* rb, const int32_t* parent1,
-                      int32_t* out) {
-  const int32_t kMax = 0x7fffffff;
-  for (int64_t v = 0; v < n; ++v) out[v] = kMax;
-  for (int64_t r = 0; r < m; ++r) {
-    const int32_t fa = parent1[ra[r]];
-    const int32_t fb = parent1[rb[r]];
-    if (fa == fb) continue;
-    if (out[fa] == kMax) out[fa] = (int32_t)r;
-    if (out[fb] == kMax) out[fb] = (int32_t)r;
   }
 }
 

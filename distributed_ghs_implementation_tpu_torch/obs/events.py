@@ -33,11 +33,11 @@ Names this package emits beyond that registry, all from the rank route:
   ``m_pad``, ``cpu_s``) over the prep's steps ``solver.prep.rank_order``
   (``where``: ``device``, K7 after the weights' device minimum and
   maximum, or ``host``), ``.endpoints``, ``.stage`` (one pinned copy
-  issued: ``bytes``, ``pin_s``), ``.first_ranks``, ``.level1``,
-  ``.level2`` and ``.copy_wait``, each with ``cpu_s``, the process's CPU
-  seconds over it. The steps that run on the device say so
-  (``on="device"``: ``.rank_order`` and ``.endpoints`` for integer
-  weights, ``.first_ranks``, ``.level1``, ``.level2``); each closes after a
+  issued: ``bytes``, ``pin_s``), ``.first_ranks``, ``.level1`` and
+  ``.copy_wait``, each with ``cpu_s``, the process's CPU seconds over it
+  (level 2 runs in the solve's head). The steps that run on the device say
+  so (``on="device"``: ``.rank_order`` and ``.endpoints`` for integer
+  weights, ``.first_ranks``, ``.level1``); each closes after a
   device synchronize, so it holds the device's time (on the host order's
   path ``.first_ranks`` also the wait for the endpoint copies). The
   counter ``solver.stage.h2d_bytes`` (bytes staged, its total also sampled

@@ -56,13 +56,12 @@ from distributed_ghs_implementation_tpu_torch.models.rank_solver import (
     _iota,
     _level_core,
     _moe_over,
-    _pad_l2_ranks,
     _pick_family,
+    _prefix_level2_core,
     _prefix_size,
     _restore_state_host,
     check_rank_envelope,
     host_level1,
-    host_level2,
     packbits,
     packed_to_edge_ids,
     use_filtered_path,
@@ -480,8 +479,8 @@ def solve_graph_rank_sharded(
 def _filtered_phase(mesh, graph, vmin0, parent1_np, ra_np, rb_np, ra, rb, n_pad, m_pad,
                     prefix, on_chunk):
     """The sharded filter route up to the finish: level-1 marks on the
-    shards, the host's level 2 over the prefix, the prefix's levels through
-    the single-card helpers on the first device, then the filter fused with
+    shards, level 2 over the prefix and the prefix's levels through the
+    single-card helpers on the first device, then the filter fused with
     the compaction (or, when a shard's survivors overflow the speculative
     width, the two-step filter). Returns ``(fused, fa, fb, fragment, mst,
     levels, total, cmax)``, ``fused`` the compacted survivors or ``None``."""
@@ -492,15 +491,13 @@ def _filtered_phase(mesh, graph, vmin0, parent1_np, ra_np, rb_np, ra, rb, n_pad,
     # process: 2 * prefix int32 ranks, no gather over the mesh.
     ra_p = torch.from_numpy(np.ascontiguousarray(ra_np[:prefix])).to(home)
     rb_p = torch.from_numpy(np.ascontiguousarray(rb_np[:prefix])).to(home)
-    parent12_np, l2r = host_level2(parent1_np, ra_np, rb_np, prefix)
-    parent12 = torch.from_numpy(parent12_np).to(home)
-    l2 = torch.from_numpy(_pad_l2_ranks(l2r, m_pad)).to(home)
-    fa_p, fb_p = parent12[ra_p], parent12[rb_p]
-    has2 = l2 < prefix  # pads carry m_pad and are dropped
+    parent1 = torch.from_numpy(parent1_np).to(home)
+    fragment2, fa_p, fb_p, has2, safe2, count = _prefix_level2_core(
+        parent1, parent1[ra_p], parent1[rb_p])
     mst_p = torch.zeros(prefix, dtype=_U8, device=home)
-    _mark(mst_p, has2, l2)
+    _mark(mst_p, has2, safe2)
     lv = 1 + int(has2.any())
-    count = int((fa_p != fb_p).sum())
+    count = int(count)
     hook = None
     if on_chunk is not None:
         # The sharded mask holds only the level-1 marks through the prefix
@@ -519,9 +516,9 @@ def _filtered_phase(mesh, graph, vmin0, parent1_np, ra_np, rb_np, ra, rb, n_pad,
 
             on_chunk(lv_, frag_, mask_fn, count_)
 
-        hook(lv, parent12, mst_p, count)
+        hook(lv, fragment2, mst_p, count)
     mst_p, frag_home, lv = _finish_to_fixpoint(
-        parent12, mst_p, fa_p, fb_p, _iota(prefix, home),
+        fragment2, mst_p, fa_p, fb_p, _iota(prefix, home),
         lv=lv, count=count, space=n_pad, max_levels=lv + _max_levels(n_pad),
         chunk_levels=3, compact_space=n_pad >= _CENSUS_MIN_SPACE, on_chunk=hook,
     )

@@ -3,8 +3,6 @@
     python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
         [--strategy fused|stepped|ell|rank]
         [--graph rmat|road-grid|rmat20|rmat21|rmat23|rmat24|road-usa]
-    python3 -m distributed_ghs_implementation_tpu_torch.profile_solve \
-        --staging [--graph ...]
 
 Solves a graph once to warm up (``--graph rmat``: RMAT-18, edge factor 16,
 seed 1, the default; ``road-grid``: ``road_grid_graph(2048, 2048,
@@ -30,43 +28,25 @@ solver's own spans on the event bus as the route ``solve_graph`` takes
 runs, cold (the graph's rank orders dropped first): ``first_ranks`` (K6
 on the card over the rank endpoints), the rest of the prep (``stage_s``:
 the rank order, ``rank_order_s``, on the card for integer weights within
-2^22 values; the endpoint gather; level 1 and, on the host-L2 and filter
-routes, level 2 on the card; split into the rank endpoints, the levels
-(keys ``host_level1_s`` and ``host_level2_s``, named when the levels ran
-on the host), filling the pinned buffers, issuing the copies and waiting
-for them),
-the head
-(levels 1-2, the level-3 entry of the host-L2 route, or the filter
-route's prefix head; after a misprediction, the rejected speculation and
-the head that answered), each finish chunk, and on the filter route the
+2^22 values; the endpoint gather; level 1 on the card, ``host_levels_s``;
+split into the rank endpoints, level 1 (``level1_s``), filling the pinned
+buffers, issuing the copies and waiting for them), the head (level 2 over
+every rank, or over the filter route's prefix; after a misprediction, the
+rejected speculation and the head that answered), each finish chunk, and on the filter route the
 prefix finish, the suffix filter and the survivors' finish, then the
 harvest. Each of these phases ends on a host read of its counts, except
 in the speculative filter program (route ``filtered-speculative``), which
 reads its head's and its filter's counts once, at its end: on the card
 their work is only queued when their spans close, so there ``head_s`` and
 ``filter_s`` are null, and ``prefix_finish_s`` and ``survivor_finish_s``
-hold the head's and the filter's device work. The profiled solve is a warm one, from the arrays the graph
-keeps staged.
-
-``--staging`` times the rank solver's prep head (``_prep_head``) with each
-way of getting the rank endpoints, in turns (the order rotated each turn,
-``STAGING_TURNS`` times each): the device rank order and gather from
-``w``, ``u`` and ``v`` staged (``device``, the prep's way for integer
-weights within 2^22 values), and the host rank order with the host
-endpoint gather and two int32 copies (``host``). Each turn starts from a
-graph that holds no rank order.
-A turn reports, from the head's spans, filling the pinned buffers and
-issuing the copies (``stage_s``), the wait for them, the rank order, the
-endpoint gather, the first ranks and level 1 on the card (``levels_s``),
-and the whole head; the JSON line has each way's turns, medians and
-spreads, and whether the two pairs are equal.
+hold the head's and the filter's device work. The profiled solve is a
+warm one, from the arrays the graph keeps staged.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import time
 from collections import defaultdict
 
@@ -163,11 +143,10 @@ def _rank_phases(graph, device) -> dict:
     out = {"levels": levels, "route": solve_args["route"], "family": solve_args["family"],
            "first_ranks_s": first_ranks, "stage_s": t2 - t0 - first_ranks,
            "rank_order_s": took("solver.prep.rank_order"),
-           "host_levels_s": took("solver.prep.level1") + took("solver.prep.level2"),
+           "host_levels_s": took("solver.prep.level1"),
            "stage_split": {
                "rank_endpoints_s": took("solver.prep.endpoints"),
-               "host_level1_s": took("solver.prep.level1"),
-               "host_level2_s": took("solver.prep.level2"),
+               "level1_s": took("solver.prep.level1"),
                "pin_memory_s": pinned, "copy_issue_s": stage - pinned,
                "copy_wait_s": took("solver.prep.copy_wait")},
            "head_s": head_end - t2, "finish_s": t3 - head_end,
@@ -189,68 +168,6 @@ def _rank_phases(graph, device) -> dict:
         out.update(head_s=None, filter_s=None, finish_s=t3 - t2,
                    prefix_finish_s=filter_start - t2, survivor_finish_s=t3 - filter_start)
     return out
-
-
-#: The prep heads ``--staging`` times in turns: the device rank order and
-#: gather, and the host rank order with the host endpoint gather.
-STAGINGS = {"device": rs._device_endpoints, "host": rs._host_endpoints}
-STAGING_TURNS = 5
-#: The prep spans a staging turn reads, and the key each goes under.
-_STAGING_SPANS = {"solver.prep.stage": "stage_s", "solver.prep.copy_wait": "copy_wait_s",
-                  "solver.prep.rank_order": "rank_order_s",
-                  "solver.prep.endpoints": "endpoints_s",
-                  "solver.prep.first_ranks": "levels_s", "solver.prep.level1": "levels_s"}
-
-
-def _staging_turn(graph, device, how: str) -> tuple[dict, tuple]:
-    """One prep head (``_prep_head``: the rank endpoints ``how``, then the
-    first ranks and level 1 on the device) from a graph that holds no rank
-    order, on the host or on the device: ``(times, (ra, rb))``. The times
-    are the head's steps, read off its spans on the event bus (on for the
-    turn), and the whole head up to the device's end (``prep_s``)."""
-    for key in ("_rank_order", "_device_rank_order"):
-        graph.__dict__.pop(key, None)
-    enabled = BUS.enabled
-    BUS.enable()
-    mark = BUS.mark()
-    try:
-        rs._sync(device)
-        t0 = time.perf_counter()
-        head = rs._prep_head(graph, device, endpoints=STAGINGS[how])
-        rs._sync(device)
-        prep_s = time.perf_counter() - t0
-    finally:
-        BUS.enabled = enabled
-    times = dict.fromkeys(_STAGING_SPANS.values(), 0.0)
-    for ph, name, _cat, _ts, dur, _tid, _args in BUS.events_since(mark):
-        if ph == "X" and name in _STAGING_SPANS:
-            times[_STAGING_SPANS[name]] += dur * 1e-9
-    return {**times, "prep_s": prep_s}, head[2:4]
-
-
-def _summary(values) -> dict:
-    values = sorted(values)
-    return {"median": statistics.median(values), "min": values[0], "max": values[-1],
-            "spread": values[-1] - values[0]}
-
-
-def staging_turns(graph, device, turns: int) -> dict:
-    """The heads of :data:`STAGINGS` in turns, the order rotated by one each
-    turn, so that each goes first as often as the others; whether all give
-    the same pair."""
-    names = list(STAGINGS)
-    runs = {how: [] for how in names}
-    staged = {}
-    for i in range(turns):
-        for how in names[i % len(names):] + names[:i % len(names)]:
-            times, pair = _staging_turn(graph, device, how)
-            runs[how].append(times)
-            staged[how] = pair
-    equal = all(torch.equal(a, b) for how in names[1:]
-                for a, b in zip(staged[names[0]], staged[how]))
-    return {"turns": turns, "equal": equal,
-            **{how: {"turns": r, **{k: _summary([t[k] for t in r]) for k in r[0]}}
-               for how, r in runs.items()}}
 
 
 def _phases(graph, strategy: str, device) -> dict:
@@ -317,20 +234,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--strategy", choices=("fused", "stepped", "ell", "rank"), default="fused")
     ap.add_argument("--graph", choices=tuple(GRAPHS), default="rmat")
-    ap.add_argument("--staging", action="store_true",
-                    help="time the prep head's rank order and endpoint stagings in turns instead")
     args = ap.parse_args(argv)
-    if args.graph in RANK_GRAPHS and args.strategy != "rank" and not args.staging:
+    if args.graph in RANK_GRAPHS and args.strategy != "rank":
         ap.error(f"--graph {args.graph} is for --strategy rank")
     device = resolve_device(None)
     card = card_description()
     label, make = GRAPHS[args.graph]
     graph = make()
-    if args.staging:
-        print(json.dumps({"card": card, "graph": label, "nodes": graph.num_nodes,
-                          "edges": graph.num_edges,
-                          "staging": staging_turns(graph, device, STAGING_TURNS)}))
-        return 0
     boruvka.solve_graph(graph, strategy=args.strategy, device=device)  # warm-up
     phases = _phases(graph, args.strategy, device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

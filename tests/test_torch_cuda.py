@@ -448,12 +448,12 @@ def test_rank_speculative_on_card_accepts_and_mispredicts(cuda):
 @pytest.mark.gpu
 def test_rank_stage_cache_is_not_reused_across_devices_on_card(cuda):
     g = generators.road_grid_graph(20, 20, seed=3)
-    on_card = rank_solver.prepare_rank_arrays_l2(g, device=cuda)
-    on_cpu = rank_solver.prepare_rank_arrays_l2(g, device="cpu")
+    on_card = rank_solver.prepare_rank_arrays_full(g, device=cuda)
+    on_cpu = rank_solver.prepare_rank_arrays_full(g, device="cpu")
     assert all(t.is_cuda for t in on_card) and all(t.is_cpu for t in on_cpu)
-    assert rank_solver.prepare_rank_arrays_l2(g, device=cuda) is on_card
+    assert rank_solver.prepare_rank_arrays_full(g, device=cuda) is on_card
     index = torch.device("cuda", torch.cuda.current_device())
-    assert rank_solver.prepare_rank_arrays_l2(g, device=index) is on_card
+    assert rank_solver.prepare_rank_arrays_full(g, device=index) is on_card
     for a, b in zip(on_card, on_cpu):
         assert torch.equal(a.cpu(), b)
     _assert_same_solve(boruvka.solve_graph(g, strategy="rank", device="cpu"),
@@ -553,17 +553,27 @@ def test_prep_rank_endpoints_on_card_equal_cpu(cuda, kind):
 
 @pytest.mark.gpu
 def test_filtered_prep_on_card_equals_cpu(cuda, monkeypatch):
-    """The filtered prep's device levels (K6, K1) on the card give the CPU
-    prep's arrays, in both regimes."""
+    """The filter route's device levels on the card (K6 and K1: the prep's
+    first ranks and level 1, the head's level 2 over the prefix each
+    regime's solve runs first) give the CPU's arrays, in both regimes, and
+    the solves the CPU's forest."""
     monkeypatch.setattr(rank_solver, "_FILTER_MIN_RANKS", 1024)
     for census in (1 << 21, 64):
         monkeypatch.setattr(rank_solver, "_CENSUS_MIN_SPACE", census)
         g = generators.rmat_graph(14, 16, seed=2)
-        on_card = rank_solver.prepare_rank_arrays_filtered(g, device=cuda)
-        on_cpu = rank_solver.prepare_rank_arrays_filtered(g, device="cpu")
-        assert on_card[6] == on_cpu[6] and (on_card[3] is None) == (census == 64)
-        for a, b in zip(on_card[:6], on_cpu[:6]):
-            assert (a is None and b is None) or torch.equal(a.cpu(), b)
+        on_card = rank_solver.prepare_rank_arrays_full(g, device=cuda)
+        on_cpu = rank_solver.prepare_rank_arrays_full(g, device="cpu")
+        for a, b in zip(on_card, on_cpu, strict=True):
+            assert torch.equal(a.cpu(), b)
+        n_pad, m_pad = on_cpu[0].shape[0], on_cpu[1].shape[0]
+        prefix = (rank_solver._prefix_plan(n_pad, m_pad)[0] if census == 64
+                  else rank_solver._prefix_size(n_pad, m_pad, 2))
+        head_card = rank_solver._filtered_head(*on_card, prefix=prefix)
+        head_cpu = rank_solver._filtered_head(*on_cpu, prefix=prefix)
+        for a, b in zip(head_card[:4] + tuple(head_card[4]), head_cpu[:4] + tuple(head_cpu[4])):
+            assert torch.equal(a.cpu(), b)
+        _assert_same_solve(boruvka.solve_graph(g, strategy="rank", device="cpu"),
+                           boruvka.solve_graph(g, strategy="rank", device=cuda))
 
 
 @pytest.fixture(scope="module")
@@ -610,8 +620,9 @@ _FILTER_CALLS = ("solve_rank_filtered_speculative", "solve_rank_filtered",
 
 @pytest.mark.gpu
 def test_filter_route_on_card_equals_oracle(cuda, rmat19, monkeypatch):
-    """``auto`` on RMAT-19: the speculative filtered program from the
-    prep's level 2; K6 launches once (the prep's first ranks) and K1."""
+    """``auto`` on RMAT-19: the speculative filtered program, its head's
+    level 2 from the prep's level 1; K6 launches once (the prep's first
+    ranks) and K1."""
     g, oracle = rmat19
     k1, k6 = kernels.hook_compress.launches, kernels.first_rank.launches
     got, log = _filtered_solve_on_card(g, cuda, monkeypatch, _FILTER_CALLS)
@@ -639,8 +650,8 @@ def test_filter_misprediction_on_card_equals_oracle(cuda, rmat19, monkeypatch):
 
 @pytest.mark.gpu
 def test_filter_overflow_on_card_equals_oracle(cuda, rmat19, monkeypatch):
-    """From the census size up (lowered to RMAT-19's), the filtered solve
-    from the host level 2; with survivors predicted at 2,048 the fused
+    """From the census size up (lowered to RMAT-19's), the filtered solve,
+    its head's level 2 over its own prefix; with survivors predicted at 2,048 the fused
     filter overflows to the two-step filter, with the same forest."""
     g, oracle = rmat19
     monkeypatch.setattr(rank_solver, "_CENSUS_MIN_SPACE", 1 << 19)

@@ -4,11 +4,12 @@ The route serves dense graphs at ``_FILTER_MIN_RANKS`` (2^23) padded ranks
 and above; here the thresholds are lowered on both sides so that graphs of
 a thousand vertices take it, and every sub-route must give JAX's forest
 mask, fragment labels and level count: the speculative program (accepted
-from the host level 2 and from the device head, and mispredicted), the
-filtered solve (host level 2, device head, the fused filter overflowing to
-the two-step one, the chunked filter), the degenerate split, the resume's
-wide branch. The filtered prep's first ranks and levels 1-2, which run on
-the device from the staged endpoints, must also equal the host passes. The
+and mispredicted), the filtered solve (the fused filter overflowing to the
+two-step one, the chunked filter), the degenerate split, the resume's wide
+branch. The port's heads run level 2 from the prep's ``parent1``, where
+JAX's production solves read the host's level 2 from their prep. The
+prep's first ranks and level 1, which run on the device from the staged
+endpoints, and the heads' level 2 must also equal the host passes. The
 JAX package's native library stays out: its ``get_lib`` is patched to
 report none, so its host passes take their NumPy branches.
 """
@@ -153,10 +154,11 @@ def test_filtered_heads_match_jax(name):
     prefix = 2 * vmin0.size
     got = trs._filtered_head(*_t(vmin0, ra, rb, parent1), prefix=prefix)
     _same(got, tuple(jrs._filtered_head(*_j(vmin0, ra, rb, parent1), prefix=prefix)))
-    parent12, l2r = trs.host_level2(parent1, ra, rb, prefix)
-    l2 = trs._pad_l2_ranks(l2r, ra.size)
-    got = trs._filtered_head_l2(*_t(vmin0, ra, rb, parent12, l2), prefix=prefix)
-    _same(got, tuple(jrs._filtered_head_l2(*_j(vmin0, ra, rb, parent12, l2), prefix=prefix)))
+    # JAX's production head from its prep's host level 2: the same head.
+    jprep = jrs.prepare_rank_arrays_filtered(_pair(name)[0])
+    jhead = jrs._filtered_head_l2(*_j(vmin0, ra, rb), *jprep[4:6], prefix=prefix)
+    assert jprep[6] == prefix
+    _same(got, tuple(jhead))
 
 
 def _after_prefix(name):
@@ -211,15 +213,22 @@ def test_filter_suffix_chunked_with_no_survivors_matches_jax():
 
 @pytest.mark.parametrize("census", [BIG_CENSUS, SMALL_CENSUS])
 @pytest.mark.parametrize("name", list(GRAPHS))
-def test_prepare_rank_arrays_filtered_matches_jax(monkeypatch, census, name):
+def test_filtered_route_matches_jax_from_its_prep(monkeypatch, census, name):
+    """The filter route's one prep holds JAX's filtered prep's arrays, but
+    its level 2 (JAX stages ``parent1`` under the census size only), and is
+    cached; the route's solve from it is JAX's from its own prep."""
     _set(monkeypatch, _CENSUS_MIN_SPACE=census)
     jg, tg = _pair(name)
-    got = trs.prepare_rank_arrays_filtered(tg, device=CPU)
+    got = trs.prepare_rank_arrays_full(tg, device=CPU)
     want = jrs.prepare_rank_arrays_filtered(jg)
-    assert got[6] == want[6]
-    assert (got[3] is None) == (want[3] is None) == (census == SMALL_CENSUS)
-    _same(tuple(t for t in got[:6] if t is not None), tuple(w for w in want[:6] if w is not None))
-    assert trs.prepare_rank_arrays_filtered(tg, device=CPU) is got  # cached
+    assert (want[3] is None) == (census == SMALL_CENSUS)
+    _same(got[:3], tuple(want[:3]))
+    if want[3] is not None:
+        _same(got[3], want[3])
+    _same(got[3], trs.host_level1(*(t.numpy() for t in got[:3])))
+    solve = trs.make_production_solver(tg, device=CPU)
+    assert trs.prepare_rank_arrays_full(tg, device=CPU) is got  # cached
+    _same_solve(solve(), jrs.make_production_solver(jg)(), tg)
 
 
 def _isolated_zero(edge_mod, gen):
@@ -257,44 +266,57 @@ EDGE_CASES = {"isolated-zero": _isolated_zero, "edgeless-inside": _edgeless_insi
               "one-hub": _one_hub}
 
 
-def _host_levels(g, l2_prefix: int):
-    """``(vmin0, parent1, parent12, l2_ranks)`` as the host passes compute
-    them (the native first ranks padded, :func:`host_level1`,
-    :func:`host_level2` with :func:`_pad_l2_ranks`), for the device levels
-    to equal."""
+def _host_levels(g, prefix: int):
+    """``(vmin0, parent1, fragment2, marks)`` as the host passes compute
+    them (the native first ranks padded, :func:`host_level1`, and the JAX
+    package's host level 2 over ranks ``[0, prefix)``): the two-level
+    partition and the sorted ranks levels 1 and 2 mark, for the device
+    levels to equal."""
     vmin0, ra, rb, parent1 = _host(g)
-    parent12, l2r = trs.host_level2(parent1, ra, rb, l2_prefix)
-    return vmin0, parent1, parent12, trs._pad_l2_ranks(l2r, ra.size)
+    fragment2, l2r = jrs.host_level2(parent1, ra, rb, prefix)
+    return vmin0, parent1, fragment2, np.union1d(vmin0[vmin0 < INT32_MAX], l2r)
+
+
+def _same_level2(head, want):
+    """A head's ``(fragment, mst, ...)`` against :func:`_host_levels`: the
+    partition and the marked ranks."""
+    _same(head[0], want[2])
+    np.testing.assert_array_equal(np.nonzero(head[1].numpy())[0], want[3])
 
 
 @pytest.mark.parametrize("census", [BIG_CENSUS, SMALL_CENSUS])
 @pytest.mark.parametrize("name", list(GRAPHS) + list(EDGE_CASES))
 def test_filtered_prep_device_levels_equal_the_host_passes(monkeypatch, census, name):
-    """The filtered prep's first ranks, level 1 and level 2 (K6 and K1's
-    torch forms here) equal the host passes element for element, in both
-    regimes, and JAX's prep; its solve gives the oracle's forest."""
+    """The filter route's device levels (K6 and K1's torch forms here): the
+    prep's first ranks and level 1, and level 2 in the head over the prefix
+    the unhooked solve runs first (the speculative program's under the
+    census size, :func:`_prefix_plan`'s from it up), equal the host passes
+    element for element, in both regimes, and JAX's prep; the solve gives
+    the oracle's forest."""
     _set(monkeypatch, _CENSUS_MIN_SPACE=census)
     make = GRAPHS.get(name) or EDGE_CASES[name]
     tg = make(tedge, tgen)
-    vmin0, ra, rb, parent1, parent12, l2_ranks, l2_prefix = trs.prepare_rank_arrays_filtered(
-        tg, device=CPU)
-    want = _host_levels(tg, l2_prefix)
-    _same((vmin0, parent12, l2_ranks), (want[0], want[2], want[3]))
-    if census == BIG_CENSUS:
-        _same(parent1, want[1])
-    else:
-        assert parent1 is None
-        _same(trs._device_level1(vmin0, ra, rb), want[1])
+    vmin0, ra, rb, parent1 = trs.prepare_rank_arrays_full(tg, device=CPU)
+    n_pad, m_pad = vmin0.shape[0], ra.shape[0]
+    prefix = (trs._prefix_size(n_pad, m_pad, 2) if census == BIG_CENSUS
+              else trs._prefix_plan(n_pad, m_pad)[0])
+    assert 2 * prefix <= m_pad
+    head = trs._filtered_head(vmin0, ra, rb, parent1, prefix=prefix)
+    want = _host_levels(tg, prefix)
+    _same((vmin0, parent1), want[:2])
+    _same_level2(head, want)
     if name == "isolated-zero":
         assert ra.shape[0] > tg.num_edges and int(vmin0[0]) == INT32_MAX
     elif name == "edgeless-inside":
         assert (vmin0[[137, 1023]] == INT32_MAX).all() and tg.num_nodes == 1024
     elif name == "one-hub":
-        assert (parent12[: tg.num_nodes] == 0).all() and (l2_ranks == ra.shape[0]).all()
+        assert (head[0][: tg.num_nodes] == 0).all() and int(head[4][0]) == 1  # no level 2
     jg = make(jedge, jgen)
     jwant = jrs.prepare_rank_arrays_filtered(jg)
-    _same(tuple(t for t in (vmin0, ra, rb, parent1, parent12, l2_ranks) if t is not None),
-          tuple(w for w in jwant[:6] if w is not None))
+    assert jwant[6] == prefix
+    _same((vmin0, ra, rb, head[0]), (*jwant[:3], jwant[4]))
+    if jwant[3] is not None:
+        _same(parent1, jwant[3])
     np.testing.assert_array_equal(tapi.minimum_spanning_forest(tg, device=CPU).edge_ids,
                                   rank_oracle_edge_ids(tg))
 
@@ -327,29 +349,35 @@ def _edgeless(edge_mod, gen):
 @pytest.mark.parametrize("name", ["rmat10", "isolated-zero", "edgeless-inside", "one-hub",
                                   "edgeless"])
 def test_full_and_l2_preps_equal_the_host_passes(route, name):
-    """The full and host-L2 preps run the filtered prep's device levels
-    (the host-L2 one its level 2 over every rank): element for element the
-    host passes, and JAX's prep."""
+    """The full route's and the host-L2 route's prep (one prep) runs the
+    device levels, and the host-L2 route's head its level 2 over every
+    rank: element for element the host passes, and JAX's preps."""
     make = {**GRAPHS, **EDGE_CASES, "edgeless": _edgeless}[name]
     tg, jg = make(tedge, tgen), make(jedge, jgen)
     want = _host_levels(tg, tg.num_edges)
+    got = trs.prepare_rank_arrays_full(tg, device=CPU)
+    _same((got[0], got[3]), want[:2])
     if route == "full":
-        got = trs.prepare_rank_arrays_full(tg, device=CPU)
-        _same((got[0], got[3]), want[:2])
         _same(got, tuple(jrs.prepare_rank_arrays_full(jg)))
     else:
-        got = trs.prepare_rank_arrays_l2(tg, device=CPU)
-        _same((got[0], got[3], got[4]), (want[0], want[2], want[3]))
-        _same(got, tuple(jrs.prepare_rank_arrays_l2(jg)))
+        head = trs._rank_head(*got, compact_after=2)
+        _same_level2(head, want)
+        jwant = jrs.prepare_rank_arrays_l2(jg)
+        _same((*got[:3], head[0]), tuple(jwant[:4]))
 
 
-def test_prepare_rank_arrays_filtered_under_the_filter_width_matches_jax(monkeypatch):
+def test_filtered_route_under_the_filter_width_matches_jax(monkeypatch):
+    """Under the filter width the dense graph takes no filter step: the
+    prep is JAX's filtered prep's full one, and the solve JAX's."""
     _set(monkeypatch, _FILTER_MIN_RANKS=1 << 23)
+    log = _calls(monkeypatch, _ROUTE_STEPS)
     jg, tg = _pair("rmat10")
-    got = trs.prepare_rank_arrays_filtered(tg, device=CPU)
     want = jrs.prepare_rank_arrays_filtered(jg)
-    assert got[4:] == (None, None, want[6]) and want[4:6] == (None, None)
-    _same(got[:4], tuple(want[:4]))
+    assert want[4:6] == (None, None)
+    _same(trs.prepare_rank_arrays_full(tg, device=CPU), tuple(want[:4]))
+    _same_solve(trs.make_production_solver(tg, device=CPU)(), jrs.make_production_solver(jg)(),
+                tg)
+    assert not {"_filtered_head", "solve_rank_filtered"} & {step for step, _ in log}
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +386,8 @@ def test_prepare_rank_arrays_filtered_under_the_filter_width_matches_jax(monkeyp
 
 
 _ROUTE_STEPS = ("solve_rank_filtered_speculative", "_filtered_speculative_program",
-                "_filtered_speculative_program_l2", "solve_rank_filtered",
-                "_filter_suffix_fused", "_filter_suffix_ends", "_filter_suffix_chunked",
-                "solve_rank_staged", "_filtered_head", "_filtered_head_l2")
+                "solve_rank_filtered", "_filter_suffix_fused", "_filter_suffix_ends",
+                "_filter_suffix_chunked", "solve_rank_staged", "_filtered_head")
 
 
 def _production(monkeypatch, name):
@@ -372,10 +399,13 @@ def _production(monkeypatch, name):
 
 
 @pytest.mark.parametrize("name", ["rmat10", "rmat11"])
-def test_speculative_program_accepted_from_the_host_level2(monkeypatch, name):
+def test_speculative_program_accepted_from_parent1(monkeypatch, name):
+    """The production route's speculative program, its head's level 2 from
+    the prep's ``parent1``, answers as JAX's from its host level 2."""
     steps, out = _production(monkeypatch, name)
     assert steps[-1] == "solve_rank_filtered_speculative" and out[steps[-1]] is not None
-    assert "_filtered_speculative_program_l2" in steps and "solve_rank_filtered" not in steps
+    assert steps[0] == "_filtered_head" and "_filtered_speculative_program" in steps
+    assert "solve_rank_filtered" not in steps
 
 
 def test_speculative_program_accepted_from_the_device_head(monkeypatch):
@@ -392,8 +422,8 @@ def test_speculative_program_accepted_from_the_device_head(monkeypatch):
 def test_speculative_program_mispredicted_then_the_filtered_solve(monkeypatch):
     """The clique's filter survivors overflow the program's width: it
     answers ``None``, and ``solve_rank_filtered`` runs from ``parent1``
-    with the device head (the host level 2 was for the program's prefix),
-    its fused filter overflowing to the two-step filter."""
+    with its own head over its own prefix, its fused filter overflowing to
+    the two-step filter."""
     steps, out = _production(monkeypatch, "clique")
     assert out["solve_rank_filtered_speculative"] is None
     after = steps[steps.index("solve_rank_filtered_speculative") + 1:]
@@ -411,13 +441,14 @@ def test_speculative_program_answers_none_at_small_widths(widths):
 
 
 @pytest.mark.parametrize("name", list(GRAPHS))
-def test_filtered_solve_from_the_host_level2(monkeypatch, name):
-    """From the census size up: ``solve_rank_filtered`` with the host
-    level 2 over ``_prefix_plan``'s prefix; the fused filter, overflowing
-    to the two-step one on the clique."""
+def test_filtered_solve_from_parent1(monkeypatch, name):
+    """From the census size up: ``solve_rank_filtered``, its head's level 2
+    over ``_prefix_plan``'s prefix from the prep's ``parent1``, against
+    JAX's from its host level 2; the fused filter, overflowing to the
+    two-step one on the clique."""
     _set(monkeypatch, _CENSUS_MIN_SPACE=SMALL_CENSUS)
     steps, _ = _production(monkeypatch, name)
-    assert steps[0] == "_filtered_head_l2" and steps[-1] == "solve_rank_filtered"
+    assert steps[0] == "_filtered_head" and steps[-1] == "solve_rank_filtered"
     assert "solve_rank_filtered_speculative" not in steps
     assert ("_filter_suffix_ends" in steps) == (name == "clique")
 
@@ -475,26 +506,27 @@ def test_degenerate_split_runs_the_staged_solve(monkeypatch):
     assert trs.solve_rank_filtered_speculative(*_t(vmin0, ra, rb), prefix_mult=8) is None
 
 
-def test_l2_prefix_mismatch_raises_in_both(monkeypatch):
-    """The speculative prep's host level 2 is for the mult-2 prefix: the
-    filtered solve (mult 1 here) refuses it, in both packages, and the
-    speculative program refuses a wrong ``l2_prefix``."""
+def test_hooked_filter_route_under_the_census_size_matches_jax(monkeypatch):
+    """Under the census size a hook selects the chunked filtered solve,
+    whose prefix (``_prefix_plan``'s, mult 1 here) is not the speculative
+    program's (mult 2), for which JAX's prep computed its host level 2:
+    the port's head computes level 2 over the solve's own prefix, and every
+    chunk state and the result are JAX's."""
     jg, tg = _pair("rmat10")
-    vmin0, ra, rb, parent1, parent12, l2, prefix = trs.prepare_rank_arrays_filtered(tg, device=CPU)
-    jv, jra, jrb, _, jp12, jl2, jprefix = jrs.prepare_rank_arrays_filtered(jg)
-    assert prefix == jprefix == 2 * vmin0.numel()
-    for solve, args, kw in (
-        (trs.solve_rank_filtered, (vmin0, ra, rb), dict(parent12=parent12, l2_ranks=l2,
-                                                         l2_prefix=prefix)),
-        (jrs.solve_rank_filtered, (jv, jra, jrb), dict(parent12=jp12, l2_ranks=jl2,
-                                                        l2_prefix=jprefix)),
-        (trs.solve_rank_filtered_speculative, (vmin0, ra, rb),
-         dict(parent12=parent12, l2_ranks=l2, l2_prefix=prefix // 2)),
-        (jrs.solve_rank_filtered_speculative, (jv, jra, jrb),
-         dict(parent12=jp12, l2_ranks=jl2, l2_prefix=jprefix // 2)),
-    ):
-        with pytest.raises(ValueError, match="computed for prefix"):
-            solve(*args, **kw)
+    n_pad, m_pad = tb._bucket_size(tg.num_nodes), tb._bucket_size(tg.num_edges)
+    assert trs._prefix_plan(n_pad, m_pad)[0] != jrs.prepare_rank_arrays_filtered(jg)[6]
+    log = _calls(monkeypatch, _ROUTE_STEPS)
+    seen_t, seen_j = [], []
+    got = trs.make_production_solver(tg, device=CPU)(on_chunk=_recorder(seen_t))
+    want = jrs.make_production_solver(jg)(on_chunk=_recorder(seen_j))
+    _same_solve(got, want, tg)
+    assert [step for step, _ in log][0] == "_filtered_head"
+    assert "solve_rank_filtered_speculative" not in [step for step, _ in log]
+    assert len(seen_t) == len(seen_j) >= 2
+    for (lt, ft, mt, ct), (lj, fj, mj, cj) in zip(seen_t, seen_j):
+        assert (lt, ct) == (lj, cj)
+        np.testing.assert_array_equal(ft, fj)
+        np.testing.assert_array_equal(mt, mj)
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +631,6 @@ def test_profile_phases_read_the_filter_route(monkeypatch, census, route):
     assert phases["finish_s"] == pytest.approx(
         phases["prefix_finish_s"] + phases["filter_s"] + phases["survivor_finish_s"])
     split = phases["stage_split"]
-    assert split["host_level2_s"] > 0 and split["rank_endpoints_s"] > 0
+    assert split["level1_s"] > 0 and split["rank_endpoints_s"] > 0
     assert split["pin_memory_s"] == 0  # no page locking on the CPU
     assert "rank_endpoints" not in tg.__dict__  # unwrapped after

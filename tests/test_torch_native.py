@@ -2,11 +2,12 @@
 package's, element-exact.
 
 Each pass the port runs natively (the rank order, the rank endpoints, the
-first ranks, level 2's first cross ranks, the RMAT generator) must equal the
-port's own NumPy form of it and the JAX package's NumPy branch. The JAX
-package's native library stays out of these tests: its ``get_lib`` is
-patched to report no library. The JAX native generator's stream is pinned
-by recorded fixtures instead.
+first ranks, the RMAT generator) must equal the port's own NumPy form of it
+and the JAX package's NumPy branch. Level 2, a native pass in the JAX
+package, runs on the device in the port: its torch form must equal the JAX
+package's host pass. The JAX package's native library stays out of these
+tests: its ``get_lib`` is patched to report no library. The JAX native
+generator's stream is pinned by recorded fixtures instead.
 """
 
 import hashlib
@@ -19,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_ghs_implementation_tpu.graphs import edgelist as jedge
 from distributed_ghs_implementation_tpu.graphs import generators as jgen
@@ -87,12 +89,17 @@ NAMES = list(GRAPHS) + ["er48", "rmat12", "road40", "forest23", "readme"]
 
 
 def test_the_source_is_the_jax_packages_code():
-    """The port's copy differs only in its opening note."""
+    """The port's copy differs only in its opening note and in lacking the
+    JAX package's level-2 pass (each fragment's first cross rank), which
+    the port runs on the device."""
     def code(path):
         text = path.read_text()
         return text[text.index("#include"):]
 
-    assert code(native.SOURCE) == code(ROOT / "native" / "graph_native.cpp")
+    jax_code = code(ROOT / "native" / "graph_native.cpp")
+    start = jax_code.index("// Level-2 MOE on the host")
+    end = jax_code.index("// Fused rank-endpoint build")
+    assert code(native.SOURCE) == jax_code[:start] + jax_code[end:]
 
 
 def test_every_function_of_the_source_is_bound():
@@ -158,9 +165,7 @@ def test_a_missing_library_raises_through_every_pass(monkeypatch):
         with pytest.raises(RuntimeError, match="no library"):
             fn()
     g.__dict__["_rank_order"] = np.arange(3)
-    for fn in (lambda: g.first_ranks, lambda: g.rank_endpoints(),
-               lambda: trs.host_level2(np.arange(4, dtype=np.int32), *g.rank_endpoints(
-                   native=False), 3)):
+    for fn in (lambda: g.first_ranks, lambda: g.rank_endpoints()):
         with pytest.raises(RuntimeError, match="no library"):
             fn()
     assert tedge.rank_order(g.w, native=False).tolist() == [2, 1, 0]
@@ -222,39 +227,42 @@ def test_rank_csr_refuses_an_endpoint_past_the_vertices():
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_host_level2_matches_numpy_and_jax(graphs, name):
-    """Over the true edge count and over a prefix past it, into the pad
-    ranks (self-edges of vertex 0), as the filter route's prep runs it."""
+def test_prefix_level2_core_matches_the_jax_host_pass(graphs, name):
+    """The device level 2 over ranks ``[0, m)`` (``_prefix_level2_core``
+    from the level-1 partition), over the true edge count, a third of it
+    and a prefix past it, into the pad ranks (self-edges of vertex 0), as
+    the filter route's head runs it: the JAX package's host level 2, its
+    partition and its ranks."""
     tg = graphs[name][1]
     n_pad, m_pad = tb._bucket_size(tg.num_nodes), tb._bucket_size(tg.num_edges)
     ra, rb = tg.rank_endpoints(pad_to=m_pad + 64)
     vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
     vmin0[: tg.num_nodes] = tg.first_ranks
     parent1 = trs.host_level1(vmin0, ra, rb)
+    p1 = torch.from_numpy(parent1)
     for m in {tg.num_edges, tg.num_edges // 3, m_pad + 64}:
-        got = trs.host_level2(parent1, ra, rb, m)
-        for want in (trs.host_level2(parent1, ra, rb, m, native=False),
-                     jrs.host_level2(parent1, ra, rb, m)):
-            for a, b in zip(got, want):
-                np.testing.assert_array_equal(a, b)
+        fragment, fa, fb, has2, safe2, count = trs._prefix_level2_core(
+            p1, p1[torch.from_numpy(ra[:m])], p1[torch.from_numpy(rb[:m])])
+        fragment2, l2r = jrs.host_level2(parent1, ra, rb, m)
+        np.testing.assert_array_equal(fragment.numpy(), fragment2)
+        np.testing.assert_array_equal(np.unique(safe2[has2].numpy()), l2r)
+        assert int(count) == int((fragment2[ra[:m]] != fragment2[rb[:m]]).sum())
 
 
 @pytest.mark.parametrize("name", ["rmat13", "grid", "forest23"])
 def test_staging_matches_the_numpy_passes(graphs, name):
-    """The host-L2 prep, native, equals its arrays built by every pass in
-    its NumPy form, and the JAX package's prep."""
+    """The rank route's one prep, native, equals its arrays built by every
+    pass in its NumPy form, and the JAX package's prep."""
     jg, tg = graphs[name]
-    got = [t.numpy() for t in trs.prepare_rank_arrays_l2(tg, device="cpu")]
+    got = [t.numpy() for t in trs.prepare_rank_arrays_full(tg, device="cpu")]
     n_pad, m_pad = tb._bucket_size(tg.num_nodes), tb._bucket_size(tg.num_edges)
     np.testing.assert_array_equal(tg._rank_order, tedge.rank_order(tg.w, native=False))
     ra, rb = tg.rank_endpoints(pad_to=m_pad, native=False)
     vmin0 = np.full(n_pad, INT32_MAX, dtype=np.int32)
     vmin0[: tg.num_nodes] = tedge.first_ranks_of(tg.num_nodes, ra[: tg.num_edges],
                                                  rb[: tg.num_edges], native=False)
-    parent12, l2r = trs.host_level2(trs.host_level1(vmin0, ra, rb), ra, rb, tg.num_edges,
-                                    native=False)
-    want = (vmin0, ra, rb, parent12, trs._pad_l2_ranks(l2r, m_pad))
-    for a, b, c in zip(got, want, jrs.prepare_rank_arrays_l2(jg)):
+    want = (vmin0, ra, rb, trs.host_level1(vmin0, ra, rb))
+    for a, b, c in zip(got, want, jrs.prepare_rank_arrays_full(jg), strict=True):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, np.asarray(c))
 
@@ -330,8 +338,7 @@ def test_the_wrappers_refuse_sizes_the_loops_would_overrun():
     a = np.arange(4, dtype=np.int32)
     for call in (lambda: native.rank_endpoints_i32(np.arange(4), a, a, 3),
                  lambda: native.rank_endpoints_i32(np.arange(4), a, a[:3], 8),
-                 lambda: native.first_rank_i32(4, a, a[:3]),
-                 lambda: native.first_cross_rank(4, a, a, a[:3])):
+                 lambda: native.first_rank_i32(4, a, a[:3])):
         with pytest.raises(ValueError, match="native host library"):
             call()
 

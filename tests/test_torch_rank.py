@@ -137,22 +137,21 @@ def test_host_level1_matches_jax_and_the_device(graphs, name):
 
 
 @pytest.mark.parametrize("name", list(GRAPHS))
-def test_host_level2_matches_jax(graphs, name):
+def test_rank_head_level2_equals_the_jax_host_pass(graphs, name):
+    """The head's level 2 over every rank (``_rank_head`` at
+    ``compact_after=2``) is the JAX package's host level 2: the two-level
+    partition, the endpoints relabeled by it, and the marks of levels 1
+    and 2."""
     tg = graphs[name][1]
     vmin0, ra, rb = _host(tg)
     parent1 = trs.host_level1(vmin0, ra, rb)
-    got = trs.host_level2(parent1, ra, rb, tg.num_edges)
-    want = jrs.host_level2(parent1, ra, rb, tg.num_edges)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-
-
-@pytest.mark.parametrize("size", [0, 5, 1024, 1025, 3000])
-def test_pad_l2_ranks_matches_jax(size):
-    l2r = np.sort(np.random.default_rng(size).choice(50_000, size, replace=False)).astype(np.int32)
-    got = trs._pad_l2_ranks(l2r, 65_536)
-    np.testing.assert_array_equal(got, jrs._pad_l2_ranks(l2r, 65_536))
-    assert got.dtype == np.int32
+    fragment, mst, fa, fb, _ = trs._rank_head(*_t(vmin0, ra, rb, parent1), compact_after=2)
+    fragment2, l2r = jrs.host_level2(parent1, ra, rb, tg.num_edges)
+    np.testing.assert_array_equal(fragment.numpy(), fragment2)
+    np.testing.assert_array_equal(fa.numpy(), fragment2[ra])
+    np.testing.assert_array_equal(fb.numpy(), fragment2[rb])
+    np.testing.assert_array_equal(np.nonzero(mst.numpy())[0],
+                                  np.union1d(vmin0[vmin0 < INT32_MAX], l2r))
 
 
 def test_host_levels_raise_on_a_long_hook_cycle():
@@ -169,13 +168,9 @@ def test_host_levels_raise_on_a_long_hook_cycle():
 @pytest.mark.parametrize("name", ["rmat", "forest"])
 def test_preps_match_jax(graphs, name):
     jg, tg = graphs[name]
-    for got, want in ((trs.prepare_rank_arrays_full(tg, device=CPU),
-                       jrs.prepare_rank_arrays_full(jg)),
-                      (trs.prepare_rank_arrays_l2(tg, device=CPU),
-                       jrs.prepare_rank_arrays_l2(jg))):
-        assert all(t.dtype == torch.int32 for t in got)
-        _same(tuple(got), tuple(want))
     full = trs.prepare_rank_arrays_full(tg, device=CPU)
+    assert all(t.dtype == torch.int32 for t in full)
+    _same(tuple(full), tuple(jrs.prepare_rank_arrays_full(jg)))
     assert trs.prepare_rank_arrays_full(tg, device=CPU) is full  # cached
     assert trs.prepare_rank_arrays(tg, device=CPU) == full[:3]
 
@@ -372,15 +367,41 @@ def test_solve_rank_speculative_mispredicts_to_none(graphs):
     assert jrs.solve_rank_speculative(*_j(*arrays), out_size=2) is None
 
 
-@pytest.mark.parametrize("name", ["grid", "road", "forest"])
-def test_solve_rank_l2_matches_jax(graphs, name):
+@pytest.mark.parametrize("hooked", [False, True])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_host_l2_route_matches_jax(graphs, name, hooked):
+    """The host-L2 route's solve (the staged solve from the one prep, level
+    2 in its head, two-level chunks, the census) against JAX's
+    ``solve_rank_l2`` from its prep's host level 2: the forest, the
+    fragment and the levels, and with a hook every chunk state. Where the
+    family routes there, the production solver is that solve."""
     jg, tg = graphs[name]
-    got = trs.solve_rank_l2(*trs.prepare_rank_arrays_l2(tg, device=CPU))
-    want = jrs.solve_rank_l2(*jrs.prepare_rank_arrays_l2(jg))
+    seen_t, seen_j = [], []
+    vmin0, ra, rb, parent1 = trs.prepare_rank_arrays_full(tg, device=CPU)
+    got = trs.solve_rank_staged(vmin0, ra, rb, compact_after=2, chunk_levels=2,
+                                compact_space=True, parent1=parent1,
+                                on_chunk=_recorder(seen_t, True) if hooked else None)
+    want = jrs.solve_rank_l2(*jrs.prepare_rank_arrays_l2(jg),
+                             on_chunk=_recorder(seen_j, False) if hooked else None)
     _same_solve(got, want)
-    vmin0, ra, rb = _host(tg)
-    _same_solve(got, trs.solve_rank_staged(*_t(vmin0, ra, rb), compact_after=2, chunk_levels=2,
-                                           compact_space=True))
+    assert len(seen_t) == len(seen_j) >= (2 if hooked else 0)
+    for (lt, ft, mt, ct), (lj, fj, mj, cj) in zip(seen_t, seen_j):
+        assert (lt, ct) == (lj, cj)
+        np.testing.assert_array_equal(ft, fj)
+        np.testing.assert_array_equal(mt, mj)
+    if trs.use_l2_path(trs._pick_family(tg)):
+        _same_solve(trs.make_production_solver(tg, device=CPU)(), want)
+
+
+@pytest.mark.parametrize("nodes", [1, 5])
+def test_production_solver_on_a_graph_with_no_edge_matches_jax(nodes):
+    """No edge: the host-L2 route (the family of degree 0) hooks nothing
+    and counts no level, as JAX's ``solve_rank_l2`` does."""
+    none = np.zeros(0, dtype=np.int64)
+    tg, jg = (mod.Graph.from_arrays(nodes, none, none, none) for mod in (tedge, jedge))
+    got = trs.make_production_solver(tg, device=CPU)()
+    _same_solve(got, jrs.make_production_solver(jg)())
+    assert got[2] == 0 and not got[0].any()
 
 
 def _recorder(seen, copy):
@@ -497,10 +518,10 @@ def test_auto_over_the_threshold_takes_the_rank_solver():
 
 def test_stage_cache_is_keyed_by_device():
     tg = tgen.road_grid_graph(9, 9, seed=1)
-    staged = trs.prepare_rank_arrays_l2(tg, device=CPU)
-    assert trs.prepare_rank_arrays_l2(tg, device=torch.device("cpu")) is staged
+    staged = trs.prepare_rank_arrays_full(tg, device=CPU)
+    assert trs.prepare_rank_arrays_full(tg, device=torch.device("cpu")) is staged
     cache = tg.__dict__["_rank_stage_cache"]
-    assert set(cache) == {("l2", torch.device("cpu"))}
+    assert set(cache) == {torch.device("cpu")}
 
 
 @pytest.mark.parametrize("name,route", [

@@ -24,8 +24,7 @@ from distributed_ghs_implementation_tpu_torch.obs.events import BUS
 CPU = "cpu"
 COUNTER = "solver.stage.h2d_bytes"
 PREP_LEAVES = ("solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
-               "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.level2",
-               "solver.prep.copy_wait")
+               "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.copy_wait")
 
 GRAPHS = {
     "rmat": lambda: tgen.rmat_graph(10, 16, seed=3),
@@ -150,20 +149,15 @@ PREPS = {
     "rmat11": ("filtered", _filter_route(1 << 21)),
 }
 
-#: route -> the fields of its prep's tuple, in order.
-FIELDS = {
-    "l2": ("vmin0", "ra", "rb", "parent12", "l2_ranks"),
-    "full": ("vmin0", "ra", "rb", "parent1"),
-    "filtered": ("vmin0", "ra", "rb", "parent1", "parent12", "l2_ranks", "prefix"),
-}
-LEVEL_STEPS = ("solver.prep.first_ranks", "solver.prep.level1", "solver.prep.level2")
+LEVEL_STEPS = ("solver.prep.first_ranks", "solver.prep.level1")
 
 
 @pytest.mark.parametrize("name", list(PREPS))
 def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     """The prep's leaf steps are ``solver.prep``'s children, in the order
     the prep runs them: the edges staged, the wait for them, the rank order
-    and the endpoint gather on the device, the levels; they never overlap
+    and the endpoint gather on the device, the first ranks and level 1 (one
+    prep for every route, level 2 in the solve's head); they never overlap
     and lie inside it; each carries its CPU seconds; the stage spans' bytes
     are the staged edges' and the counter's."""
     route, arm = PREPS[name]
@@ -172,11 +166,10 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
     graph = GRAPHS[name]()
     before = BUS.counters().get(COUNTER, 0)
     spans, _ = _solve(graph)
-    level2 = [] if route == "full" else ["solver.prep.level2"]
     assert _children(spans, "solver.prep") == [
         "solver.prep.stage", "solver.prep.stage", "solver.prep.stage", "solver.prep.copy_wait",
         "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.first_ranks",
-        "solver.prep.level1", *level2, "solver.prep.copy_wait"]
+        "solver.prep.level1", "solver.prep.copy_wait"]
     prep = next(sp for sp in spans if sp[0] == "solver.prep")
     assert {k: prep[3][k] for k in ("family", "route", "m_pad")} == {
         "family": trs._pick_family(graph), "route": route,
@@ -199,16 +192,15 @@ def test_prep_steps_run_in_order_under_solver_prep(monkeypatch, name):
 
 @pytest.mark.parametrize("name", list(PREPS))
 def test_prep_levels_run_on_the_device(monkeypatch, name):
-    """Every route's first ranks and levels run on the device (K6 and K1
+    """Every route's first ranks and level 1 run on the device (K6 and K1
     from the staged endpoints): their spans say ``on="device"``, K6's
     wrapper runs once a fresh prep and not for a cached one, no host pass
     runs, and the graph's ``first_ranks`` stays unfilled."""
-    route, arm = PREPS[name]
+    _, arm = PREPS[name]
     if arm is not None:
         arm(monkeypatch)
     ran = []
-    for mod, fn in ((tedge, "first_ranks_of"), (trs, "host_level1"), (trs, "host_level2"),
-                    (trs.kernels, "first_rank")):
+    for mod, fn in ((tedge, "first_ranks_of"), (trs, "host_level1"), (trs.kernels, "first_rank")):
         def spy(*a, _fn=getattr(mod, fn), _name=fn, **k):
             ran.append(_name)
             return _fn(*a, **k)
@@ -219,7 +211,7 @@ def test_prep_levels_run_on_the_device(monkeypatch, name):
             spans, _ = _solve(graph)
             steps.append([(n, a.get("on")) for n, _, _, a in spans if n in LEVEL_STEPS])
         assert "first_ranks" not in graph.__dict__
-    fresh = [(n, "device") for n in (LEVEL_STEPS[:2] if route == "full" else LEVEL_STEPS)]
+    fresh = [(n, "device") for n in LEVEL_STEPS]
     assert steps == [fresh, [], fresh, []]
     assert ran == ["first_rank", "first_rank"]
 

@@ -21,8 +21,9 @@
 * ``make_sharded_solver`` and ``make_sharded_ell_solver`` on 2 CPU shards
   equal JAX's factories on 2 devices and the rank oracle.
 * The 24-bit wire: the encode and ``decode_planes24`` equal JAX's
-  ``_stage_pair_packed24`` and ``_decode_planes24``. The prep's ways of
-  getting the rank endpoints (the device rank order, the host order) give
+  ``_stage_pair_packed24`` and ``_decode_planes24``. The prep's way of
+  getting the rank endpoints, which the weights select (the device rank
+  order, or the host order for a wide integer range and for floats), gives
   JAX's pair.
 
 Every integer result is held exactly (tolerance 0).
@@ -375,29 +376,27 @@ def test_native_planes_equal_the_numpy_encode():
     assert planes.tobytes() == trs.pack_planes24(ra, rb).tobytes()
 
 
-@pytest.mark.parametrize("name", ["rmat13", "road40", "high-ids"])
-def test_both_stagings_give_the_same_pair(graphs, name):
-    """The device rank order and gather and the host order give one pair
-    of rank endpoints, JAX's."""
-    from distributed_ghs_implementation_tpu_torch import profile_solve
-
-    jg, tg = _high_ids() if name == "high-ids" else graphs[name]
+@pytest.mark.parametrize("branch", ["narrow", "high-ids", "wide", "float"])
+def test_rank_endpoints_take_the_way_their_input_selects(graphs, branch):
+    """``_rank_endpoints`` picks its way from the weights: the device rank
+    order and gather for integers within 2^22 values (``narrow``, and
+    ``high-ids`` with every byte of the 24-bit ids in use), the host order
+    for a wider integer range and for floats. Each gives JAX's pair, from
+    a graph that holds no rank order."""
+    if branch == "high-ids":
+        jg, tg = _high_ids()
+    elif branch == "wide":
+        road = graphs["road40"][1]
+        w = np.random.default_rng(2).integers(-(1 << 40), 1 << 40, road.num_edges)
+        jg, tg = (mod.Graph.from_arrays(road.num_nodes, road.u, road.v, w)
+                  for mod in (jedge, tedge))
+    else:
+        jg, tg = graphs["rmat13" if branch == "narrow" else "gnm-float"]
+    tg = tedge.Graph(tg.num_nodes, tg.u, tg.v, tg.w)
     m_pad = trs._bucket_size(tg.num_edges)
-    want = jg.rank_endpoints(pad_to=m_pad)
-    for how, endpoints in profile_solve.STAGINGS.items():
-        pair = endpoints(tedge.Graph(tg.num_nodes, tg.u, tg.v, tg.w), m_pad, torch.device(CPU))
-        assert all(t.dtype == torch.int32 for t in pair), how
-        _same_arrays([t.numpy() for t in pair], want)
-
-
-def test_staging_turns_time_both_ways_and_name_the_one_taken(graphs):
-    from distributed_ghs_implementation_tpu_torch import profile_solve
-
-    out = profile_solve.staging_turns(graphs["rmat13"][1], torch.device(CPU), 2)
-    assert out["equal"] and out["turns"] == 2
-    for how in ("device", "host"):
-        assert len(out[how]["turns"]) == 2
-        for key in ("stage_s", "copy_wait_s", "rank_order_s", "endpoints_s", "levels_s",
-                    "prep_s"):
-            assert 0 <= out[how][key]["min"] <= out[how][key]["median"] <= out[how][key]["max"]
-        assert 0 < out[how]["rank_order_s"]["min"] <= out[how]["prep_s"]["min"]
+    pair = trs._rank_endpoints(tg, m_pad, torch.device(CPU))
+    assert all(t.dtype == torch.int32 for t in pair)
+    _same_arrays([t.numpy() for t in pair], jg.rank_endpoints(pad_to=m_pad))
+    on_device = branch in ("narrow", "high-ids")
+    assert ("_rank_order" in tg.__dict__) is not on_device
+    assert (tb.held_rank_order(tg) is not None) is on_device

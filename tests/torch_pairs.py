@@ -153,8 +153,7 @@ def _args(args, port: bool):
 #: compared with JAX's.
 PORT_ONLY_EVENTS = (
     "solver.prep", "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
-    "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.level2",
-    "solver.prep.copy_wait", "solver.stage.h2d_bytes", "solver.rank.head",
+    "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.copy_wait", "solver.stage.h2d_bytes", "solver.rank.head",
     "solver.rank.finish", "solver.rank.filter", "solver.rank.replay",
     "solver.rank.host_reads", "solver.harvest", "api.components",
 )
