@@ -31,6 +31,7 @@ import numpy as np
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.graphs.edgelist import Graph
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels_with_method
 
 if TYPE_CHECKING:  # deferred: the supervisor stays off the plain path
     from distributed_ghs_implementation_tpu_torch.utils.resilience import IncidentLog
@@ -160,10 +161,16 @@ def minimum_spanning_forest(
 
 def count_components(fragment: np.ndarray) -> int:
     """The forest's component count: the distinct labels of a solve's
-    ``fragment``, in one ``api.components`` span on the event bus."""
+    ``fragment`` (``utils.labels.count_labels_with_method``), in one
+    ``api.components`` span on the event bus that names the ``method``
+    taken. A count by the presence mask adds one to the counter
+    ``api.components.masked`` (its total also sampled on the timeline)."""
     with BUS.span("api.components", cat="api") as span:
-        count = int(np.unique(fragment).size)
-        span.set(components=count)
+        count, method = count_labels_with_method(fragment)
+        span.set(components=count, method=method)
+    if method == "mask":
+        BUS.count("api.components.masked")
+        BUS.counter_sample("api.components.masked", cat="api")
     return count
 
 

@@ -47,8 +47,6 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
-
 from distributed_ghs_implementation_tpu_torch.api import (
     MSTResult,
     minimum_spanning_forest,
@@ -67,6 +65,7 @@ from distributed_ghs_implementation_tpu_torch.obs.slo import (
     current_class,
     current_kind,
 )
+from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 from distributed_ghs_implementation_tpu_torch.utils.resilience import (
     FAULTS,
     IncidentLog,
@@ -448,9 +447,7 @@ class BatchEngine:
     def _lane_result(
         self, graph, edge_ids, fragment, levels, *, wall, incidents
     ) -> MSTResult:
-        num_components = (
-            int(np.unique(fragment).size) if graph.num_nodes else 0
-        )
+        num_components = count_labels(fragment) if graph.num_nodes else 0
         return MSTResult(
             graph=graph,
             edge_ids=edge_ids,

@@ -46,6 +46,7 @@ import torch
 from distributed_ghs_implementation_tpu_torch.device import card_description, resolve_device
 from distributed_ghs_implementation_tpu_torch.models.boruvka import kernel_label
 from distributed_ghs_implementation_tpu_torch.obs.events import quantile
+from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 
 BASELINE_EDGES_PER_SEC = 68.0  # reference: 28 edges / 0.41 s (BASELINE.md)
 
@@ -1319,7 +1320,7 @@ def run_rmat_bench(args, device) -> int:
             num_levels=levels,
             wall_time_s=min(times),
             backend="device/rank",
-            num_components=int(np.unique(fragment).size),
+            num_components=count_labels(fragment),
         )
     else:
         result = minimum_spanning_forest(g, backend=args.backend, device=device)

@@ -110,13 +110,12 @@ def _cmd_run(args) -> int:
                 "pick one (checkpointed solves already self-heal via the "
                 ".bak generation fallback)"
             )
-        import numpy as np
-
         from distributed_ghs_implementation_tpu_torch.api import MSTResult
         from distributed_ghs_implementation_tpu_torch.utils.checkpoint import (
             solve_graph_checkpointed,
             solve_graph_checkpointed_sharded,
         )
+        from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 
         t0 = time.perf_counter()
         if args.backend == "sharded":
@@ -135,7 +134,7 @@ def _cmd_run(args) -> int:
             num_levels=levels,
             wall_time_s=time.perf_counter() - t0,
             backend=f"{args.backend}/checkpointed",
-            num_components=int(np.unique(fragment).size),
+            num_components=count_labels(fragment),
         )
     else:
         supervisor = None

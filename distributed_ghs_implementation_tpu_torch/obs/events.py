@@ -50,7 +50,9 @@ Names this package emits beyond that registry, all from the rank route:
   The counter ``solver.rank.host_reads`` (one a host read of the solve's
   small device tensors, its total sampled on the timeline at each read).
 * ``solver.harvest`` (span: ``forest_edges``) and ``api.components`` (span:
-  ``components``).
+  ``components``, ``method``: ``mask``, the presence mask's linear pass, or
+  ``unique``, the sort). The counter ``api.components.masked`` (one a count
+  by the mask, its total sampled on the timeline at each).
 
 :meth:`EventBus.perf_counter_s` puts a stamp on the host's
 ``time.perf_counter`` clock.

@@ -67,6 +67,7 @@ from distributed_ghs_implementation_tpu_torch.parallel.rank_sharded import (
     _head,
     _sharded_level,
 )
+from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -531,7 +532,7 @@ class ShardedLane:
         return MSTResult(
             graph=graph, edge_ids=edge_ids, num_levels=levels,
             wall_time_s=time.perf_counter() - t0, backend="sharded_lane",
-            num_components=int(np.unique(fragment).size) if graph.num_nodes else 0,
+            num_components=count_labels(fragment) if graph.num_nodes else 0,
         )
 
     # ------------------------------------------------------------------

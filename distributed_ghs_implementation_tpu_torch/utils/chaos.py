@@ -85,6 +85,7 @@ def _protocol_cases(fast: bool) -> List[dict]:
     """Reliable protocol layer vs the lossy-channel matrix."""
     from distributed_ghs_implementation_tpu_torch.protocol.faults import ReliableTransport
     from distributed_ghs_implementation_tpu_torch.protocol.runner import solve_graph_protocol
+    from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 
     cases = []
     for gname, graph in _fuzz_graphs(fast):
@@ -95,7 +96,7 @@ def _protocol_cases(fast: bool) -> List[dict]:
                 graph, transport=transport
             )
             weight = float(graph.w[edge_ids].sum())
-            components = int(np.unique(fragment).size)
+            components = count_labels(fragment)
             ok = (
                 abs(weight - expected) < 1e-9
                 and edge_ids.shape[0] == graph.num_nodes - components

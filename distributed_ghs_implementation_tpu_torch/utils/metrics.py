@@ -27,6 +27,7 @@ import torch
 
 from distributed_ghs_implementation_tpu_torch.device import resolve_device
 from distributed_ghs_implementation_tpu_torch.obs.events import BUS, EventBus
+from distributed_ghs_implementation_tpu_torch.utils.labels import count_labels
 
 
 @dataclasses.dataclass
@@ -79,7 +80,7 @@ def _fragment_count(fragment, num_nodes: int) -> int:
     solve goes on updating the tensor after the hook returns."""
     if isinstance(fragment, torch.Tensor):
         return int(torch.unique(fragment[:num_nodes]).numel())
-    return int(np.unique(np.asarray(fragment)[:num_nodes]).size)
+    return count_labels(np.asarray(fragment)[:num_nodes])
 
 
 def _level_emitter(bus: EventBus, num_nodes: int):

@@ -1314,3 +1314,34 @@ def test_a_tuning_record_installs_on_card(cuda, tmp_path):
         assert BUS.counters().get("compile.miss", 0) == misses
     finally:
         kernels.set_tuned_configs(None)
+
+
+@pytest.mark.gpu
+def test_graph500_components_count_on_card_takes_the_mask(cuda, monkeypatch):
+    """A Graph500 solve at scale 20 through the API, with isolated
+    vertices: the count by the presence mask equals ``np.unique`` of the
+    fragment the card returned and ``n`` less the forest's edges."""
+    from distributed_ghs_implementation_tpu_torch import api
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+
+    g = generators.rmat_graph(20, 16, seed=25)
+    degree = np.bincount(np.concatenate([g.u, g.v]), minlength=g.num_nodes)
+    assert (degree == 0).sum() > 0
+    fragments = []
+    solve = api._solve
+
+    def spy(*a):
+        out = solve(*a)
+        fragments.append(out[1])
+        return out
+
+    monkeypatch.setattr(api, "_solve", spy)
+    monkeypatch.setattr(BUS, "enabled", True)
+    mark = BUS.mark()
+    result = api.minimum_spanning_forest(g, device=cuda)
+    (fragment,) = fragments
+    spans = [r[6] for r in BUS.events_since(mark) if r[1] == "api.components"]
+    assert spans == [{"components": result.num_components, "method": "mask"}]
+    assert result.num_components == np.unique(fragment).size
+    assert result.num_components == g.num_nodes - result.edge_ids.size
+    assert result.num_components >= (degree == 0).sum()
