@@ -320,6 +320,25 @@ def _ell_bucket(rng, n: int, rows: int, width: int, *, fragments: int, sorted_ro
     return fragment, verts, dstb, rankb
 
 
+def _k7_weights64(rng, kind: str, m: int):
+    """K7's 64-bit cases of ``m`` weights: float64 ``"specials"`` (both
+    zeros, both infinities, subnormals, NaN of either sign, heavy ties, a
+    third drawn normal), ``"unit"`` (uniform in [0, 1)) and int64
+    ``"wide"`` (over 2^22 values, -2^62 and 2^62 among them)."""
+    if kind == "unit":
+        return rng.random(m)
+    if kind == "wide":
+        w = rng.integers(-(1 << 62), 1 << 62, m, dtype=np.int64)
+        w[m // 2], w[0] = 1 << 62, -(1 << 62)
+        return w
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 5e-324, -5e-324,
+                         2.2250738585072014e-308, 1.5, -1.5, 0.25])
+    w = rng.choice(specials, m)
+    free = rng.random(m) < 0.3
+    w[free] = rng.standard_normal(int(free.sum()))
+    return w
+
+
 def _max_abs_err(got, want) -> int:
     import torch
 
@@ -3751,6 +3770,34 @@ def main() -> int:
             err["rank_endpoints"] = max(err["rank_endpoints"], _max_abs_err(
                 kernels.rank_endpoints(*args), kernels.rank_endpoints_torch(*args)))
             k7_cases += 1
+    # K7 over 64-bit keys at the same sizes: float64 with both zeros, both
+    # infinities, subnormals, NaN of either sign and heavy ties; uniform in
+    # [0, 1), the float cell's weights; int64 over 2^22 values out to
+    # +-2^62. Against NumPy's stable argsort, passes as the torch form's.
+    for m in (1, 33, 4095, 4096, 4097, 1_000_003):
+        for kind in ("specials", "unit", "wide"):
+            w = _k7_weights64(rng, kind, m)
+            sort = kernels.sort_rank_order(put(w))
+            want = put(np.argsort(w, kind="stable").astype(np.int32))
+            err["rank_order"] = max(err["rank_order"], _max_abs_err((sort.order,), (want,)))
+            plain = kernels.sort_rank_order(torch.from_numpy(w))
+            if (sort.key, sort.passes) != (plain.key, plain.passes):
+                raise AssertionError(f"K7 on {m} {kind} weights: key and passes "
+                                     f"{(sort.key, sort.passes)}, torch form "
+                                     f"{(plain.key, plain.passes)}")
+            k7_cases += 1
+    # At the float cell's shape: one scale-24 graph's 260,377,349 float64
+    # weights in [0, 1), 8 passes (some draw below 2^-15 changes the top
+    # digit), against the torch form.
+    k7_gen = torch.Generator(device=dev)
+    k7_gen.manual_seed(24)
+    w24 = torch.rand(260_377_349, dtype=torch.float64, device=dev, generator=k7_gen)
+    sort = kernels.sort_rank_order(w24)
+    if (sort.key, sort.passes) != ("float64", 8):
+        raise AssertionError(f"K7 at the float cell's shape: {(sort.key, sort.passes)}")
+    err["rank_order"] = max(err["rank_order"], _max_abs_err(
+        (sort.order,), (kernels.rank_order_torch(w24),)))
+    del sort
     # At the cells' shapes: a scale-23 Graph500 graph's 129,337,845 edges
     # (weights 1..255, one pass; edge ids ascending in u, as the canonical
     # list has them) and the DIMACS USA road network's 29,166,672 (lengths
@@ -3775,7 +3822,8 @@ def main() -> int:
           f"(forms, jumps and early exits as expected), 2 K4 blocks, {len(buckets)} RMAT-18 + "
           f"{2 * len(ell_cases)} random K3 buckets and 6 K3 levels, {len(k5_sizes)} K5 sizes "
           f"and 3 K5 views at offsets 1-3, K6 at m={fr_m} n={fr_n} and on RMAT-21 from "
-          f"offsets 0-1, K7 and its gather in {k7_cases} cases and at both cells' shapes")
+          f"offsets 0-1, K7 and its gather in {k7_cases} cases (32- and 64-bit keys) and at "
+          f"the three cells' shapes")
 
     # The K4 wrapper's host time, split into the steps of the launch path.
     idx = torch.full((2, 128), 3, dtype=torch.int32, device=dev)
@@ -4068,7 +4116,23 @@ def main() -> int:
     for rec, row in zip(out[-2:], k7_rows["usa-road"]):
         rec["at_usa_road"] = {k: v for k, v in timed_row(*row).items() if not k.startswith(
             ("launches", "name", "route", "source", "replaces"))}
-    del k7_shapes, k7_rows
+    # K7 over 64-bit keys: at the float cell's shape, and over the int64
+    # key at both integer cells' shapes (the same weights as their 32-bit
+    # rows, passed without their range); bytes as the 32-bit rows'.
+    k7_key64 = out[-2]["key64"] = {}
+    key64_rows = [("graph500-24-float", w24, "260,377,349 float64 in [0, 1), 8 passes",
+                   lambda: torch.sort(w24, stable=True))]
+    key64_rows += [(f"{key}-int64", w7, f"{w7.numel()} int64 weights 1..{span} by the 64-bit "
+                    f"key, {1 if span < 256 else 2} pass(es)",
+                    lambda w7=w7: torch.sort(w7, stable=True))
+                   for key, (w7, _u, _v, _o, span, _p) in k7_shapes.items()]
+    for key, w7, shape, library in key64_rows:
+        k7_key64[key] = {k: v for k, v in timed_row(
+            "rank_order", "none: the JAX package's Graph._rank_order, a host stable argsort",
+            lambda w7=w7: kernels.rank_order(w7), lambda w7=w7: kernels.rank_order_torch(w7),
+            library, 12 * w7.numel(), shape).items()
+            if not k.startswith(("launches", "name", "route", "source", "replaces"))}
+    del k7_shapes, k7_rows, w24, key64_rows
     k1, k3 = out[1], out[3]
     out[0]["stream_window"] = window_k["gather_key"]
     k1["stream_window"] = window_k["hook_compress"]

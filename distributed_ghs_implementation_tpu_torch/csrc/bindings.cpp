@@ -30,6 +30,10 @@ int ghs_first_rank(int device, const void* ra, const void* rb, void* vmin, long 
 long long ghs_rank_order_scratch(long long m, int passes);
 int ghs_rank_order(int device, const void* w, long long wlow, int passes, void* order,
                    void* scratch, long long scratch_words, long long m, void* stream);
+int ghs_rank_key_bits(int device, const void* w, int kind, void* bits, long long m, void* stream);
+long long ghs_rank_order64_scratch(long long m, int passes);
+int ghs_rank_order64(int device, const void* w, int kind, int digits, void* order, void* scratch,
+                     long long scratch_bytes, long long m, void* stream);
 int ghs_rank_endpoints(int device, const void* order, const void* u, const void* v, void* ra,
                        void* rb, long long m, long long m_pad, void* stream);
 const char* ghs_error_string(int code);
@@ -114,6 +118,26 @@ PyObject* rank_order(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
                                         a[6].i, a[7].i, a[8].p));
 }
 
+PyObject* rank_key_bits(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  Arg a[6];
+  if (!parse("rank_key_bits", "ipipip", args, nargs, a)) return nullptr;
+  return PyLong_FromLong(
+      ghs_rank_key_bits((int)a[0].i, a[1].p, (int)a[2].i, a[3].p, a[4].i, a[5].p));
+}
+
+PyObject* rank_order64_scratch(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  Arg a[2];
+  if (!parse("rank_order64_scratch", "ii", args, nargs, a)) return nullptr;
+  return PyLong_FromLongLong(ghs_rank_order64_scratch(a[0].i, (int)a[1].i));
+}
+
+PyObject* rank_order64(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  Arg a[9];
+  if (!parse("rank_order64", "ipiippiip", args, nargs, a)) return nullptr;
+  return PyLong_FromLong(ghs_rank_order64((int)a[0].i, a[1].p, (int)a[2].i, (int)a[3].i, a[4].p,
+                                          a[5].p, a[6].i, a[7].i, a[8].p));
+}
+
 PyObject* rank_endpoints(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   Arg a[9];
   if (!parse("rank_endpoints", "ipppppiip", args, nargs, a)) return nullptr;
@@ -132,7 +156,8 @@ PyObject* error_string(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 PyMethodDef kMethods[] = {
     GHS_METHOD(gather_key), GHS_METHOD(hook_compress), GHS_METHOD(probe),
     GHS_METHOD(ell_level), GHS_METHOD(gather), GHS_METHOD(first_rank),
-    GHS_METHOD(rank_order_scratch), GHS_METHOD(rank_order), GHS_METHOD(rank_endpoints),
+    GHS_METHOD(rank_order_scratch), GHS_METHOD(rank_order), GHS_METHOD(rank_key_bits),
+    GHS_METHOD(rank_order64_scratch), GHS_METHOD(rank_order64), GHS_METHOD(rank_endpoints),
     GHS_METHOD(error_string),
     {nullptr, nullptr, 0, nullptr},
 };

@@ -6,19 +6,29 @@
 // weights, a stable argsort of the others) and gathers the rank endpoints
 // there. On the H100 the raw w is staged as it is, u and v narrowed to
 // int32, and both steps run on the card:
-//   order[r] = the edge of rank r, a stable sort of key = w - wlow
+//   order[r] = the edge of rank r, a stable sort of an unsigned key of w
 //   ra[r] = u[order[r]], rb[r] = v[order[r]] for r < m; 0 for m <= r < m_pad
-// The wrapper takes this path for integer weights whose range spans at most
-// 2^22 values (the host's counting-sort rule), so a key fits 22 bits.
+//
+// Two key forms, one sort:
+// - 32-bit keys, w - wlow, for integer weights whose range spans at most
+//   2^22 values (the host's counting-sort rule): ceil(bits(range) / 8)
+//   passes, every one run (one for weights 1..255, two for road lengths).
+// - 64-bit keys for every other w: int64 as w ^ 2^63, float64 as its bits
+//   made order-preserving (-0.0 read as +0.0, every NaN as one positive
+//   quiet NaN, then the sign bit flipped for a non-negative value and every
+//   bit flipped for a negative one), so unsigned key order is NumPy's
+//   stable argsort order: -inf < negatives < zeros < positives < inf < NaN.
+//   A first read of all keys (rank_key_bits) ORs and ANDs them: a digit is
+//   the same in every key exactly where its bits' OR equals their AND, and
+//   the wrapper passes only the other digits (at most 8) to the sort.
 //
 // Bound on the H100: bytes. The sort reads w (8 B an edge) and writes
 // order (4 B): at Graph500 scale 23 (129.3M edges) 1.55 GB, 0.46 ms at
 // 3.35 TB/s. The gather reads order, u and v (12 B an edge) and writes ra
 // and rb (8 B a padded rank).
 //
-// The sort is a stable LSD radix sort, 8-bit digits, ceil(bits(range) / 8)
-// passes (one for weights 1..255, two for road lengths up to 2^16). A pass
-// is three launches over tiles of 4,096 keys:
+// The sort is a stable LSD radix sort, 8-bit digits. A pass is three
+// launches over tiles of 4,096 keys:
 // - histogram: each tile's digit counts (shared-memory counters, one atomic
 //   per run of equal digits in a warp, found with __match_any_sync), stored
 //   digit-major, hist[d * tiles + t];
@@ -29,13 +39,21 @@
 //   count a digit, plus the lanes below with the same digit), the block adds
 //   the warps before it, and the tile's keys are laid out by digit in
 //   shared memory, then written from there: consecutive threads write
-//   consecutive places of one digit's run, so the stores coalesce.
-// The first pass reads the keys straight from the int64 w and its values
-// are the edge ids, iota, never read. Later passes read the int32 key and
-// value the previous pass wrote, and the last pass writes no key. A onesweep
-// pass (decoupled look-back in place of the histogram and scan launches)
-// would read the keys once less; at one pass over the scale-23 graph the
-// two reads of w are about 0.6 ms.
+//   consecutive places of one digit's run, so the stores coalesce. Its
+//   shared memory is dynamic: a tile of 64-bit keys needs 58 KB, over the
+//   48 KB a static allocation may hold.
+// The first pass makes the keys in registers from w and its values are the
+// edge ids, iota, never read. Later passes read the key and value the
+// previous pass wrote, and the last pass writes no key. A onesweep pass
+// (decoupled look-back in place of the histogram and scan launches) would
+// read the keys once less; at one pass over the scale-23 graph the two
+// reads of w are about 0.6 ms.
+//
+// 8-bit digits for both forms: one thread a digit in the scan and the
+// scatter's per-digit steps, and a tile's per-warp counters (8 warps x 257)
+// fit beside its keys. An 11-bit digit would take a 64-bit key in 6 passes
+// instead of 8, but its per-warp counters alone (8 x 2,049 x 4 B = 64 KB)
+// would cut the blocks an SM holds to one or two.
 //
 // The gather reads order with streaming loads and u, v (int32, narrowed on
 // the host as they were staged) at random: in one weight's run of ranks the
@@ -56,23 +74,49 @@ constexpr int kItems = 16;                  // keys a thread holds in a tile
 constexpr int kTile = kThreads * kItems;    // 4,096 keys a tile
 constexpr int kWarpKeys = kTile / kWarps;   // 512: one warp's contiguous share
 constexpr int kRadix = 256;                 // 8-bit digits; kRadix marks a key past m
-constexpr int kMaxPasses = 3;               // 2^22 values need 22 bits
+constexpr int kMaxPasses = 3;               // 32-bit keys: 2^22 values need 22 bits
+constexpr int kDigits64 = 8;                // 64-bit keys: at most 8 passes
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kSign = 1ULL << 63;
 static_assert(kThreads == kRadix, "one thread a digit");
 
-// The key of element i: w[i] - wlow on the first pass, the key the previous
-// pass wrote after it.
-template <bool kFirst>
-__device__ __forceinline__ uint32_t key_at(const long long* __restrict__ w, long long wlow,
-                                           const int32_t* __restrict__ keys, long long i) {
-  if (kFirst) return (uint32_t)(w[i] - wlow);
-  return (uint32_t)keys[i];
+// Where a pass reads its keys: the previous pass's keys, or w on the first
+// pass (w - wlow, int64 w ^ 2^63, or float64 bits made order-preserving).
+enum class Src { kKeys, kOffset, kInt64, kFloat64 };
+
+// The unsigned key of a float64 whose bits are `bits`, in NumPy's order.
+__device__ __forceinline__ unsigned long long float_key(long long bits) {
+  if (bits == (long long)kSign) bits = 0;                     // -0.0 as +0.0
+  if ((bits & 0x7fffffffffffffffLL) > 0x7ff0000000000000LL) {
+    bits = 0x7ff8000000000000LL;                              // every NaN, last
+  }
+  return bits < 0 ? ~(unsigned long long)bits : (unsigned long long)bits | kSign;
 }
 
-template <bool kFirst>
+// The key of element i. A float64 w is read as its 64 bits.
+template <typename Key, Src kSrc>
+__device__ __forceinline__ Key key_at(const long long* __restrict__ w, long long wlow,
+                                      const Key* __restrict__ keys, long long i) {
+  if constexpr (kSrc == Src::kKeys) {
+    return keys[i];
+  } else if constexpr (kSrc == Src::kOffset) {
+    return (Key)(w[i] - wlow);
+  } else if constexpr (kSrc == Src::kInt64) {
+    return (Key)((unsigned long long)w[i] ^ kSign);
+  } else {
+    return (Key)float_key(w[i]);
+  }
+}
+
+template <typename Key>
+__device__ __forceinline__ uint32_t digit_of(Key key, int shift) {
+  return (uint32_t)(key >> shift) & (kRadix - 1);
+}
+
+template <typename Key, Src kSrc>
 __global__ void __launch_bounds__(kThreads)
     histogram_kernel(const long long* __restrict__ w, long long wlow,
-                     const int32_t* __restrict__ keys, int32_t* __restrict__ hist, long long m,
+                     const Key* __restrict__ keys, int32_t* __restrict__ hist, long long m,
                      long long tiles, int shift) {
   __shared__ int32_t counts[kRadix];
   counts[threadIdx.x] = 0;  // kThreads == kRadix
@@ -83,7 +127,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kItems; ++j) {
     const long long i = base + (long long)j * kThreads + threadIdx.x;
     uint32_t digit = kRadix;
-    if (i < m) digit = (key_at<kFirst>(w, wlow, keys, i) >> shift) & (kRadix - 1);
+    if (i < m) digit = digit_of(key_at<Key, kSrc>(w, wlow, keys, i), shift);
     const unsigned peers = __match_any_sync(kFull, digit);
     if (digit < kRadix && lane == __ffs(peers) - 1) atomicAdd(&counts[digit], __popc(peers));
   }
@@ -146,33 +190,42 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) totals[blockIdx.x] = carry;
 }
 
-template <bool kFirst, bool kLast>
+// The scatter's shared memory: per warp and digit, the warp's running count,
+// then the count of the tile's keys of that digit in the warps before it
+// (column kRadix counts the keys past m, which are never written); where
+// each digit's run starts in the tile; the global place of the tile's key
+// at tile place 0; then the tile laid out by digit.
+template <typename Key>
+struct ScatterShared {
+  int32_t warp[kWarps][kRadix + 1];
+  int32_t start[kRadix + 1];
+  int32_t dst[kRadix];
+  int32_t warp_sums[kWarps];
+  Key key[kTile];
+  int32_t val[kTile];
+};
+
+template <typename Key, Src kSrc, bool kLast>
 __global__ void __launch_bounds__(kThreads)
     scatter_kernel(const long long* __restrict__ w, long long wlow,
-                   const int32_t* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
-                   int32_t* __restrict__ keys_out, int32_t* __restrict__ vals_out,
+                   const Key* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
+                   Key* __restrict__ keys_out, int32_t* __restrict__ vals_out,
                    const int32_t* __restrict__ hist, const int32_t* __restrict__ totals,
                    long long m, long long tiles, int shift) {
-  // Per warp and digit: the warp's running count, then the count of the
-  // tile's keys of that digit in the warps before it. Column kRadix counts
-  // the keys past m, which are never written.
-  __shared__ int32_t s_warp[kWarps][kRadix + 1];
-  __shared__ int32_t s_start[kRadix + 1];  // where each digit's run starts in the tile
-  __shared__ int32_t s_dst[kRadix];        // global place of the tile's key at tile place 0
-  __shared__ int32_t warp_sums[kWarps];
-  __shared__ uint32_t s_key[kTile];
-  __shared__ int32_t s_val[kTile];
+  constexpr bool kFirst = kSrc != Src::kKeys;
+  extern __shared__ __align__(16) unsigned char shared_bytes[];
+  ScatterShared<Key>& sh = *reinterpret_cast<ScatterShared<Key>*>(shared_bytes);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int k = threadIdx.x; k < kWarps * (kRadix + 1); k += kThreads) {
-    (&s_warp[0][0])[k] = 0;
+    (&sh.warp[0][0])[k] = 0;
   }
   __syncthreads();
 
   // 1. Each warp ranks its contiguous 512 keys in order, 32 a step.
   const long long wbase = (long long)blockIdx.x * kTile + (long long)warp * kWarpKeys;
   const unsigned below = (1u << lane) - 1;
-  uint32_t key[kItems];
+  Key key[kItems];
   int32_t val[kItems];
   int32_t rank[kItems];
 #pragma unroll
@@ -182,15 +235,15 @@ __global__ void __launch_bounds__(kThreads)
     key[j] = 0;
     val[j] = 0;
     if (i < m) {
-      key[j] = key_at<kFirst>(w, wlow, keys_in, i);
+      key[j] = key_at<Key, kSrc>(w, wlow, keys_in, i);
       val[j] = kFirst ? (int32_t)i : vals_in[i];
-      digit = (key[j] >> shift) & (kRadix - 1);
+      digit = digit_of(key[j], shift);
     }
     const unsigned peers = __match_any_sync(kFull, digit);
-    const int32_t seen = s_warp[warp][digit];
+    const int32_t seen = sh.warp[warp][digit];
     rank[j] = seen + __popc(peers & below);
     __syncwarp();
-    if (lane == __ffs(peers) - 1) s_warp[warp][digit] = seen + __popc(peers);
+    if (lane == __ffs(peers) - 1) sh.warp[warp][digit] = seen + __popc(peers);
     __syncwarp();
   }
   __syncthreads();
@@ -202,16 +255,16 @@ __global__ void __launch_bounds__(kThreads)
     int32_t count = 0;
 #pragma unroll
     for (int q = 0; q < kWarps; ++q) {
-      const int32_t c = s_warp[q][d];
-      s_warp[q][d] = count;
+      const int32_t c = sh.warp[q][d];
+      sh.warp[q][d] = count;
       count += c;
     }
     int32_t valid, all;
-    const int32_t start = block_exclusive_scan(count, warp_sums, &valid);
-    const int32_t base = block_exclusive_scan(totals[d], warp_sums, &all);
-    s_start[d] = start;
-    if (d == kRadix - 1) s_start[kRadix] = valid;
-    s_dst[d] = base + hist[(long long)d * tiles + blockIdx.x] - start;
+    const int32_t start = block_exclusive_scan(count, sh.warp_sums, &valid);
+    const int32_t base = block_exclusive_scan(totals[d], sh.warp_sums, &all);
+    sh.start[d] = start;
+    if (d == kRadix - 1) sh.start[kRadix] = valid;
+    sh.dst[d] = base + hist[(long long)d * tiles + blockIdx.x] - start;
   }
   __syncthreads();
 
@@ -219,35 +272,121 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     if (wbase + j * 32 + lane < m) {
-      const int d = (key[j] >> shift) & (kRadix - 1);
-      const int at = s_start[d] + s_warp[warp][d] + rank[j];
-      s_key[at] = key[j];
-      s_val[at] = val[j];
+      const int d = digit_of(key[j], shift);
+      const int at = sh.start[d] + sh.warp[warp][d] + rank[j];
+      sh.key[at] = key[j];
+      sh.val[at] = val[j];
     }
   }
   __syncthreads();
 
   // 4. Out in tile order: a digit's run goes to consecutive global places.
-  const int valid = s_start[kRadix];
+  const int valid = sh.start[kRadix];
   for (int at = threadIdx.x; at < valid; at += kThreads) {
-    const uint32_t k = s_key[at];
-    const long long to = (long long)s_dst[(k >> shift) & (kRadix - 1)] + at;
-    vals_out[to] = s_val[at];
-    if (!kLast) keys_out[to] = (int32_t)k;
+    const Key k = sh.key[at];
+    const long long to = (long long)sh.dst[digit_of(k, shift)] + at;
+    vals_out[to] = sh.val[at];
+    if (!kLast) keys_out[to] = k;
   }
 }
 
-template <bool kFirst>
-void launch_scatter(bool last, unsigned grid, cudaStream_t s, const long long* w, long long wlow,
-                    const int32_t* keys_in, const int32_t* vals_in, int32_t* keys_out,
-                    int32_t* vals_out, const int32_t* hist, const int32_t* totals, long long m,
-                    long long tiles, int shift) {
+template <typename Key, Src kSrc, bool kLast>
+cudaError_t launch_scatter_as(unsigned grid, cudaStream_t s, const long long* w, long long wlow,
+                              const Key* keys_in, const int32_t* vals_in, Key* keys_out,
+                              int32_t* vals_out, const int32_t* hist, const int32_t* totals,
+                              long long m, long long tiles, int shift) {
+  constexpr int kBytes = (int)sizeof(ScatterShared<Key>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      scatter_kernel<Key, kSrc, kLast>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  scatter_kernel<Key, kSrc, kLast><<<grid, kThreads, kBytes, s>>>(
+      w, wlow, keys_in, vals_in, keys_out, vals_out, hist, totals, m, tiles, shift);
+  return cudaSuccess;
+}
+
+template <typename Key, Src kSrc>
+cudaError_t launch_pass(bool last, unsigned grid, cudaStream_t s, const long long* w,
+                        long long wlow, const Key* keys_in, const int32_t* vals_in,
+                        Key* keys_out, int32_t* vals_out, int32_t* hist, int32_t* totals,
+                        long long m, long long tiles, int shift) {
+  histogram_kernel<Key, kSrc><<<grid, kThreads, 0, s>>>(w, wlow, keys_in, hist, m, tiles, shift);
+  scan_kernel<<<kRadix, kThreads, 0, s>>>(hist, totals, tiles);
   if (last) {
-    scatter_kernel<kFirst, true><<<grid, kThreads, 0, s>>>(w, wlow, keys_in, vals_in, keys_out,
-                                                           vals_out, hist, totals, m, tiles, shift);
-  } else {
-    scatter_kernel<kFirst, false><<<grid, kThreads, 0, s>>>(w, wlow, keys_in, vals_in, keys_out,
-                                                            vals_out, hist, totals, m, tiles, shift);
+    return launch_scatter_as<Key, kSrc, true>(grid, s, w, wlow, keys_in, vals_in, keys_out,
+                                              vals_out, hist, totals, m, tiles, shift);
+  }
+  return launch_scatter_as<Key, kSrc, false>(grid, s, w, wlow, keys_in, vals_in, keys_out,
+                                             vals_out, hist, totals, m, tiles, shift);
+}
+
+// The passes of one sort, one a digit set in `digits` (bit d: the digit at
+// shift 8d), lowest first; the first makes its keys from w as kFirstSrc
+// says. The values ping-pong between vals_a and order so that the last pass
+// writes order; the keys between keys_a and keys_b.
+template <typename Key, Src kFirstSrc>
+cudaError_t sort_passes(cudaStream_t s, const long long* w, long long wlow, unsigned digits,
+                        int32_t* order, Key* keys_a, Key* keys_b, int32_t* vals_a,
+                        int32_t* hist, int32_t* totals, long long m) {
+  const long long tiles = (m + kTile - 1) / kTile;
+  const unsigned grid = (unsigned)tiles;
+  const int passes = __builtin_popcount(digits);
+  const Key* keys_in = nullptr;
+  const int32_t* vals_in = nullptr;
+  for (int d = 0, p = 0; p < passes; ++d) {
+    if (!((digits >> d) & 1u)) continue;
+    const bool last = p == passes - 1;
+    int32_t* vals_out = (passes - 1 - p) % 2 == 0 ? order : vals_a;
+    Key* keys_out = last ? nullptr : (p % 2 == 0 ? keys_a : keys_b);
+    cudaError_t err;
+    if (p == 0) {
+      err = launch_pass<Key, kFirstSrc>(last, grid, s, w, wlow, nullptr, nullptr, keys_out,
+                                        vals_out, hist, totals, m, tiles, 8 * d);
+    } else {
+      err = launch_pass<Key, Src::kKeys>(last, grid, s, nullptr, 0, keys_in, vals_in, keys_out,
+                                         vals_out, hist, totals, m, tiles, 8 * d);
+    }
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    keys_in = keys_out;
+    vals_in = vals_out;
+    ++p;
+  }
+  return cudaSuccess;
+}
+
+// The OR (bits[0]) and the AND (bits[1]) of every 64-bit key, folded in
+// with atomics into words the launcher presets to 0 and ~0.
+template <Src kSrc>
+__global__ void __launch_bounds__(kThreads)
+    key_bits_kernel(const long long* __restrict__ w, unsigned long long* __restrict__ bits,
+                    long long m) {
+  __shared__ unsigned long long s_any[kWarps], s_all[kWarps];
+  unsigned long long any = 0, all = ~0ULL;
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < m; i += step) {
+    const unsigned long long k = key_at<unsigned long long, kSrc>(w, 0, nullptr, i);
+    any |= k;
+    all &= k;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    any |= __shfl_xor_sync(kFull, any, d);
+    all &= __shfl_xor_sync(kFull, all, d);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_any[warp] = any;
+    s_all[warp] = all;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) {
+      any |= s_any[q];
+      all &= s_all[q];
+    }
+    atomicOr(bits, any);
+    atomicAnd(bits + 1, all);
   }
 }
 
@@ -282,12 +421,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kKindInt64 = 0;
+constexpr int kKindFloat64 = 1;
+
 }  // namespace
 
-// int32 words of scratch a sort of m keys in `passes` passes needs: the
-// digit-major histogram, the digit totals, then a key buffer and a value
-// buffer for a second pass and one more key buffer for a third. The wrapper
-// allocates what this says.
+// int32 words of scratch a sort of m 32-bit keys in `passes` passes needs:
+// the digit-major histogram, the digit totals, then a key buffer and a
+// value buffer for a second pass and one more key buffer for a third. The
+// wrapper allocates what this says.
 extern "C" long long ghs_rank_order_scratch(long long m, int passes) {
   const long long tiles = (m + kTile - 1) / kTile;
   return kRadix * tiles + kRadix + (passes >= 2 ? 2 * m : 0) + (passes >= 3 ? m : 0);
@@ -301,44 +443,81 @@ extern "C" int ghs_rank_order(int device, const void* w, long long wlow, int pas
       scratch_words < ghs_rank_order_scratch(m, passes)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
   const long long tiles = (m + kTile - 1) / kTile;
   int32_t* hist = (int32_t*)scratch;
   int32_t* totals = hist + kRadix * tiles;
-  int32_t* keys_a = totals + kRadix;
-  int32_t* vals_a = keys_a + m;
-  int32_t* keys_b = vals_a + m;
-  const long long* w64 = (const long long*)w;
-  const unsigned grid = (unsigned)tiles;
-  const int32_t* keys_in = nullptr;
-  const int32_t* vals_in = nullptr;
-  for (int p = 0; p < passes; ++p) {
-    const bool last = p == passes - 1;
-    const int shift = 8 * p;
-    // The values ping-pong between vals_a and order so that the last pass
-    // writes order; the keys between keys_a and keys_b.
-    int32_t* vals_out = (passes - 1 - p) % 2 == 0 ? (int32_t*)order : vals_a;
-    int32_t* keys_out = last ? nullptr : (p % 2 == 0 ? keys_a : keys_b);
-    if (p == 0) {
-      histogram_kernel<true><<<grid, kThreads, 0, s>>>(w64, wlow, nullptr, hist, m, tiles, shift);
-    } else {
-      histogram_kernel<false><<<grid, kThreads, 0, s>>>(nullptr, 0, keys_in, hist, m, tiles,
-                                                        shift);
-    }
-    scan_kernel<<<kRadix, kThreads, 0, s>>>(hist, totals, tiles);
-    if (p == 0) {
-      launch_scatter<true>(last, grid, s, w64, wlow, nullptr, nullptr, keys_out, vals_out, hist,
-                           totals, m, tiles, shift);
-    } else {
-      launch_scatter<false>(last, grid, s, nullptr, 0, keys_in, vals_in, keys_out, vals_out, hist,
-                            totals, m, tiles, shift);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    keys_in = keys_out;
-    vals_in = vals_out;
+  uint32_t* keys_a = (uint32_t*)(totals + kRadix);
+  int32_t* vals_a = (int32_t*)(keys_a + m);
+  uint32_t* keys_b = (uint32_t*)(vals_a + m);
+  return (int)sort_passes<uint32_t, Src::kOffset>(
+      (cudaStream_t)stream, (const long long*)w, wlow, (1u << passes) - 1, (int32_t*)order,
+      keys_a, keys_b, vals_a, hist, totals, m);
+}
+
+// The OR and the AND of the 64-bit keys of m int64 (kind 0) or float64
+// (kind 1) weights, into bits[0] and bits[1] (two 64-bit words on the card).
+extern "C" int ghs_rank_key_bits(int device, const void* w, int kind, void* bits, long long m,
+                                 void* stream) {
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  if ((kind != kKindInt64 && kind != kKindFloat64) || m < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* out = (unsigned long long*)bits;
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(unsigned long long), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(out + 1, 0xff, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (m + kThreads - 1) / kThreads;
+  if (blocks > 132LL * 8) blocks = 132LL * 8;
+  if (kind == kKindInt64) {
+    key_bits_kernel<Src::kInt64><<<(unsigned)blocks, kThreads, 0, s>>>((const long long*)w, out, m);
+  } else {
+    key_bits_kernel<Src::kFloat64><<<(unsigned)blocks, kThreads, 0, s>>>((const long long*)w, out,
+                                                                         m);
   }
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
+}
+
+// Bytes of scratch a sort of m 64-bit keys in `passes` passes needs: the
+// histogram and the totals, then for a second pass a key buffer (8 B a key)
+// and a value buffer (4 B), and for a third one more key buffer.
+extern "C" long long ghs_rank_order64_scratch(long long m, int passes) {
+  const long long tiles = (m + kTile - 1) / kTile;
+  return 4LL * kRadix * (tiles + 1) + (passes >= 2 ? 12 * m : 0) + (passes >= 3 ? 8 * m : 0);
+}
+
+// The stable sort of m 64-bit keys of int64 (kind 0) or float64 (kind 1)
+// weights over the digits set in `digits` (bit d: the digit at shift 8d),
+// at least one: the other digits are the same in every key.
+extern "C" int ghs_rank_order64(int device, const void* w, int kind, int digits, void* order,
+                                void* scratch, long long scratch_bytes, long long m,
+                                void* stream) {
+  const ghs::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  const int passes = __builtin_popcount((unsigned)digits);
+  if ((kind != kKindInt64 && kind != kKindFloat64) || digits < 1 ||
+      digits >= (1 << kDigits64) || m < 1 || m > 0x7fffffffLL ||
+      scratch_bytes < ghs_rank_order64_scratch(m, passes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = (m + kTile - 1) / kTile;
+  int32_t* hist = (int32_t*)scratch;
+  int32_t* totals = hist + kRadix * tiles;
+  // 4 * kRadix * (tiles + 1) bytes so far, a multiple of 8: the key buffers
+  // first, then the value buffer.
+  unsigned long long* keys_a = (unsigned long long*)(totals + kRadix);
+  unsigned long long* keys_b = keys_a + (passes >= 2 ? m : 0);
+  int32_t* vals_a = (int32_t*)(keys_b + (passes >= 3 ? m : 0));
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long* w64 = (const long long*)w;
+  const cudaError_t err =
+      kind == kKindInt64
+          ? sort_passes<unsigned long long, Src::kInt64>(s, w64, 0, (unsigned)digits,
+                                                         (int32_t*)order, keys_a, keys_b, vals_a,
+                                                         hist, totals, m)
+          : sort_passes<unsigned long long, Src::kFloat64>(s, w64, 0, (unsigned)digits,
+                                                           (int32_t*)order, keys_a, keys_b,
+                                                           vals_a, hist, totals, m);
+  return (int)err;
 }
 
 extern "C" int ghs_rank_endpoints(int device, const void* order, const void* u, const void* v,

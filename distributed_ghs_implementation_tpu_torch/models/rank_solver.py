@@ -9,10 +9,10 @@ padded ranks and above the filter-Kruskal route.
   partition each vertex's minimum outgoing edge is its minimum-rank
   incident edge (its first rank). The one prep puts the rank endpoints on
   the card and runs the first ranks there (K6, ``kernels.first_rank``),
-  then level 1 through K1. For integer weights within 2^22 values the raw
-  edge arrays are copied to the card, and the rank order (K7,
-  ``kernels.rank_order``) and the endpoint gather run there; for the others
-  the native host library (``graphs/native.py``) sorts and gathers. Each
+  then level 1 through K1. The raw edge arrays are copied to the card, and
+  the rank order (K7, ``kernels.sort_rank_order``: 32-bit keys for integer
+  weights within 2^22 values, 64-bit keys for wider integers and floats)
+  and the endpoint gather run there. Each
   solve's head runs level 2 (:func:`_prefix_level2_core`): over the
   filter's prefix on the filter route, over every rank on the others.
   :func:`host_level1` is level 1 on the host, for the lanes and the
@@ -466,14 +466,6 @@ def stage_pair_packed24(ra: np.ndarray, rb: np.ndarray, device=None):
     return _stage_planes24(pack_planes24(ra, rb), resolve_device(device))
 
 
-def _stage_endpoints_int32(graph: Graph, m_pad: int, device: torch.device):
-    """The rank endpoints ``(ra, rb)`` on the host and their int32 copies
-    issued to ``device``: ``(ra, rb, sa, sb)``."""
-    with _prep_step("solver.prep.endpoints"):
-        ra, rb = graph.rank_endpoints(pad_to=m_pad)
-    return ra, rb, _stage(ra, device), _stage(rb, device)
-
-
 @contextlib.contextmanager
 def _device_step(name: str, device: torch.device, **args):
     """A prep step that runs on the device: its ``solver.prep.*`` span
@@ -486,76 +478,56 @@ def _device_step(name: str, device: torch.device, **args):
 
 
 def _stage_edges(graph: Graph, device: torch.device):
-    """``w`` as it is (int64) and ``u``, ``v`` narrowed to int32 as they fill
-    their pinned buffers, copied to ``device``, each copy issued without
-    waiting; ``w`` first, since the sort needs only it."""
-    return (_stage(graph.w, device, torch.int64), _stage(graph.u, device),
-            _stage(graph.v, device))
-
-
-def _device_endpoints(graph: Graph, m_pad: int, device: torch.device):
-    """The rank order and the rank endpoints on the device, from the raw
-    edge arrays (:func:`_stage_edges`), for integer weights: ``(ra, rb)``
-    int32 on ``device``, padded with zeros to ``m_pad``, or ``None`` where
-    the weights span more than ``kernels.RANK_ORDER_MAX_RANGE`` values (the
-    graph's host order is then filled, under the same span). After the copies
-    (``solver.prep.copy_wait``), the span ``solver.prep.rank_order``
-    (``where``: ``"device"``, or ``"host"`` for a range too wide) holds the
-    weights' device minimum and maximum, one host read, and K7
-    (``kernels.rank_order``); ``solver.prep.endpoints`` the gather
-    (``kernels.rank_endpoints``). The order stays on the graph for the
-    harvest (``boruvka.hold_rank_order``), for as long as the stage cache
-    would keep the prep (up to ``_STAGE_CACHE_MAX_RANKS`` padded ranks),
-    else until the first harvest reads it; the staged edges are freed."""
-    w, u, v = _stage_edges(graph, device)
-    _wait_copies(device)
-    with _device_step("solver.prep.rank_order", device, where="device") as span:
-        wlow, whigh = torch.stack(torch.aminmax(w)).tolist()
-        if whigh - wlow >= kernels.RANK_ORDER_MAX_RANGE:
-            span.set(where="host")
-            graph._rank_order  # noqa: B018 -- fills the cached property
-            return None
-        order = kernels.rank_order(w, wlow, whigh)
-    del w
-    with _device_step("solver.prep.endpoints", device):
-        ra, rb = kernels.rank_endpoints(order, u, v, m_pad)
-    hold_rank_order(graph, order, keep=m_pad <= _STAGE_CACHE_MAX_RANKS)
-    return ra, rb
-
-
-def _host_endpoints(graph: Graph, m_pad: int, device: torch.device):
-    """The host rank order (``solver.prep.rank_order``, ``where="host"``)
-    and the host endpoint gather, whose int32 copies are issued to
-    ``device``: ``(ra, rb)`` on ``device``."""
-    with _prep_step("solver.prep.rank_order", where="host"):
-        graph._rank_order  # noqa: B018 -- fills the cached property
-    return _stage_endpoints_int32(graph, m_pad, device)[2:]
+    """``w`` as it is (float64 for float weights, int64 for integers) and
+    ``u``, ``v`` narrowed to int32 as they fill their pinned buffers, copied
+    to ``device``, each copy issued without waiting; ``w`` first, since the
+    sort needs only it."""
+    wtype = torch.float64 if graph.w.dtype.kind == "f" else torch.int64
+    return (_stage(graph.w, device, wtype), _stage(graph.u, device), _stage(graph.v, device))
 
 
 def _rank_endpoints(graph: Graph, m_pad: int, device: torch.device):
-    """``(ra, rb)`` on ``device``: from the device rank order where the
-    weights are integers within ``kernels.RANK_ORDER_MAX_RANGE`` values
-    (:func:`_device_endpoints`), else from the host's (float weights,
-    :func:`_host_endpoints`; a wider range, the host order that
-    :func:`_device_endpoints` filled)."""
-    if graph.w.dtype.kind == "i" and graph.num_edges:
-        staged = _device_endpoints(graph, m_pad, device)
-        if staged is not None:
-            return staged
-        return _stage_endpoints_int32(graph, m_pad, device)[2:]
-    return _host_endpoints(graph, m_pad, device)
+    """The rank order and the rank endpoints on the device, from the raw
+    edge arrays (:func:`_stage_edges`): ``(ra, rb)`` int32 on ``device``,
+    padded with zeros to ``m_pad``. After the copies
+    (``solver.prep.copy_wait``), the span ``solver.prep.rank_order``
+    (``where="device"``; ``key``, the key K7 sorted, and ``passes``, its
+    digit passes) holds K7 (``kernels.sort_rank_order``), after, for integer
+    weights, their device minimum and maximum, one host read, which picks
+    the 32-bit key where they span at most ``kernels.RANK_ORDER_MAX_RANGE``
+    values, and the counter ``kernels.rank_order.passes`` grows by the
+    passes (its total sampled on the bus's timeline);
+    ``solver.prep.endpoints`` holds the gather (``kernels.rank_endpoints``). The order stays on the graph for the
+    harvest (``boruvka.hold_rank_order``), for as long as the stage cache
+    would keep the prep (up to ``_STAGE_CACHE_MAX_RANKS`` padded ranks),
+    else until the first harvest reads it; the staged edges are freed, and
+    the graph's host ``_rank_order`` is left unfilled."""
+    w, u, v = _stage_edges(graph, device)
+    _wait_copies(device)
+    with _device_step("solver.prep.rank_order", device, where="device") as span:
+        wlow = whigh = None
+        if w.dtype == torch.int64 and graph.num_edges:
+            wlow, whigh = torch.stack(torch.aminmax(w)).tolist()
+        sort = kernels.sort_rank_order(w, wlow, whigh)
+        span.set(key=sort.key, passes=sort.passes)
+    BUS.count("kernels.rank_order.passes", sort.passes)
+    BUS.counter_sample("kernels.rank_order.passes", cat="kernels")
+    del w
+    with _device_step("solver.prep.endpoints", device):
+        ra, rb = kernels.rank_endpoints(sort.order, u, v, m_pad)
+    hold_rank_order(graph, sort.order, keep=m_pad <= _STAGE_CACHE_MAX_RANKS)
+    return ra, rb
 
 
 def _prep_head(graph: Graph, device: torch.device):
     """The prep's steps: the rank endpoints on ``device``
     (:func:`_rank_endpoints`: the rank order and the endpoint gather, on
-    the device for integer weights), then on the device the first ranks
+    the device), then on the device the first ranks
     (K6) and the level-1 partition, each a :func:`_device_step`
     (``solver.prep.first_ranks``, ``.level1``), equal element for element
     to the host's first ranks and :func:`host_level1`. Returns ``(m_pad,
-    vmin0, ra, rb, parent1)`` on ``device``. The graph's ``first_ranks`` is
-    left unfilled, and so is its host rank order where the device computed
-    it."""
+    vmin0, ra, rb, parent1)`` on ``device``. The graph's ``first_ranks`` and
+    its host rank order are left unfilled."""
     n_pad = _bucket_size(graph.num_nodes)
     m_pad = _bucket_size(graph.num_edges)
     check_rank_envelope(n_pad, m_pad)

@@ -31,17 +31,19 @@ Names this package emits beyond that registry, all from the rank route:
 
 * ``solver.prep`` (span: ``family``, ``route`` ``l2``/``filtered``/``full``,
   ``m_pad``, ``cpu_s``) over the prep's steps ``solver.prep.rank_order``
-  (``where``: ``device``, K7 after the weights' device minimum and
-  maximum, or ``host``), ``.endpoints``, ``.stage`` (one pinned copy
-  issued: ``bytes``, ``pin_s``), ``.first_ranks``, ``.level1`` and
-  ``.copy_wait``, each with ``cpu_s``, the process's CPU seconds over it
-  (level 2 runs in the solve's head). The steps that run on the device say
-  so (``on="device"``: ``.rank_order`` and ``.endpoints`` for integer
-  weights, ``.first_ranks``, ``.level1``); each closes after a
-  device synchronize, so it holds the device's time (on the host order's
-  path ``.first_ranks`` also the wait for the endpoint copies). The
+  (``where="device"``; ``key``, the key K7 sorted: ``int32`` for integer
+  weights within 2^22 values, after their device minimum and maximum,
+  ``int64`` for wider integers, ``float64``; ``passes``, its digit
+  passes), ``.endpoints``, ``.stage`` (one pinned copy issued: ``bytes``,
+  ``pin_s``), ``.first_ranks``, ``.level1`` and ``.copy_wait``, each with
+  ``cpu_s``, the process's CPU seconds over it (level 2 runs in the
+  solve's head). The steps that run on the device say so (``on="device"``:
+  ``.rank_order``, ``.endpoints``, ``.first_ranks``, ``.level1``); each
+  closes after a device synchronize, so it holds the device's time. The
   counter ``solver.stage.h2d_bytes`` (bytes staged, its total also sampled
-  on the timeline at each copy).
+  on the timeline at each copy), and ``kernels.rank_order.passes`` (the
+  prep's K7 digit passes, as its span's ``passes``; its total sampled on
+  the timeline at each rank order).
 * ``solver.rank.solve`` gains ``route``, the route that answered; its phases
   ``solver.rank.head``, ``solver.rank.finish`` (``phase``
   ``prefix``/``survivors``/``staged``, ``step``), ``solver.rank.filter``

@@ -32,6 +32,7 @@ import math
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from distributed_ghs_implementation_tpu_torch.ops import _build
@@ -511,56 +512,159 @@ first_rank.launches = 0
 # ---------------------------------------------------------------------------
 # K7 rank_order and its endpoint gather (csrc/rank_order.cu)
 # ---------------------------------------------------------------------------
-#: The widest weight range the sort takes: ``whigh - wlow + 1`` values at
-#: most, the host's counting-sort rule (``native.rank_order_counting``).
+#: The widest integer weight range the 32-bit key takes: ``whigh - wlow + 1``
+#: values at most, the host's counting-sort rule
+#: (``native.rank_order_counting``). Every other weight takes the 64-bit key.
 RANK_ORDER_MAX_RANGE = 1 << 22
+#: The launcher's ``kind`` of each 64-bit key (``csrc/rank_order.cu``).
+RANK_KEY64_KINDS = {"int64": 0, "float64": 1}
+#: The 8-bit digits of a 64-bit key.
+RANK_KEY64_DIGITS = 8
+_INT64_MIN = -(1 << 63)
+_INT64_MAX = (1 << 63) - 1
+_QUIET_NAN_BITS = 0x7FF8000000000000
+
+
+class RankOrder(NamedTuple):
+    """One sort of :func:`sort_rank_order`: ``order[r]``, the edge of rank
+    ``r`` (int32); the key it sorted (``"int32"``, ``"int64"`` or
+    ``"float64"``); and the digit passes it ran (on the CPU, the passes the
+    kernel would run)."""
+
+    order: torch.Tensor
+    key: str
+    passes: int
 
 
 def rank_order_passes(wlow: int, whigh: int) -> int:
-    """The 8-bit digit passes that sort keys in ``[0, whigh - wlow]``: at
-    least one."""
+    """The 8-bit digit passes that sort 32-bit keys in ``[0, whigh - wlow]``:
+    at least one."""
     return max(1, -(-(whigh - wlow).bit_length() // 8))
 
 
-def _check_rank_order(w, wlow: int, whigh: int) -> None:
-    if w.dim() != 1 or not 0 <= whigh - wlow < RANK_ORDER_MAX_RANGE:
+def rank_key(w, wlow: int | None = None, whigh: int | None = None) -> str:
+    """The key K7 sorts ``w`` by: ``"int32"`` (``w - wlow``) for int64
+    weights in ``[wlow, whigh]``, a range of at most
+    ``RANK_ORDER_MAX_RANGE`` values; ``"int64"`` for other int64 weights
+    (or no range given); ``"float64"`` for float64 weights."""
+    if w.dtype is torch.float64:
+        return "float64"
+    if w.dtype is not torch.int64:
+        raise TypeError(f"rank_order: w must be torch.int64 or torch.float64, got {w.dtype}")
+    if wlow is None or whigh - wlow >= RANK_ORDER_MAX_RANGE:
+        return "int64"
+    return "int32"
+
+
+def _check_rank_order(w, wlow, whigh) -> str:
+    """The key of ``w`` (:func:`rank_key`), once the call is checked."""
+    if w.dim() != 1 or (wlow is None) is not (whigh is None) or (
+            wlow is not None and whigh < wlow):
         raise ValueError(
-            f"rank_order: want w[m] and a weight range of 1 to {RANK_ORDER_MAX_RANGE} values, "
+            f"rank_order: want w[m] and either no weight range or one of at least one value, "
             f"got {tuple(w.shape)}, [{wlow}, {whigh}]"
         )
+    return rank_key(w, wlow, whigh)
 
 
-def rank_order_torch(w, wlow: int, whigh: int):
-    """The edge ids by ``(w, edge id)``, int32: a stable sort of ``w -
-    wlow``."""
-    _check_rank_order(w, wlow, whigh)
-    return torch.sort(w - wlow, stable=True).indices.to(torch.int32)
+def rank_key64_torch(w):
+    """K7's 64-bit key of int64 or float64 ``w`` less 2^63, as an int64
+    whose signed order is the key's unsigned order: an int64 ``w`` as it
+    is; a float64's bits with -0.0 read as +0.0, every NaN as one positive
+    quiet NaN (after +inf), and the bits below the sign flipped where the
+    sign is set."""
+    if w.dtype is torch.int64:
+        return w
+    bits = w.view(torch.int64)
+    bits = torch.where(bits == _INT64_MIN, 0, bits)
+    bits = torch.where(torch.isnan(w), _QUIET_NAN_BITS, bits)
+    return bits ^ ((bits >> 63) & _INT64_MAX)
 
 
-def rank_order(w, wlow: int, whigh: int):
-    """K7: the rank order of int64 weights ``w`` whose values lie in
-    ``[wlow, whigh]``, a range of at most ``RANK_ORDER_MAX_RANGE`` values:
-    ``order[r]``, the edge of rank ``r``, int32. Replaces no TPU kernel: the
-    JAX package sorts on the host (``Graph._rank_order``). One launch runs
-    every digit pass (:func:`rank_order_passes`); the kernel does not check
-    that the weights lie in the range."""
-    if w.is_cpu:
-        return rank_order_torch(w, wlow, whigh)
-    device = _validate("rank_order", {"w": w}, {"w": torch.int64})
-    _check_rank_order(w, wlow, whigh)
+def rank_key_bits_torch(key) -> tuple[int, int]:
+    """The OR and the AND of :func:`rank_key64_torch`'s keys, as the
+    kernel's first read gives them (for :func:`_digits_of_bits`)."""
+    bits = key.numpy()
+    return int(np.bitwise_or.reduce(bits)), int(np.bitwise_and.reduce(bits))
+
+
+def _digits_of_bits(any_bits: int, all_bits: int) -> int:
+    """The digit mask of keys whose OR is ``any_bits`` and AND ``all_bits``:
+    a digit is the same in every key where the two agree."""
+    spread = any_bits ^ all_bits
+    return sum(1 << d for d in range(RANK_KEY64_DIGITS) if (spread >> (8 * d)) & 0xFF)
+
+
+def rank_order_torch(w, wlow: int | None = None, whigh: int | None = None):
+    """The edge ids by ``(w, edge id)``, int32: a stable sort of the key
+    :func:`rank_key` names (``w - wlow``, or :func:`rank_key64_torch`)."""
+    if _check_rank_order(w, wlow, whigh) == "int32":
+        return torch.sort(w - wlow, stable=True).indices.to(torch.int32)
+    return torch.sort(rank_key64_torch(w), stable=True).indices.to(torch.int32)
+
+
+def sort_rank_order(w, wlow: int | None = None, whigh: int | None = None) -> RankOrder:
+    """K7: the rank order of int64 or float64 weights ``w``, in the order of
+    NumPy's stable argsort (equal weights by edge id; -0.0 equal to +0.0;
+    NaN after +inf). Replaces no TPU kernel: the JAX package sorts on the
+    host (``Graph._rank_order``). Int64 weights whose values lie in
+    ``[wlow, whigh]``, a range of at most ``RANK_ORDER_MAX_RANGE`` values,
+    sort by 32-bit keys in every digit pass :func:`rank_order_passes` names,
+    one launch; the kernel does not check that they lie in the range. Other
+    int64 weights (or no range given) and float64 weights sort by 64-bit
+    keys: one read of the keys for their OR and AND, one host read of the
+    two words, then one launch of a pass for each digit that is not the
+    same in every key."""
+    key = _check_rank_order(w, wlow, whigh)
     m = w.numel()
+    if w.is_cpu:
+        order = rank_order_torch(w, wlow, whigh)
+        if not m:
+            passes = 0
+        elif key == "int32":
+            passes = rank_order_passes(wlow, whigh)
+        else:
+            passes = bin(_digits_of_bits(*rank_key_bits_torch(rank_key64_torch(w)))).count("1")
+        return RankOrder(order, key, passes)
+    device = _validate("rank_order", {"w": w}, {"w": w.dtype})
     order = torch.empty(m, dtype=torch.int32, device=w.device)
+    passes = 0
     if m:
         lib = _lib()
-        passes = rank_order_passes(wlow, whigh)
-        scratch = torch.empty(lib.rank_order_scratch(m, passes), dtype=torch.int32,
-                              device=w.device)
-        code = lib.rank_order(device, w.data_ptr(), wlow, passes, order.data_ptr(),
-                              scratch.data_ptr(), scratch.numel(), m, _current_stream(device))
+        stream = _current_stream(device)
+        if key == "int32":
+            passes = rank_order_passes(wlow, whigh)
+            scratch = torch.empty(lib.rank_order_scratch(m, passes), dtype=torch.int32,
+                                  device=w.device)
+            code = lib.rank_order(device, w.data_ptr(), wlow, passes, order.data_ptr(),
+                                  scratch.data_ptr(), scratch.numel(), m, stream)
+        else:
+            kind = RANK_KEY64_KINDS[key]
+            bits = torch.empty(2, dtype=torch.int64, device=w.device)
+            code = lib.rank_key_bits(device, w.data_ptr(), kind, bits.data_ptr(), m, stream)
+            if code:
+                _fail("rank_order", lib, code)
+            digits = _digits_of_bits(*bits.tolist())
+            passes = bin(digits).count("1")
+            if digits:
+                scratch = torch.empty(lib.rank_order64_scratch(m, passes), dtype=torch.uint8,
+                                      device=w.device)
+                code = lib.rank_order64(device, w.data_ptr(), kind, digits, order.data_ptr(),
+                                        scratch.data_ptr(), scratch.numel(), m, stream)
+            else:  # every key equal: the stable order is the edge ids'
+                torch.arange(m, dtype=torch.int32, device=w.device, out=order)
         if code:
             _fail("rank_order", lib, code)
         rank_order.launches += 1
-    return order
+    return RankOrder(order, key, passes)
+
+
+def rank_order(w, wlow: int | None = None, whigh: int | None = None):
+    """The ``order`` of :func:`sort_rank_order`: ``order[r]``, the edge of
+    rank ``r``, int32. A CPU tensor takes :func:`rank_order_torch`. K7's
+    entry in ``WRAPPERS``, beside its plain version, as every kernel's is;
+    its ``launches`` count :func:`sort_rank_order`'s launches."""
+    return sort_rank_order(w, wlow, whigh).order
 
 
 rank_order.launches = 0

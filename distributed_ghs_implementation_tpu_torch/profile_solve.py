@@ -27,8 +27,7 @@ level loop, harvest of the edge ids. Those of ``rank`` are read off the
 solver's own spans on the event bus as the route ``solve_graph`` takes
 runs, cold (the graph's rank orders dropped first): ``first_ranks`` (K6
 on the card over the rank endpoints), the rest of the prep (``stage_s``:
-the rank order, ``rank_order_s``, on the card for integer weights within
-2^22 values; the endpoint gather; level 1 on the card, ``host_levels_s``;
+the rank order, ``rank_order_s``, on the card; the endpoint gather; level 1 on the card, ``host_levels_s``;
 split into the rank endpoints, level 1 (``level1_s``), filling the pinned
 buffers, issuing the copies and waiting for them), the head (level 2 over
 every rank, or over the filter route's prefix; after a misprediction, the

@@ -526,13 +526,58 @@ def test_rank_order_kernel_matches_plain_on_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(pair, want)), name
 
 
+def _rank_order64_cases():
+    """``(name, w)``: float64 weights of every class (both zeros, both
+    infinities, subnormals, NaN of both signs) among random ones and tied,
+    uniform in [0, 1), and int64 over the whole range or differing in one
+    digit, at sizes around K7's 4,096-key tile."""
+    rng = np.random.default_rng(64)
+    fin = np.finfo(np.float64)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, 5e-324, -5e-324, fin.tiny, -fin.tiny,
+                         fin.max, -fin.max, 1.0, -1.0, np.nan, -np.nan])
+    cases = []
+    for m in (1, 2, 33, 4095, 4096, 4097, 70_001, 1_000_003):
+        mixed = rng.standard_normal(m) * 10.0 ** rng.integers(-300, 300, m)
+        pick = rng.random(m) < 0.3
+        mixed[pick] = rng.choice(specials, int(pick.sum()))
+        wide = rng.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64, endpoint=True)
+        wide[: m // 3] = rng.choice(np.array([-(1 << 62), 1 << 62, -(1 << 63), (1 << 63) - 1]),
+                                    m // 3)
+        cases += [(f"m={m} float specials", rng.choice(specials, m)),
+                  (f"m={m} float mixed", mixed),
+                  (f"m={m} float in [0, 1)", rng.random(m)),
+                  (f"m={m} float ties", rng.choice(np.array([-2.5, -0.0, 0.0, 7.0]), m)),
+                  (f"m={m} int64 wide", wide),
+                  (f"m={m} int64 one digit", rng.integers(0, 256, m, dtype=np.int64) << 40)]
+    return cases
+
+
+@pytest.mark.gpu
+def test_rank_order_64_bit_kernel_matches_plain_on_card(cuda):
+    """K7 over 64-bit keys against its torch form and NumPy's stable
+    argsort, element for element, one launch a sort, over the digit passes
+    the torch form names (a digit the same in every key skipped)."""
+    for name, w in _rank_order64_cases():
+        wd = _t(w).to(cuda)
+        launches = kernels.rank_order.launches
+        got = kernels.sort_rank_order(wd)
+        torch.cuda.synchronize()
+        assert kernels.rank_order.launches == launches + 1, name
+        assert got.key == ("float64" if w.dtype == np.float64 else "int64"), name
+        want = kernels.sort_rank_order(_t(w))
+        assert got.passes == want.passes, name
+        assert torch.equal(got.order.cpu(), want.order), name
+        np.testing.assert_array_equal(got.order.cpu().numpy(), np.argsort(w, kind="stable"),
+                                      name)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["integer", "wide", "float"])
 def test_prep_rank_endpoints_on_card_equal_cpu(cuda, kind):
     """The prep's rank endpoints on the card equal the CPU's and the host's:
-    integer weights through K7 and the gather (the order held on the graph,
-    the host order unfilled), a range over 2^22 values and float weights
-    through the host order."""
+    every weight through K7 and the gather (the order held on the graph,
+    the host order unfilled), integers within 2^22 values by the 32-bit
+    key, a wider range and floats by the 64-bit one."""
     g = generators.rmat_graph(16, 16, seed=4)
     w = {"integer": g.w, "wide": g.w * 40_000, "float": g.w + 0.5}[kind]
     graph = edgelist.Graph(g.num_nodes, g.u, g.v, w)
@@ -540,10 +585,9 @@ def test_prep_rank_endpoints_on_card_equal_cpu(cuda, kind):
     k7 = kernels.rank_order.launches
     ra, rb = rank_solver._rank_endpoints(graph, m_pad, cuda)
     torch.cuda.synchronize()
-    device = kind == "integer"
-    assert kernels.rank_order.launches == k7 + device
-    assert ("_rank_order" in graph.__dict__) is not device
-    assert (boruvka.held_rank_order(graph, ra.device) is not None) is device
+    assert kernels.rank_order.launches == k7 + 1
+    assert "_rank_order" not in graph.__dict__
+    assert boruvka.held_rank_order(graph, ra.device) is not None
     want = edgelist.Graph(g.num_nodes, g.u, g.v, w).rank_endpoints(pad_to=m_pad)
     np.testing.assert_array_equal(ra.cpu().numpy(), want[0])
     np.testing.assert_array_equal(rb.cpu().numpy(), want[1])

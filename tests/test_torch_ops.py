@@ -425,6 +425,15 @@ int ghs_rank_order(int d, const void* a, long long wlow, int passes, void* b, vo
   return mix(11 * d + 3 * H(a) + 47 * (uint64_t)wlow + 37 * (uint64_t)passes + 5 * H(b) +
              7 * H(c) + 31 * (uint64_t)words + 41 * (uint64_t)m + 29 * H(s));
 }
+int ghs_rank_key_bits(int d, const void* a, int kind, void* b, long long m, void* s) {
+  return mix(11 * d + 3 * H(a) + 53 * (uint64_t)kind + 5 * H(b) + 41 * (uint64_t)m + 29 * H(s));
+}
+long long ghs_rank_order64_scratch(long long m, int passes) { return 59 * m + passes; }
+int ghs_rank_order64(int d, const void* a, int kind, int digits, void* b, void* c,
+                     long long bytes, long long m, void* s) {
+  return mix(11 * d + 3 * H(a) + 53 * (uint64_t)kind + 61 * (uint64_t)digits + 5 * H(b) +
+             7 * H(c) + 31 * (uint64_t)bytes + 41 * (uint64_t)m + 29 * H(s));
+}
 int ghs_rank_endpoints(int d, const void* a, const void* b, const void* c, void* e, void* f,
                        long long m, long long m_pad, void* s) {
   return mix(11 * d + 3 * H(a) + 5 * H(b) + 7 * H(c) + 13 * H(e) + 17 * H(f) +
@@ -486,6 +495,14 @@ def test_binding_passes_each_launcher_its_arguments(monkeypatch, stub_binding):
         assert mod.rank_order(1, ptr[0], wlow, 2, ptr[1], ptr[2], big + 1, big, stream) == _mix(
             11, 3 * ptr[0], 47 * wlow, 37 * 2, 5 * ptr[1], 7 * ptr[2], 31 * (big + 1), 41 * big,
             29 * stream)
+    assert mod.rank_order64_scratch(big, 8) == 59 * big + 8
+    for kind in (0, 1):
+        assert mod.rank_key_bits(1, ptr[0], kind, ptr[1], big, stream) == _mix(
+            11, 3 * ptr[0], 53 * kind, 5 * ptr[1], 41 * big, 29 * stream)
+        assert mod.rank_order64(1, ptr[0], kind, 0xA5, ptr[1], ptr[2], big + 1, big,
+                                stream) == _mix(
+            11, 3 * ptr[0], 53 * kind, 61 * 0xA5, 5 * ptr[1], 7 * ptr[2], 31 * (big + 1),
+            41 * big, 29 * stream)
     assert mod.rank_endpoints(2, *ptr[:5], big, big + 3, stream) == _mix(
         22, *h(*ptr[:5]), 41 * big, 31 * (big + 3), 29 * stream)
     for row_indexed in (0, 1):

@@ -351,11 +351,10 @@ def test_a_kernel_build_failure_is_fatal(monkeypatch, cause):
 @pytest.mark.parametrize("cause", BUILD_FAILURES, ids=lambda e: type(e).__name__)
 def test_a_native_build_failure_is_fatal_in_every_rung(monkeypatch, cause):
     """The native host library that cannot be built or loaded raises
-    :class:`KernelBuildError` in the device rung where it ranks the edges
-    with it (integer weights over 2^22 values, which the device order does
-    not take) and in the host rung alike: fatal, not transient and not
-    "unavailable". The device rung of weights within 2^22 values sorts on
-    the device and never needs the library."""
+    :class:`KernelBuildError` in every rung that ranks the edges with it,
+    the host rung: fatal, not transient and not "unavailable". The device
+    rung sorts every weight on the device, integers over 2^22 values too
+    (K7's 64-bit key), and never needs the library."""
     def build_library():
         raise cause
 
@@ -363,14 +362,14 @@ def test_a_native_build_failure_is_fatal_in_every_rung(monkeypatch, cause):
     wide = type(g)(g.num_nodes, g.u, g.v, g.w << 23)
     monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(tnative, "build_library", build_library)
-    for entry, graph in (("device", wide), ("host", g)):
-        mark = TBUS.mark()
-        with pytest.raises(_build.KernelBuildError) as info:
-            tres.Supervisor().solve(graph, entry=entry, device=CPU)
-        assert info.value.__cause__ is cause
-        assert _attempts(mark) == [(entry, "fatal")]
-    edge_ids = tres.Supervisor().solve(g, entry="device", device=CPU)[0]
-    np.testing.assert_array_equal(edge_ids, rank_oracle_edge_ids(g))
+    mark = TBUS.mark()
+    with pytest.raises(_build.KernelBuildError) as info:
+        tres.Supervisor().solve(g, entry="host", device=CPU)
+    assert info.value.__cause__ is cause
+    assert _attempts(mark) == [("host", "fatal")]
+    for graph in (wide, g):
+        edge_ids = tres.Supervisor().solve(graph, entry="device", device=CPU)[0]
+        np.testing.assert_array_equal(edge_ids, rank_oracle_edge_ids(g))
 
 
 @pytest.mark.parametrize("entry", ["device", "stepped"])

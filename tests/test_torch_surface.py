@@ -378,11 +378,14 @@ def test_native_planes_equal_the_numpy_encode():
 
 @pytest.mark.parametrize("branch", ["narrow", "high-ids", "wide", "float"])
 def test_rank_endpoints_take_the_way_their_input_selects(graphs, branch):
-    """``_rank_endpoints`` picks its way from the weights: the device rank
-    order and gather for integers within 2^22 values (``narrow``, and
-    ``high-ids`` with every byte of the 24-bit ids in use), the host order
-    for a wider integer range and for floats. Each gives JAX's pair, from
-    a graph that holds no rank order."""
+    """``_rank_endpoints`` takes the device rank order and gather for
+    every weight, and picks K7's key from them: 32-bit for integers within
+    2^22 values (``narrow``, and ``high-ids`` with every byte of the 24-bit
+    ids in use), 64-bit for a wider integer range and for floats. Each
+    gives JAX's pair, from a graph that holds no rank order, and leaves
+    the host order unfilled."""
+    from distributed_ghs_implementation_tpu_torch.obs.events import BUS
+
     if branch == "high-ids":
         jg, tg = _high_ids()
     elif branch == "wide":
@@ -394,9 +397,16 @@ def test_rank_endpoints_take_the_way_their_input_selects(graphs, branch):
         jg, tg = graphs["rmat13" if branch == "narrow" else "gnm-float"]
     tg = tedge.Graph(tg.num_nodes, tg.u, tg.v, tg.w)
     m_pad = trs._bucket_size(tg.num_edges)
-    pair = trs._rank_endpoints(tg, m_pad, torch.device(CPU))
+    enabled, mark = BUS.enabled, BUS.mark()
+    BUS.enable()
+    try:
+        pair = trs._rank_endpoints(tg, m_pad, torch.device(CPU))
+    finally:
+        BUS.enabled = enabled
     assert all(t.dtype == torch.int32 for t in pair)
     _same_arrays([t.numpy() for t in pair], jg.rank_endpoints(pad_to=m_pad))
-    on_device = branch in ("narrow", "high-ids")
-    assert ("_rank_order" in tg.__dict__) is not on_device
-    assert (tb.held_rank_order(tg) is not None) is on_device
+    keys = [rec[6]["key"] for rec in BUS.events_since(mark)
+            if rec[0] == "X" and rec[1] == "solver.prep.rank_order"]
+    assert keys == [{"wide": "int64", "float": "float64"}.get(branch, "int32")]
+    assert "_rank_order" not in tg.__dict__
+    assert tb.held_rank_order(tg) is not None

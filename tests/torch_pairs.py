@@ -147,15 +147,15 @@ def _args(args, port: bool):
 
 
 #: Events only the port emits: the rank route's prep steps and solve
-#: phases, the staging and host-read counters' timeline samples, the
-#: harvest and the API's components count. A port trail leaves them out,
+#: phases, the staging, host-read and K7 pass counters' timeline samples,
+#: the harvest and the API's components count. A port trail leaves them out,
 #: and the ``route`` argument of its ``solver.rank.solve``, before it is
 #: compared with JAX's.
 PORT_ONLY_EVENTS = (
     "solver.prep", "solver.prep.rank_order", "solver.prep.endpoints", "solver.prep.stage",
     "solver.prep.first_ranks", "solver.prep.level1", "solver.prep.copy_wait", "solver.stage.h2d_bytes", "solver.rank.head",
     "solver.rank.finish", "solver.rank.filter", "solver.rank.replay",
-    "solver.rank.host_reads", "solver.harvest", "api.components",
+    "solver.rank.host_reads", "solver.harvest", "api.components", "kernels.rank_order.passes",
 )
 
 
